@@ -1,0 +1,1 @@
+"""CUDA kernels of the port, each beside its plain PyTorch version."""

@@ -1,0 +1,110 @@
+"""The port stands alone: ``cstp_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``cstp_tpu``, and no entry point
+moves to the CPU unless asked.
+
+The import check runs in a subprocess, because this test session has
+imported JAX already (tests/conftest.py).
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_CHECK = """
+import importlib, pkgutil, sys
+import cstp_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(cstp_tpu_torch.__path__,
+                                               "cstp_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "flax", "cstp_tpu")
+             or m.startswith(("jax.", "jaxlib.", "flax.", "cstp_tpu.")))
+print(len(names), bad)
+"""
+
+
+def _is_jax_or_package(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "cstp_tpu")
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 15, out.stdout
+    assert bad == "[]", bad
+
+
+def _static_imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "cstp_tpu_torch"])
+def test_static_imports_stay_out_of_jax(path):
+    files = ([ROOT / path] if path.endswith(".py")
+             else sorted((ROOT / path).rglob("*.py")))
+    for f in files:
+        bad = [m for m in _static_imports(f) if _is_jax_or_package(m)]
+        assert not bad, (f, bad)
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Without a card the smoke run exits non-zero and prints no result;
+    so does a copy of the script alone, outside the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (ROOT, tmp_path):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, PYTHONPATH=""))
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_entry_points_refuse_missing_cuda():
+    """CUDA is the default device; without it an entry point raises rather
+    than running on the CPU. ``device="cpu"`` is honoured."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    from cstp_tpu_torch import resolve_device
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.train.pretrain import create_pretrain_state
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    cfg = Config(model_name="r21d", sample_duration=4, sample_size=32,
+                 batch_size=2).finalize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_pretrain_state(cfg)
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("flag", [
+    dict(grad_accum=2, batch_size=4), dict(concat_views=0), dict(remat=True),
+    dict(remat_policy="bnrelu"), dict(s2d_stem=True), dict(t_fold=1),
+    dict(quant="int8"), dict(mid_round=128), dict(ntxent_weight=0.5),
+    dict(shard_opt_state=1), dict(model_name="s3d"),
+])
+def test_config_refuses_unported_flags(flag):
+    from cstp_tpu_torch.config import Config
+
+    with pytest.raises(NotImplementedError):
+        Config(**flag).finalize()
