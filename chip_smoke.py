@@ -6,9 +6,12 @@
 
 Phases:
   1. device and build: the card's name and power limit, then every CUDA
-     kernel of the pretrain path built from ``cstp_tpu_torch/csrc``;
-  2. each kernel against its plain PyTorch version on the card, at the
-     shapes the pretrain step gives it, with times and roofline bounds;
+     kernel of the port built from ``cstp_tpu_torch/csrc``;
+  2. each kernel against its plain PyTorch version on the card, with times
+     and roofline bounds: both (2+1)D conv kernel pairs (K2/K3, tiling
+     "clip", and K4a/K4b, tiling "taps9") at the four sites of the pretrain
+     step, K4a/K4b also at the conv-block benchmark's default shape, and
+     the augment kernel;
   3. the pretrain step itself (R(2+1)D depth 1, 16 x 112^2, bf16, per-view
      batch 16, fused conv blocks and fused augmentation): one warm-up and
      three timed steps, with the kernels' launch counts, then one step
@@ -17,10 +20,15 @@ Phases:
      kernel configuration, the plain bf16 configuration (``fused_conv=0``,
      ``pallas_augment="off"``) and the plain float32 one, which arbitrates
      how far bf16 rounding alone moves the update; then each one's step
-     time.
-Then one JSON line describing the kernels, the card's name and power limit,
-and a last JSON line ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before that line. Imports nothing of JAX.
+     time;
+  5. the conv-block benchmark entry (``cstp_tpu_torch.perf.bench_conv21d``)
+     at its default shapes, once per tiling: the taps9 run's fused forward
+     must launch K4a/K4b and not K2/K3, and the two tilings' outputs must
+     agree on one seeded input.
+Then one JSON line describing the kernels (``launches`` null with
+``--kernels-only``), the card's name and power limit, and a last JSON line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
+line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ SITES = [
     ("conv5.block1.conv2", 2, 7, 512, 1152, 512, 1),
 ]
 G = 2                   # per-view BN groups in the towers
+# the conv-block benchmark's default shape: (name, N, T, H=W, Cin, M, Cout)
+BENCH_SHAPE = ("bench_conv21d default (conv2 shape, 2 x 64 clips)", 128, 16,
+               56, 64, 144, 64)
 
 
 def log(msg: str) -> None:
@@ -94,16 +105,70 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
+def _hold_pair(tiling, x, ws, wt, scale, bias):
+    """One tiling's kernel pair against the plain version on one input.
+    Returns per pass its max abs error, kernel ms, and the operations and
+    bytes the pass must do: one spatial conv, plus the temporal conv in pass
+    B (what the TPU kernel does once; the taps9 recompute is not counted),
+    each input read once and each output written once."""
+    from cstp_tpu_torch.ops import conv21d as C
+
+    cin, m = ws.shape[2:]
+    cout = wt.shape[2]
+    if tiling == "clip":
+        xk = x.contiguous()
+        wsk = ws.to(torch.bfloat16).reshape(9 * cin, m).contiguous()
+        stats, fwd = C.run_stats, C.run_fwd
+    else:
+        xk = C.pad_hw(x.contiguous())
+        wsk = ws.to(torch.bfloat16).contiguous()
+        stats, fwd = C.run_stats_taps9, C.run_fwd_taps9
+    wtb = wt.to(torch.bfloat16).contiguous()
+    gm, gv = stats(xk, wsk, G)
+    out = fwd(xk, wsk, wtb, gm, gv, scale, bias, G)
+    pm, pv = C.reference_stats(x, ws, G)
+    # pass B given the same statistics, so its check isolates pass B
+    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, G)
+    torch.cuda.synchronize()
+    e_stats = max((gm - pm).abs().max().item(), (gv - pv).abs().max().item())
+    e_fwd = (out.float() - pout.float()).abs().max().item()
+    # tolerances: bf16 rounding of the spatial conv differs with the
+    # summation order (one bf16 ulp on some mid values), which moves the
+    # statistics by a small fraction of an ulp and the bf16 output by a
+    # few ulps (as tests/test_conv21d.py allows)
+    ok = (torch.allclose(gm, pm, rtol=1e-2, atol=1e-3)
+          and torch.allclose(gv, pv, rtol=1e-2, atol=1e-3)
+          and torch.allclose(out.float(), pout.float(), rtol=0.1, atol=0.05))
+    npix = x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3]
+    ops_s = 2.0 * npix * 9 * cin * m
+    bytes_s = xk.numel() * 2 + wsk.numel() * 2 + 2 * G * m * 4
+    ops_f = ops_s + 2.0 * npix * 3 * m * cout
+    bytes_f = (xk.numel() * 2 + wsk.numel() * 2 + wtb.numel() * 2
+               + 2 * G * m * 4 + 2 * m * 4 + npix * cout * 2)
+    ms_s = time_ms(lambda: stats(xk, wsk, G))
+    ms_f = time_ms(lambda: fwd(xk, wsk, wtb, gm, gv, scale, bias, G))
+    return ok, {"stats": (ms_s, e_stats, ops_s, bytes_s),
+                "fwd": (ms_f, e_fwd, ops_f, bytes_f)}
+
+
 def phase_conv21d(dev):
-    """K2 (stats) and K3 (fwd) against the plain chain at the four sites."""
+    """Both conv kernel pairs against the plain chain at the four sites,
+    and K4a/K4b at the benchmark's default shape. K2/K3 (``stats``, ``fwd``)
+    are summed over one pretrain step's launches; K4a/K4b (``stats_taps9``,
+    ``fwd_taps9``) are one launch at the benchmark's shape, their main
+    path."""
     from cstp_tpu_torch.ops import conv21d as C
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    n = 2 * B_VIEW
-    # per kernel: times and bounds summed over one step's launches
     res = {k: dict(ms=0.0, plain_ms=0.0, bound=0.0, ops_ms=0.0, bytes_ms=0.0,
-                   err=0.0) for k in ("stats", "fwd")}
-    for site, t, hw, cin, m, cout, calls in SITES:
+                   err=0.0) for k in ("stats", "fwd", "stats_taps9",
+                                      "fwd_taps9")}
+    # (site, N, T, H=W, Cin, M, Cout, {tiling: weight in the record})
+    shapes = [(site, 2 * B_VIEW, t, hw, cin, m, cout,
+               {"clip": TOWERS * calls, "taps9": 0})
+              for site, t, hw, cin, m, cout, calls in SITES]
+    shapes.append((*BENCH_SHAPE, {"taps9": 1}))
+    for site, n, t, hw, cin, m, cout, weights in shapes:
         def rnd(*shape, std=1.0):
             return torch.randn(shape, generator=gen, device=dev) * std
         x = rnd(n, t, hw, hw, cin).to(torch.bfloat16)
@@ -111,58 +176,40 @@ def phase_conv21d(dev):
         wt = rnd(3, m, cout, std=(3 * m) ** -0.5)
         scale = 0.5 + torch.rand(m, generator=gen, device=dev)
         bias = rnd(m, std=0.1)
-        xb = x.contiguous()
-        ws2 = ws.to(torch.bfloat16).reshape(9 * cin, m).contiguous()
-        wtb = wt.to(torch.bfloat16).contiguous()
-
-        gm, gv = C.run_stats(xb, ws2, G)
-        out = C.run_fwd(xb, ws2, wtb, gm, gv, scale, bias, G)
-        pm, pv = C.reference_stats(x, ws, G)
-        # pass B given the same statistics, so its check isolates pass B
-        pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, G)
-        torch.cuda.synchronize()
-        e_stats = max((gm - pm).abs().max().item(), (gv - pv).abs().max().item())
-        e_fwd = (out.float() - pout.float()).abs().max().item()
-        # tolerances: bf16 rounding of the spatial conv differs with the
-        # summation order (one bf16 ulp on some mid values), which moves the
-        # statistics by a small fraction of an ulp and the bf16 output by a
-        # few ulps (as tests/test_conv21d.py allows)
-        ok_stats = (torch.allclose(gm, pm, rtol=1e-2, atol=1e-3)
-                    and torch.allclose(gv, pv, rtol=1e-2, atol=1e-3))
-        ok_fwd = torch.allclose(out.float(), pout.float(), rtol=0.1, atol=0.05)
-        npix = n * t * hw * hw
-        ops_s = 2.0 * npix * 9 * cin * m
-        bytes_s = x.numel() * 2 + ws2.numel() * 2 + 2 * G * m * 4
-        ops_f = ops_s + 2.0 * npix * 3 * m * cout
-        bytes_f = (x.numel() * 2 + ws2.numel() * 2 + wtb.numel() * 2
-                   + 2 * G * m * 4 + 2 * m * 4 + npix * cout * 2)
-        ms_s = time_ms(lambda: C.run_stats(xb, ws2, G))
-        ms_f = time_ms(lambda: C.run_fwd(xb, ws2, wtb, gm, gv, scale, bias, G))
-        pms_s = time_ms(lambda: C.reference_stats(x, ws, G))
-        pms_f = time_ms(lambda: C.reference_chain(x, ws, wt, scale, bias,
-                                                  gm, gv, G))
-        b_s, _ = bound_ms(ops_s, bytes_s, PEAK_BF16)
-        b_f, _ = bound_ms(ops_f, bytes_f, PEAK_BF16)
+        gm, gv = C.reference_stats(x, ws, G)
+        pms = {"stats": time_ms(lambda: C.reference_stats(x, ws, G)),
+               "fwd": time_ms(lambda: C.reference_chain(x, ws, wt, scale, bias,
+                                                        gm, gv, G))}
         log(f"[conv21d] {site} N={n} T={t} {hw}x{hw} Cin={cin} M={m} "
-            f"Cout={cout}: stats err {e_stats:.3e} (tol rtol 1e-2 atol 1e-3) "
-            f"{ms_s:.3f} ms, plain {pms_s:.3f} ms, bound {b_s:.3f} ms | "
-            f"fwd err {e_fwd:.3e} (tol rtol 0.1 atol 0.05) {ms_f:.3f} ms, "
-            f"plain {pms_f:.3f} ms, bound {b_f:.3f} ms | library_ms null")
-        if not (ok_stats and ok_fwd):
-            raise SystemExit(f"conv21d kernel disagrees with its plain version"
-                             f" at {site}")
-        for key, ms, pms, ops, nb, err in (
-                ("stats", ms_s, pms_s, ops_s, bytes_s, e_stats),
-                ("fwd", ms_f, pms_f, ops_f, bytes_f, e_fwd)):
-            r = res[key]
-            per_step = TOWERS * calls
-            r["ms"] += per_step * ms
-            r["plain_ms"] += per_step * pms
-            r["bound"] += per_step * bound_ms(ops, nb, PEAK_BF16)[0]
-            r["ops_ms"] += per_step * ops / PEAK_BF16 * 1e3
-            r["bytes_ms"] += per_step * nb / PEAK_BYTES * 1e3
-            r["err"] = max(r["err"], err)
-        del x, xb, out, pout
+            f"Cout={cout}: plain stats {pms['stats']:.3f} ms, plain fwd "
+            f"{pms['fwd']:.3f} ms")
+        ms = {}
+        for tiling, weight in weights.items():
+            ok, passes = _hold_pair(tiling, x, ws, wt, scale, bias)
+            parts = []
+            for p, (kms, err, ops, nb) in passes.items():
+                b, by = bound_ms(ops, nb, PEAK_BF16)
+                ms[tiling, p] = kms
+                parts.append(f"{p} err {err:.3e} {kms:.3f} ms, bound {b:.3f} "
+                             f"ms ({by})")
+                r = res[p if tiling == "clip" else f"{p}_taps9"]
+                r["ms"] += weight * kms
+                r["plain_ms"] += weight * pms[p]
+                r["bound"] += weight * b
+                r["ops_ms"] += weight * ops / PEAK_BF16 * 1e3
+                r["bytes_ms"] += weight * nb / PEAK_BYTES * 1e3
+                r["err"] = max(r["err"], err)
+            log(f"[conv21d]   {tiling:5s}: " + " | ".join(parts)
+                + " | tol stats rtol 1e-2 atol 1e-3, fwd rtol 0.1 atol 0.05"
+                " | library_ms null")
+            if not ok:
+                raise SystemExit(f"conv21d {tiling} kernels disagree with "
+                                 f"their plain version at {site}")
+        if "clip" in weights:
+            log(f"[conv21d]   taps9 / clip time: stats "
+                f"{ms['taps9', 'stats'] / ms['clip', 'stats']:.2f}x, fwd "
+                f"{ms['taps9', 'fwd'] / ms['clip', 'fwd']:.2f}x")
+        del x, gm, gv
         torch.cuda.empty_cache()
     for r in res.values():
         r["by"] = "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes"
@@ -292,14 +339,17 @@ def _launch_counts():
     from cstp_tpu_torch.ops import conv21d as C
 
     return {"conv21d_stats": C.launches["stats"],
-            "conv21d_fwd": C.launches["fwd"], "augment": A.launches}
+            "conv21d_fwd": C.launches["fwd"],
+            "conv21d_taps9_stats": C.launches["stats_taps9"],
+            "conv21d_taps9_fwd": C.launches["fwd_taps9"],
+            "augment": A.launches}
 
 
 def _reset_launch_counts():
     from cstp_tpu_torch.ops import augment as A
     from cstp_tpu_torch.ops import conv21d as C
 
-    C.launches.update(stats=0, fwd=0)
+    C.launches.update(dict.fromkeys(C.launches, 0))
     A.launches = 0
 
 
@@ -338,6 +388,7 @@ def phase_slice(dev, card: str, steps: int = 3):
         f" {moved:.3e}; launches {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
     want = {"conv21d_stats": 10 * steps, "conv21d_fwd": 10 * steps,
+            "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
             "augment": steps}
     if counts != want:
         raise SystemExit(f"launch counts {counts}, expected {want}")
@@ -461,21 +512,68 @@ def phase_parity(dev, timed_steps: int = 2):
                 cos_p=cos_p, step_ms={n: r[2] for n, r in runs.items()})
 
 
+def phase_bench(dev):
+    """The conv-block benchmark entry at its default shapes, once per
+    tiling, each run with the launch counts set to 0 before it and read
+    after it. The taps9 run's fused forward must launch K4a/K4b and not
+    K2/K3 (its fused gradient takes the default tiling, "clip"); the two
+    tilings' outputs must agree on one seeded input."""
+    from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.perf import bench_conv21d as bench
+
+    runs = {}
+    for tiling in ("taps9", "clip"):
+        _reset_launch_counts()
+        r = bench.main(["--tiling", tiling, "--mode", "both"])
+        runs[tiling] = (r, _launch_counts())
+        torch.cuda.empty_cache()
+    pair = {"taps9": {"stats_taps9", "fwd_taps9"}, "clip": {"stats", "fwd"}}
+    for tiling, (r, counts) in runs.items():
+        fwd = r["launches"]["fused_fwd"]
+        log(f"[bench] tiling={tiling}: " + ", ".join(
+            f"{v} {r[v]:.3f} ms" for v in bench.VARIANTS)
+            + f"; fused forward launches {fwd}; whole run {counts}")
+        if {k for k, v in fwd.items() if v} != pair[tiling]:
+            raise SystemExit(f"the {tiling} bench run's fused forward "
+                             f"launched {fwd}, expected only {pair[tiling]}")
+    _, n, t, hw, cin, m, cout = BENCH_SHAPE
+    x, ws, wt, scale, bias = bench.make_inputs(n, t, hw, cin, m, cout, dev)
+    outs = {tl: C.fused_st_conv(x, ws, wt, scale, bias, G, 1e-5, tl)[0]
+            for tl in C.TILINGS}
+    a, b = outs["taps9"].float(), outs["clip"].float()
+    err = (a - b).abs().max().item()
+    log(f"[bench] taps9 vs clip fused forward on the bench input: max abs "
+        f"diff {err:.3e} (tol rtol 0.1 atol 0.05)")
+    if not torch.allclose(a, b, rtol=0.1, atol=0.05):
+        raise SystemExit("the taps9 and clip tilings disagree")
+    del x, outs, a, b
+    torch.cuda.empty_cache()
+    return runs["taps9"][1]
+
+
 def kernels_line(conv, aug_err, aug_t, counts):
-    """The ``{"kernels": [...]}`` record; times and bounds are per step
-    (the 10 conv launches of one step, the one augment launch)."""
+    """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
+    pretrain step (its 10 launches at the four sites) and K5's its one
+    launch, with launches from the slice phase; K4a/K4b are one launch at
+    the benchmark's default shape, with launches from its taps9 run.
+    ``counts`` is None when no step ran."""
     pallas = "cstp_tpu/ops/pallas"
     rows = [
         ("conv21d_stats", "cstp_tpu_torch/csrc/conv21d.cu",
          f"{pallas}/conv21d.py:347", conv["stats"]),
         ("conv21d_fwd", "cstp_tpu_torch/csrc/conv21d.cu",
          f"{pallas}/conv21d.py:432", conv["fwd"]),
+        ("conv21d_taps9_stats", "cstp_tpu_torch/csrc/conv21d_taps9.cu",
+         f"{pallas}/conv21d.py:145", conv["stats_taps9"]),
+        ("conv21d_taps9_fwd", "cstp_tpu_torch/csrc/conv21d_taps9.cu",
+         f"{pallas}/conv21d.py:238", conv["fwd_taps9"]),
         ("augment", "cstp_tpu_torch/csrc/augment.cu",
          f"{pallas}/augment.py:244", dict(aug_t, err=aug_err)),
     ]
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": r["err"], "ms": r["ms"],
+         "launches": None if counts is None else counts[name],
+         "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
          "bound_by": r["by"], "library_ms": None}
         for name, src, rep, r in rows]}
@@ -506,11 +604,14 @@ def main(argv=None) -> int:
     phase_build()
     conv = phase_conv21d(dev)
     aug_err, aug_t = phase_augment(dev)
+    counts = None
     if not args.kernels_only:
-        sl = phase_slice(dev, card)
+        counts = dict(phase_slice(dev, card)["counts"])
         phase_parity(dev)
-        print(json.dumps(kernels_line(conv, aug_err, aug_t, sl["counts"])),
-              flush=True)
+        bench_counts = phase_bench(dev)
+        for k in ("conv21d_taps9_stats", "conv21d_taps9_fwd"):
+            counts[k] = bench_counts[k]
+    print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

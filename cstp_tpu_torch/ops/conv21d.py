@@ -3,20 +3,30 @@
 The port of ``cstp_tpu/ops/pallas/conv21d.py``: spatial (1,3,3) conv ->
 BatchNorm with batch statistics -> ReLU -> temporal (3,1,1) conv, stride 1,
 on NDHWC tensors, as two passes so the wide mid tensor never reaches device
-memory in the forward pass:
+memory in the forward pass. Each of the JAX op's two tilings has its pair of
+kernels:
 
-* ``run_stats`` (pass A, ``csrc/conv21d.cu cstp_conv21d_stats``): per BN
-  group ``(G, M)`` mean and biased variance of the bf16-rounded spatial conv;
-* ``run_fwd`` (pass B, ``cstp_conv21d_fwd``): recompute the spatial conv,
-  normalise, ReLU, round to bf16, temporal conv -> bf16 output.
+* ``tiling="clip"`` (``csrc/conv21d.cu``): ``run_stats`` (pass A,
+  ``cstp_conv21d_stats``) gives the per BN group ``(G, M)`` mean and biased
+  variance of the bf16-rounded spatial conv; ``run_fwd`` (pass B,
+  ``cstp_conv21d_fwd``) recomputes the spatial conv, normalises, applies
+  ReLU, rounds to bf16 and runs the temporal conv -> bf16 output. Both take
+  the unpadded input and one K=9*Cin product per pixel tile.
+* ``tiling="taps9"`` (``csrc/conv21d_taps9.cu``): ``run_stats_taps9`` and
+  ``run_fwd_taps9`` compute the same two passes from the input padded once
+  (``pad_hw``), with nine tap-wise K=Cin products, one block per frame (pass
+  A) or per output frame and pixel tile (pass B).
+
+The two tilings compute one function, so both pairs share one plain
+version: ``reference_stats`` and ``reference_chain``.
 
 ``fused_st_conv`` is the ``torch.autograd.Function`` around them. Its
-forward launches both kernels for CUDA tensors (in bf16, as the TPU kernels
-cast) and runs the plain version for CPU tensors, in the input's dtype.
-Its backward recomputes the plain chain with the statistics recomputed
-inside, so gradients flow through the mean and variance like a plain
-BatchNorm; the cotangents of the returned statistics are dropped (they only
-feed the running-stat update).
+forward launches the chosen pair for CUDA tensors (in bf16, as the TPU
+kernels cast) and runs the plain version for CPU tensors, in the input's
+dtype. Its backward recomputes the plain chain with the statistics
+recomputed inside, for either tiling, so gradients flow through the mean and
+variance like a plain BatchNorm; the cotangents of the returned statistics
+are dropped (they only feed the running-stat update).
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import torch.nn.functional as F
 from cstp_tpu_torch.ops import build
 
 # launches per wrapper (one per call on CUDA tensors)
-launches = {"stats": 0, "fwd": 0}
+launches = {"stats": 0, "fwd": 0, "stats_taps9": 0, "fwd_taps9": 0}
+TILINGS = ("clip", "taps9")
 
 
 # ------------------------------------------------------------ plain version
@@ -87,14 +98,19 @@ def fused_st_conv_plain(x, ws, wt, scale, bias, bn_groups: int = 1,
 # ------------------------------------------------------------ CUDA kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "cstp_conv21d_stats": ([_P] * 6 + [_I] * 7 + [_P], _I),
-    "cstp_conv21d_fwd": ([_P] * 8 + [_I] * 8 + [_P], _I),
-}
+_STATS_SIG = ([_P] * 6 + [_I] * 7 + [_P], _I)
+_FWD_SIG = ([_P] * 8 + [_I] * 8 + [_P], _I)
 
 
 def _lib():
-    return build.load("conv21d", _SIGNATURES)
+    return build.load("conv21d", {"cstp_conv21d_stats": _STATS_SIG,
+                                  "cstp_conv21d_fwd": _FWD_SIG})
+
+
+def _lib_taps9():
+    return build.load("conv21d_taps9",
+                      {"cstp_conv21d_taps9_stats": _STATS_SIG,
+                       "cstp_conv21d_taps9_fwd": _FWD_SIG})
 
 
 def _check(name, t, dtype, shape, device):
@@ -108,79 +124,148 @@ def _check(name, t, dtype, shape, device):
                          "aligned")
 
 
-def _check_dims(cin, m, cout):
-    if cin % 32 or m % 16 or cout % 16:
-        raise ValueError(f"conv21d kernels need Cin % 32 == 0, M % 16 == 0, "
-                         f"Cout % 16 == 0; got {cin}, {m}, {cout}")
+def _check_dims(cin, m, cout, k_step=32):
+    """Cin a multiple of the kernel's K step, M and Cout of 16."""
+    if cin % k_step or m % 16 or cout % 16:
+        raise ValueError(f"conv21d kernels need Cin % {k_step} == 0, "
+                         f"M % 16 == 0, Cout % 16 == 0; got {cin}, {m}, "
+                         f"{cout}")
 
 
-def run_stats(x, ws2, bn_groups: int):
-    """Pass A on CUDA: x (B, T, H, W, Cin) bf16, ws2 (9*Cin, M) bf16 ->
-    gmean, gvar (G, M) f32."""
-    b, t, h, w, cin = x.shape
-    m = ws2.shape[1]
-    _check_dims(cin, m, 16)
-    if b % bn_groups:
+def _check_input(x, ws, ws_shape, bn_groups, k_step, pad, cout=16):
+    """Checks shared by the four wrappers, before any launch: x (B, T,
+    H + pad, W + pad, Cin) bf16 with whole BN groups, ws of ``ws_shape``.
+    Returns the device and the unpadded (H, W)."""
+    b, t, hp, wp, cin = x.shape
+    _check_dims(cin, ws.shape[-1], cout, k_step)
+    if bn_groups <= 0 or b % bn_groups:
         raise ValueError(f"batch {b} not divisible by {bn_groups} BN groups")
+    if hp <= pad or wp <= pad:
+        raise ValueError(f"conv21d: {hp}x{wp} frames with padding {pad} "
+                         "hold no pixels")
     dev = x.device
-    _check("x", x, torch.bfloat16, (b, t, h, w, cin), dev)
-    _check("ws", ws2, torch.bfloat16, (9 * cin, m), dev)
+    _check("x", x, torch.bfloat16, x.shape, dev)
+    _check("ws", ws, torch.bfloat16, ws_shape, dev)
+    return dev, (hp - pad, wp - pad)
+
+
+def _require_cuda(dev):
+    if dev.type != "cuda":
+        raise ValueError(f"conv21d kernels take CUDA tensors, got {dev}")
+
+
+def _pass_a(fn, load, x, ws, ws_shape, bn_groups, k_step, pad):
+    """Pass A on CUDA: -> gmean, gvar (G, M) f32."""
+    dev, hw = _check_input(x, ws, ws_shape, bn_groups, k_step, pad)
+    _require_cuda(dev)
+    b, t, m = x.shape[0], x.shape[1], ws.shape[-1]
     psum = torch.empty((b * t, m), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
     gmean = torch.empty((bn_groups, m), dtype=torch.float32, device=dev)
     gvar = torch.empty_like(gmean)
-    err = _lib().cstp_conv21d_stats(
-        x.data_ptr(), ws2.data_ptr(), psum.data_ptr(), psq.data_ptr(),
-        gmean.data_ptr(), gvar.data_ptr(), b, t, h, w, cin, m, bn_groups,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "cstp_conv21d_stats")
-    launches["stats"] += 1
+    err = getattr(load(), fn)(
+        x.data_ptr(), ws.data_ptr(), psum.data_ptr(), psq.data_ptr(),
+        gmean.data_ptr(), gvar.data_ptr(), b, t, *hw, x.shape[-1], m,
+        bn_groups, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, fn)
     return gmean, gvar
 
 
-def run_fwd(x, ws2, wt, gmean, gvar, scale, bias, bn_groups: int,
-            eps: float = 1e-5):
+def _pass_b(fn, load, x, ws, ws_shape, wt, gmean, gvar, scale, bias,
+            bn_groups, eps, k_step, pad):
     """Pass B on CUDA: -> (B, T, H, W, Cout) bf16."""
-    b, t, h, w, cin = x.shape
-    m = ws2.shape[1]
-    cout = wt.shape[2]
-    _check_dims(cin, m, cout)
-    if b % bn_groups:
-        raise ValueError(f"batch {b} not divisible by {bn_groups} BN groups")
-    dev = x.device
+    m, cout = ws.shape[-1], wt.shape[-1]
+    dev, hw = _check_input(x, ws, ws_shape, bn_groups, k_step, pad, cout)
     rstd = torch.rsqrt(gvar + eps)
-    _check("x", x, torch.bfloat16, (b, t, h, w, cin), dev)
-    _check("ws", ws2, torch.bfloat16, (9 * cin, m), dev)
     _check("wt", wt, torch.bfloat16, (3, m, cout), dev)
     _check("gmean", gmean, torch.float32, (bn_groups, m), dev)
     _check("rstd", rstd, torch.float32, (bn_groups, m), dev)
     _check("scale", scale, torch.float32, (m,), dev)
     _check("bias", bias, torch.float32, (m,), dev)
-    out = torch.empty((b, t, h, w, cout), dtype=torch.bfloat16, device=dev)
-    err = _lib().cstp_conv21d_fwd(
-        x.data_ptr(), ws2.data_ptr(), wt.data_ptr(), gmean.data_ptr(),
+    _require_cuda(dev)
+    b, t, cin = x.shape[0], x.shape[1], x.shape[-1]
+    out = torch.empty((b, t, *hw, cout), dtype=torch.bfloat16, device=dev)
+    err = getattr(load(), fn)(
+        x.data_ptr(), ws.data_ptr(), wt.data_ptr(), gmean.data_ptr(),
         rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, t, h, w, cin, m, cout, bn_groups,
+        b, t, *hw, cin, m, cout, bn_groups,
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "cstp_conv21d_fwd")
+    build.check(err, fn)
+    return out
+
+
+def run_stats(x, ws2, bn_groups: int):
+    """Pass A, tiling "clip" (K2): x (B, T, H, W, Cin) bf16, ws2 (9*Cin, M)
+    bf16 -> gmean, gvar (G, M) f32."""
+    out = _pass_a("cstp_conv21d_stats", _lib, x, ws2,
+                  (9 * x.shape[-1], ws2.shape[-1]), bn_groups, 32, 0)
+    launches["stats"] += 1
+    return out
+
+
+def run_fwd(x, ws2, wt, gmean, gvar, scale, bias, bn_groups: int,
+            eps: float = 1e-5):
+    """Pass B, tiling "clip" (K3): -> (B, T, H, W, Cout) bf16."""
+    out = _pass_b("cstp_conv21d_fwd", _lib, x, ws2,
+                  (9 * x.shape[-1], ws2.shape[-1]), wt, gmean, gvar, scale,
+                  bias, bn_groups, eps, 32, 0)
     launches["fwd"] += 1
     return out
 
 
+def run_stats_taps9(x_pad, ws, bn_groups: int):
+    """Pass A, tiling "taps9" (K4a): x_pad (B, T, H+2, W+2, Cin) bf16, ws
+    (3, 3, Cin, M) bf16 -> gmean, gvar (G, M) f32."""
+    out = _pass_a("cstp_conv21d_taps9_stats", _lib_taps9, x_pad, ws,
+                  (3, 3, x_pad.shape[-1], ws.shape[-1]), bn_groups, 16, 2)
+    launches["stats_taps9"] += 1
+    return out
+
+
+def run_fwd_taps9(x_pad, ws, wt, gmean, gvar, scale, bias, bn_groups: int,
+                  eps: float = 1e-5):
+    """Pass B, tiling "taps9" (K4b): -> (B, T, H, W, Cout) bf16."""
+    out = _pass_b("cstp_conv21d_taps9_fwd", _lib_taps9, x_pad, ws,
+                  (3, 3, x_pad.shape[-1], ws.shape[-1]), wt, gmean, gvar,
+                  scale, bias, bn_groups, eps, 16, 2)
+    launches["fwd_taps9"] += 1
+    return out
+
+
+def pad_hw(x):
+    """(B, T, H, W, C) -> (B, T, H+2, W+2, C), zero rows and columns around
+    each frame: the padded input of the taps9 kernels (JAX ``_pad_hw``)."""
+    return F.pad(x, (0, 0, 1, 1, 1, 1))
+
+
+def _check_tiling(tiling):
+    if tiling not in TILINGS:
+        raise ValueError(f"tiling must be one of {TILINGS}, got {tiling!r}")
+
+
 def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
-                       eps: float = 1e-5):
-    """Both kernels on CUDA tensors, with the TPU kernels' bf16 casts."""
+                       eps: float = 1e-5, tiling: str = "clip"):
+    """The chosen tiling's two kernels on CUDA tensors, with the TPU
+    kernels' bf16 casts."""
+    _check_tiling(tiling)
     kh, kw, cin, m = ws.shape
     if (kh, kw) != (3, 3) or wt.shape[0] != 3:
         raise ValueError(f"conv21d kernels take ws (3, 3, Cin, M) and wt "
                          f"(3, M, Cout); got {tuple(ws.shape)}, "
                          f"{tuple(wt.shape)}")
     xb = x.to(torch.bfloat16).contiguous()
-    ws2 = ws.to(torch.bfloat16).reshape(9 * cin, m).contiguous()
-    gmean, gvar = run_stats(xb, ws2, bn_groups)
-    out = run_fwd(xb, ws2, wt.to(torch.bfloat16).contiguous(), gmean, gvar,
-                  scale.float().contiguous(), bias.float().contiguous(),
-                  bn_groups, eps)
+    wsb = ws.to(torch.bfloat16).contiguous()
+    wtb = wt.to(torch.bfloat16).contiguous()
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    if tiling == "taps9":
+        x_pad = pad_hw(xb)
+        gmean, gvar = run_stats_taps9(x_pad, wsb, bn_groups)
+        out = run_fwd_taps9(x_pad, wsb, wtb, gmean, gvar, scale, bias,
+                            bn_groups, eps)
+    else:
+        ws2 = wsb.reshape(9 * cin, m)
+        gmean, gvar = run_stats(xb, ws2, bn_groups)
+        out = run_fwd(xb, ws2, wtb, gmean, gvar, scale, bias, bn_groups, eps)
     return out, gmean, gvar
 
 
@@ -188,10 +273,10 @@ def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
 
 class FusedSTConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ws, wt, scale, bias, bn_groups, eps):
+    def forward(ctx, x, ws, wt, scale, bias, bn_groups, eps, tiling):
         if x.device.type == "cuda":
             out, gmean, gvar = fused_st_conv_cuda(x, ws, wt, scale, bias,
-                                                  bn_groups, eps)
+                                                  bn_groups, eps, tiling)
             ctx.dtype = torch.bfloat16
         else:
             ctx.dtype = x.dtype
@@ -215,13 +300,16 @@ class FusedSTConv(torch.autograd.Function):
                                     allow_unused=True)
         grads = [None if g is None else g.to(t.dtype)
                  for g, t in zip(grads, ctx.saved_tensors)]
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def fused_st_conv(x, ws, wt, scale, bias, bn_groups: int = 1,
-                  eps: float = 1e-5):
+                  eps: float = 1e-5, tiling: str = "clip"):
     """Fused spatial(1,3,3) -> BN(train stats) -> ReLU -> temporal(3,1,1).
     ``x`` (B, T, H, W, Cin) unpadded; ``ws`` (3, 3, Cin, M); ``wt``
-    (3, M, Cout); ``scale``/``bias`` (M,). Returns ``(out, gmean, gvar)``
-    with ``(G, M)`` group statistics."""
-    return FusedSTConv.apply(x, ws, wt, scale, bias, bn_groups, eps)
+    (3, M, Cout); ``scale``/``bias`` (M,). ``tiling`` picks the kernel pair
+    for CUDA tensors: "clip" (K2/K3) or "taps9" (K4a/K4b); anything else
+    raises. Returns ``(out, gmean, gvar)`` with ``(G, M)`` group
+    statistics."""
+    _check_tiling(tiling)
+    return FusedSTConv.apply(x, ws, wt, scale, bias, bn_groups, eps, tiling)

@@ -15,6 +15,7 @@ import torch
 
 from cstp_tpu.models.layers import SpatioTemporalConv as JaxSTConv
 from cstp_tpu.ops.pallas.conv21d import (
+    _pad_hw as jax_pad_hw,
     fused_st_conv as jax_fused_st_conv,
     reference_chain as jax_reference_chain,
     reference_stats as jax_reference_stats,
@@ -32,27 +33,31 @@ def _inputs(seed, b=4, t=4, h=8, w=8, cin=8, m=16, cout=8):
             (0.1 * rng.normal(size=(m,))).astype(np.float32))
 
 
-def _port(x, ws, wt, scale, bias, groups):
+def _port(x, ws, wt, scale, bias, groups, tiling="clip"):
     """The port's CPU op on bf16 activations, as the kernels take them."""
     xt = torch.from_numpy(x).to(torch.bfloat16)
     return C.fused_st_conv(xt, *map(torch.from_numpy, (ws, wt, scale, bias)),
-                           groups)
+                           groups, 1e-5, tiling)
 
 
-def _jax(x, ws, wt, scale, bias, groups):
+def _jax(x, ws, wt, scale, bias, groups, tiling="clip"):
+    """JAX's Pallas kernels of the same tiling, in interpret mode."""
     return jax_fused_st_conv(*map(jnp.asarray, (x, ws, wt, scale, bias)),
-                             groups, 1e-5, True)
+                             groups, 1e-5, True, tiling)
 
 
+@pytest.mark.parametrize("tiling", ["clip", "taps9"])
 @pytest.mark.parametrize("groups", [1, 2])
-def test_fused_forward_matches_jax_kernel(groups):
-    """Output and group statistics. Both round the spatial conv to bf16
-    before the statistics; a different accumulation order can move a mid
-    value by one bf16 ulp, so the statistics agree to 1e-2 and the bf16
-    output to a few ulps (the tolerances of tests/test_conv21d.py)."""
+def test_fused_forward_matches_jax_kernel(groups, tiling):
+    """Output and group statistics, against JAX's kernels of each tiling
+    (the port's CPU op is one plain version for both). Both round the
+    spatial conv to bf16 before the statistics; a different accumulation
+    order can move a mid value by one bf16 ulp, so the statistics agree to
+    1e-2 and the bf16 output to a few ulps (the tolerances of
+    tests/test_conv21d.py)."""
     args = _inputs(0)
-    out, gm, gv = _port(*args, groups)
-    jout, jgm, jgv = _jax(*args, groups)
+    out, gm, gv = _port(*args, groups, tiling)
+    jout, jgm, jgv = _jax(*args, groups, tiling)
     assert out.dtype == torch.bfloat16 and out.shape == (4, 4, 8, 8, 8)
     assert gm.shape == gv.shape == (groups, 16)
     np.testing.assert_allclose(gm.numpy(), np.asarray(jgm), rtol=1e-2,
@@ -64,11 +69,12 @@ def test_fused_forward_matches_jax_kernel(groups):
                                rtol=0.1, atol=0.05)
 
 
-def test_temporal_boundary_frames_match_jax_kernel():
+@pytest.mark.parametrize("tiling", ["clip", "taps9"])
+def test_temporal_boundary_frames_match_jax_kernel(tiling):
     """The first and last output frames see zero temporal padding."""
     args = _inputs(1, t=3)
-    out, _, _ = _port(*args, 1)
-    jout, _, _ = _jax(*args, 1)
+    out, _, _ = _port(*args, 1, tiling)
+    jout, _, _ = _jax(*args, 1, tiling)
     for frame in (0, 2):
         np.testing.assert_allclose(out[:, frame].float().numpy(),
                                    np.asarray(jout[:, frame], np.float32),
@@ -186,3 +192,70 @@ def test_cpu_tensors_never_reach_a_kernel():
     C.fused_st_conv(x, torch.zeros(3, 3, 8, 16), torch.zeros(3, 16, 8),
                     torch.ones(16), torch.zeros(16))
     assert (dict(C.launches), A.launches) == before
+
+
+def test_unknown_tiling_raises():
+    """Only "clip" and "taps9" are tilings; JAX reads any other value as
+    taps9, the port refuses it."""
+    x, ws, wt, scale, bias = map(torch.from_numpy, _inputs(6))
+    with pytest.raises(ValueError, match="tiling"):
+        C.fused_st_conv(x, ws, wt, scale, bias, 1, 1e-5, "bogus")
+
+
+def test_taps9_on_cpu_tensors_launches_nothing():
+    before = dict(C.launches)
+    x, ws, wt, scale, bias = map(torch.from_numpy, _inputs(7))
+    out, _, _ = C.fused_st_conv(x, ws, wt, scale, bias, 2, 1e-5, "taps9")
+    assert out.shape == (4, 4, 8, 8, 8)
+    assert dict(C.launches) == before
+
+
+def _taps9_args(cin=16, m=16, cout=16, groups=1, hp=6, ws_shape=None):
+    bf = torch.bfloat16
+    gm = torch.zeros((groups, m))
+    return (torch.zeros((2, 2, hp, hp, cin), dtype=bf),
+            torch.zeros(ws_shape or (3, 3, cin, m), dtype=bf),
+            torch.zeros((3, m, cout), dtype=bf), gm, gm, torch.ones(m),
+            torch.zeros(m), groups)
+
+
+# (shape change, the refusal's message); the dims check names all three
+_REFUSED = {"cin": (dict(cin=8), "Cin % 16"), "mid": (dict(m=24), "M % 16"),
+            "cout": (dict(cout=8), "Cout % 16"),
+            "groups": (dict(groups=3), "BN groups"),
+            "ws": (dict(ws_shape=(1, 3, 16, 16)), "ws must be"),
+            "frame": (dict(hp=2), "no pixels")}
+
+
+@pytest.mark.parametrize("case", list(_REFUSED))
+def test_taps9_wrappers_refuse_shapes_they_do_not_take(case):
+    """run_stats_taps9 / run_fwd_taps9 take Cin a multiple of 16 (their K
+    step), M and Cout multiples of 16, whole BN groups, ws (3, 3, Cin, M)
+    and padded frames that hold at least one pixel; they refuse anything
+    else before a launch."""
+    change, msg = _REFUSED[case]
+    x_pad, ws, wt, gm, gv, scale, bias, groups = _taps9_args(**change)
+    before = dict(C.launches)
+    with pytest.raises(ValueError, match=msg):
+        C.run_fwd_taps9(x_pad, ws, wt, gm, gv, scale, bias, groups)
+    if case != "cout":
+        with pytest.raises(ValueError, match=msg):
+            C.run_stats_taps9(x_pad, ws, groups)
+    assert dict(C.launches) == before
+
+
+def test_taps9_wrappers_take_cuda_tensors_only():
+    """Well-shaped CPU tensors reach no kernel: the wrappers raise."""
+    x_pad, ws, wt, gm, gv, scale, bias, groups = _taps9_args()
+    with pytest.raises(ValueError, match="CUDA"):
+        C.run_stats_taps9(x_pad, ws, groups)
+    with pytest.raises(ValueError, match="CUDA"):
+        C.run_fwd_taps9(x_pad, ws, wt, gm, gv, scale, bias, groups)
+
+
+def test_pad_hw_matches_jax():
+    """The taps9 kernels' padded input is JAX's ``_pad_hw``: one zero row
+    and column on each side of every frame."""
+    x = _inputs(8, b=2, t=2, h=5, w=7)[0]
+    np.testing.assert_array_equal(C.pad_hw(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jax_pad_hw(jnp.asarray(x), 3, 3)))

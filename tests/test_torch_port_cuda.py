@@ -29,15 +29,7 @@ def _t(a, dev, dtype=None):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
 
-@pytest.mark.parametrize("shape", [(8, 16, 56, 64, 144, 64),
-                                   (8, 8, 28, 128, 288, 128),
-                                   (8, 2, 7, 512, 1152, 512)])
-def test_conv21d_kernels_match_plain_version(dev, shape):
-    """K2 and K3 at main-path site shapes, bf16, two BN groups. Tolerances
-    as tests/test_conv21d.py: the spatial conv's bf16 rounding can differ by
-    an ulp with the summation order."""
-    n, t, hw, cin, m, cout = shape
-    rng = np.random.default_rng(0)
+def _conv_inputs(dev, rng, n, t, hw, cin, m, cout):
     x = _t(rng.normal(size=(n, t, hw, hw, cin)), dev, torch.bfloat16)
     ws = _t(rng.normal(size=(3, 3, cin, m)) * (9 * cin) ** -0.5, dev,
             torch.float32)
@@ -45,16 +37,47 @@ def test_conv21d_kernels_match_plain_version(dev, shape):
             torch.float32)
     scale = _t(rng.uniform(0.5, 1.5, m), dev, torch.float32)
     bias = _t(rng.normal(size=m) * 0.1, dev, torch.float32)
+    return x, ws, wt, scale, bias
+
+
+def _check_fused(tiling, x, ws, wt, scale, bias):
+    """One fused forward launches the tiling's pair once each (and no other
+    kernel) and matches the plain version. Tolerances as
+    tests/test_conv21d.py: the spatial conv's bf16 rounding can differ by an
+    ulp with the summation order."""
+    keys = {"clip": ("stats", "fwd"),
+            "taps9": ("stats_taps9", "fwd_taps9")}[tiling]
     before = dict(C.launches)
-    out, gm, gv = C.fused_st_conv(x, ws, wt, scale, bias, 2)
-    assert C.launches == {"stats": before["stats"] + 1,
-                          "fwd": before["fwd"] + 1}
+    out, gm, gv = C.fused_st_conv(x, ws, wt, scale, bias, 2, 1e-5, tiling)
+    assert {k: C.launches[k] - before[k] for k in C.launches} == {
+        k: int(k in keys) for k in C.launches}
     pm, pv = C.reference_stats(x, ws, 2)
     pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, 2)
     torch.testing.assert_close(gm, pm, rtol=1e-2, atol=1e-3)
     torch.testing.assert_close(gv, pv, rtol=1e-2, atol=1e-3)
     torch.testing.assert_close(out.float(), pout.float(), rtol=0.1,
                                atol=0.05)
+
+
+@pytest.mark.parametrize("tiling", ["clip", "taps9"])
+@pytest.mark.parametrize("shape", [(8, 16, 56, 64, 144, 64),
+                                   (8, 8, 28, 128, 288, 128),
+                                   (8, 2, 7, 512, 1152, 512)])
+def test_conv21d_kernels_match_plain_version(dev, shape, tiling):
+    """K2/K3 ("clip") and K4a/K4b ("taps9") at main-path site shapes, bf16,
+    two BN groups."""
+    rng = np.random.default_rng(0)
+    _check_fused(tiling, *_conv_inputs(dev, rng, *shape))
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 5, 32, 16, 16),
+                                   (2, 3, 9, 16, 48, 32),
+                                   (2, 2, 3, 16, 16, 16)])
+def test_conv21d_taps9_edge_shapes(dev, shape):
+    """K4a/K4b where a frame is smaller than a pixel tile, a tile crosses
+    image rows, and T = 1 leaves only the centre temporal tap."""
+    rng = np.random.default_rng(3)
+    _check_fused("taps9", *_conv_inputs(dev, rng, *shape))
 
 
 def test_conv21d_backward_runs_on_the_card(dev):

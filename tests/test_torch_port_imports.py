@@ -56,7 +56,8 @@ def _static_imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "cstp_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "cstp_tpu_torch",
+                                  "cstp_tpu_torch/perf"])
 def test_static_imports_stay_out_of_jax(path):
     files = ([ROOT / path] if path.endswith(".py")
              else sorted((ROOT / path).rglob("*.py")))
@@ -86,6 +87,7 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip("a CUDA GPU is present")
     from cstp_tpu_torch import resolve_device
     from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.perf import bench_conv21d
     from cstp_tpu_torch.train.pretrain import create_pretrain_state
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -94,6 +96,8 @@ def test_entry_points_refuse_missing_cuda():
                  batch_size=2).finalize()
     with pytest.raises(RuntimeError, match="CUDA"):
         create_pretrain_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_conv21d.main(["--b", "2", "--t", "2", "--hw", "4"])
     assert resolve_device("cpu").type == "cpu"
 
 
