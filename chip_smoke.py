@@ -11,7 +11,9 @@ Phases:
      and roofline bounds: both (2+1)D conv kernel pairs (K2/K3, tiling
      "clip", and K4a/K4b, tiling "taps9") at the four sites of the pretrain
      step, K4a/K4b also at the conv-block benchmark's default shape, and
-     the augment kernel;
+     the augment kernel; per site, K3's launch plan (row tile, stages,
+     blocks, resident blocks per SM, cluster, shared bytes), its TFLOP/s
+     and its time over the plain chain's;
   3. the pretrain step itself (R(2+1)D depth 1, 16 x 112^2, bf16, per-view
      batch 16, fused conv blocks and fused augmentation): one warm-up and
      three timed steps, with the kernels' launch counts, then one step
@@ -151,6 +153,26 @@ def _hold_pair(tiling, x, ws, wt, scale, bias):
                 "fwd": (ms_f, e_fwd, ops_f, bytes_f)}
 
 
+def log_fwd_plan(plan, fwd, plain_ms):
+    """K3's launch plan at one site (resident blocks per SM from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), its achieved bf16 rate
+    on the operations the pass must do, and its time over the plain
+    chain's. Its registers and spills are phase 1's ptxas lines."""
+    from cstp_tpu_torch.ops import conv21d as C
+
+    kms, _, ops, _ = fwd
+    tflops = ops / (kms * 1e-3) / 1e12
+    log(f"[conv21d]   K3 plan: P {plan['P']} rows, {plan['stages']} stages, "
+        f"ring {plan['ring_slots']} frames, {plan['blocks']} row tiles x "
+        f"cluster {plan['cluster']} = {plan['blocks'] * plan['cluster']} "
+        f"blocks, {C.fwd_occupancy(plan)} resident per SM, "
+        f"{plan['smem']} B shared, mid chunk {plan['bn']}, out chunk "
+        f"{plan['bno']}, warp tile 32x{8 * plan['ni']}, L2 reads "
+        f"{plan['l2_bytes'] / 1e9:.3f} GB | {tflops:.1f} TFLOP/s, "
+        f"{tflops * 1e12 / PEAK_BF16:.1%} of the bf16 peak | K3 / plain chain "
+        f"{kms / plain_ms:.2f}x")
+
+
 def phase_conv21d(dev):
     """Both conv kernel pairs against the plain chain at the four sites,
     and K4a/K4b at the benchmark's default shape. K2/K3 (``stats``, ``fwd``)
@@ -205,6 +227,9 @@ def phase_conv21d(dev):
             if not ok:
                 raise SystemExit(f"conv21d {tiling} kernels disagree with "
                                  f"their plain version at {site}")
+            if tiling == "clip":
+                log_fwd_plan(C.plan_fwd(n, t, hw, hw, cin, m, cout),
+                             passes["fwd"], pms["fwd"])
         if "clip" in weights:
             log(f"[conv21d]   taps9 / clip time: stats "
                 f"{ms['taps9', 'stats'] / ms['clip', 'stats']:.2f}x, fwd "

@@ -13,30 +13,65 @@
 // and the mid tensor (M = 144..1152 channels) would be the largest tensor
 // moved if it were stored.
 //
-// Design. Both passes compute the spatial conv with warp-level bf16 mma
+// Design of pass A (K2). The spatial conv runs on warp-level bf16 mma
 // (nvcuda::wmma 16x16x16, f32 accumulation) on tiles staged in shared
 // memory: A is gathered im2col-style from the unpadded input (out-of-frame
 // taps read as zero, so no padded copy of x is made), B is a slice of
 // ws (9*Cin, M). Each mid value is rounded to bf16 before it is used,
-// as on the TPU.
-//   Pass A: the TPU kernel carried its sums across a sequential grid; here
-//   blocks run in any order, so each block (channel chunk, frame) writes
-//   its frame's per-channel sums of mid and mid^2 to a scratch, and a second
-//   small kernel reduces them per BN group in a fixed order (deterministic,
-//   no float atomics) into the mean and the biased variance.
-//   Pass B: the TPU kernel kept a whole clip's mid resident (14.5 MB at
-//   layer 1), which cannot live in 227 KB of shared memory. One block owns
-//   (clip, tile of whole image rows) and walks the frames in order, keeping
-//   the normalised bf16 mid of the three most recent frames in a shared
-//   memory ring; output frame t-1 is emitted once mid frame t is in (zero
-//   temporal padding at both ends). Mid never reaches device memory and the
-//   spatial conv is computed once per pass.
-// Simple and right first: no TMA, wgmma or warp specialisation yet.
+// as on the TPU. The TPU kernel carried its sums across a sequential grid;
+// here blocks run in any order, so each block (channel chunk, frame) writes
+// its frame's per-channel sums of mid and mid^2 to a scratch, and a second
+// small kernel reduces them per BN group in a fixed order (deterministic, no
+// float atomics) into the mean and the biased variance.
+//
+// Design of pass B (K3, replaces cstp_tpu/ops/pallas/conv21d.py:432). The
+// TPU kernel kept a whole clip's mid resident (14.5 MB at layer 1), which
+// cannot live in 227 KB of shared memory. A block of 256 threads owns P
+// consecutive rows of the flat (clip, pixel) index (so no mma row idles on a
+// 7x7 or 14x14 frame; each row carries its own clip's frame base and BN
+// group, and a tile may span clips and groups) and walks the frames in
+// order, keeping the normalised bf16 mid of the min(3, T) latest frames in
+// a shared-memory ring; output frame t-1 is computed from the ring once mid
+// frame t is in (zero temporal padding at both ends). Mid never reaches
+// device memory and each mid frame's spatial conv is computed once per
+// launch (recompute factor 1). Every K step of 64 rows (im2col gather of x
+// and ws slice, or wt slice) is staged with 16-byte cp.async.cg into a ring
+// of 3-4 stages, out-of-frame taps by the zero-filling form, with one
+// __syncthreads per step; 8 warps run ldmatrix + mma.sync m16n8k16 on
+// 32 x (8 * ni) register tiles, and the epilogues go from the accumulator
+// fragments to the ring (bf16 round, BN, ReLU, bf16) or to the output.
+// ws and wt stream from L2 once per mid frame or output frame per block.
+// Where the ring of a wide mid does not fit one block at a large row tile,
+// a cluster of C = 2 or 4 blocks shares the tile:
+// block r computes mid channels [r M/C, (r+1) M/C) into its own ring and
+// output channels [r Cout/C, ...) from all C rings, reading the others'
+// A fragments through distributed shared memory; a cluster barrier at each
+// frame's spatial and temporal step keeps the rings consistent.
+// Plans at the pretrain step's sites, N = 32 (ops/conv21d.py plan_fwd;
+// L2 -> SM bytes per launch: ws and the A gather per mid frame and mid chunk,
+// wt per output frame and tap):
+//   site   C   P  stages blocks  mid/out chunk  warp tile  L2 reads
+//   conv2  1  128   3     784     144 / 64       32x80     4.60 GB
+//   conv3  2  128   3     392     144 / 64       32x80     2.28 GB
+//   conv4  4  128   3     196     144 / 64       32x80     1.13 GB
+//   conv5  4   64   3     100     288 / 128      32x80     0.77 GB
+// One block is resident per SM (the ring and stages take 217-230 KB), so
+// conv4 runs 1.5 waves and conv5 fills 100 of 132 SMs; plans with more,
+// smaller blocks measured slower (perf/sweep_conv21d_fwd.py). What bounds
+// it on the H100 (chip_smoke.py, the sweep): not the operations (5-10% of
+// the bf16 peak), nor L2 bandwidth (the reads above come to about 1 TB/s),
+// nor the depth of the copy pipeline (3 to 6 stages time alike), but a
+// fixed cost per K step: by inference, cp.async and ldmatrix issue through
+// the same memory-instruction pipe, so staging and mma do not overlap, and
+// 8 warps per SM hide little of each step's mma chain and barrier.
+// No TMA, wgmma or warp specialisation yet.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 using namespace nvcuda;
 
@@ -49,9 +84,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKStep = 32;             // K rows staged per iteration
 constexpr int kLdA = kKStep + 8;       // padded pitch (bf16) of the A stage
 constexpr int kMaxFragsPerWarp = 9;    // a tile holds at most 36 16x16 frags
-constexpr int kMaxFrags = kMaxFragsPerWarp * kWarps;
 constexpr int kStatsRowStrips = 4;     // pass A pixel tile: 64 pixels
-constexpr size_t kRingBudget = 120 * 1024;
 constexpr size_t kSmemMax = 232448;
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
@@ -235,13 +268,6 @@ __global__ void stats_reduce_kernel(const float* __restrict__ psum,
   }
 }
 
-// ---------------------------------------------------------------- pass B --
-
-struct FwdPlan {
-  int R, PR, NF, NFo;
-  size_t ring_bytes, work_bytes;
-};
-
 inline int largest_divisor_within(int n, int cap) {
   int best = 1;
   for (int d = 1; d <= n && d <= cap; ++d)
@@ -249,114 +275,402 @@ inline int largest_divisor_within(int n, int cap) {
   return best;
 }
 
-inline size_t ring_bytes(int PR, int M) {
-  return align128(sizeof(bf16) * 3 * 16 * PR * (size_t)(M + 8));
-}
+// ---------------------------------------------------------------- pass B --
+//
+// One block of 256 threads (8 warps) owns P consecutive rows of the flat
+// (clip, pixel) index and walks the frames in order. Its schedule is one
+// sequence of K steps of 64, each staged by cp.async into a ring of S
+// stages (S - 1 in flight while one is multiplied):
+//   for u in 0..T:  spatial(u) if u < T, then temporal(u - 1) if u >= 1
+//   spatial(u):  for each mid chunk of bn channels, K = 9 * Cin: A is the
+//                im2col gather of frame u at the tile's rows, B a slice of ws;
+//                epilogue: bf16 round, BN, ReLU, bf16 -> ring slot u % 3
+//   temporal(f): for each out chunk of bno channels, for each tap k with
+//                f - 1 + k in [0, T), K = M: A is ring slot (f - 1 + k) % 3,
+//                B a slice of wt[k]; epilogue: bf16 -> out frame f
+// Warp w holds a 32 x (8 * NI) accumulator tile in registers: rows
+// 32 * (w / WN) .. + 32 (WN = 256 / P warps share a row strip) and the
+// chunk's n16 column tiles jj = w % WN + WN * i, i < NI / 2; accumulator
+// slot s holds n8 tile 2 * jj + s % 2 of pair i = s / 2.
 
-// Row tile R: the most whole image rows with at most 64 pixels whose ring of
-// three mid frames fits the budget (at least one row).
-bool plan_fwd(int H, int W, int M, int Cout, FwdPlan* pl) {
-  int R = 1;
-  for (int r = 2; r <= H; ++r) {
-    const int PR = (r * W + 15) / 16;
-    if (r * W > 64 || ring_bytes(PR, M) > kRingBudget) break;
-    R = r;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdKC = 64;               // K rows per pipeline stage
+constexpr int kFwdLdA = kFwdKC + 8;      // pitch (bf16) of the staged A gather
+constexpr int kMI = 2;                   // 16-row mma strips per warp
+constexpr int kMaxGatherRows = 4;        // rows per thread in the A gather (P <= 128)
+
+struct FwdArgs {
+  const bf16* x;
+  const bf16* ws;
+  const bf16* wt;
+  const float* gmean;
+  const float* rstd;
+  const float* scale;
+  const float* bias;
+  bf16* out;
+  int T, H, W, Cin, M, Cout, cpg, nhw;
+  int P, S, WN, bn, nch_s, bno, nch_t, ldb, a_bytes, stage_bytes, ring_off;
+  int C, Mc, Coc, nks_c;  // cluster size, its blocks' slices of M and Cout
+};
+
+// Position in the block's schedule of K steps.
+struct Cursor {
+  int u, ph, ch, tap, ks;  // ph 0: spatial(u); ph 1: temporal(u - 1)
+
+  __device__ int tap_lo() const { return u == 1 ? 1 : 0; }
+  __device__ int tap_hi(int T) const { return u == T ? 1 : 2; }
+  __device__ void next_item(int T) {
+    if (ph == 0 && u >= 1) {
+      ph = 1;
+    } else {
+      ++u;
+      ph = u < T ? 0 : 1;
+    }
+    tap = tap_lo();
   }
-  const int PR = (R * W + 15) / 16;
-  if (PR > kMaxFrags) return false;
-  pl->R = R;
-  pl->PR = PR;
-  pl->NF = largest_divisor_within(M / 16, kMaxFrags / PR);
-  pl->NFo = largest_divisor_within(Cout / 16, kMaxFrags / PR);
-  pl->ring_bytes = ring_bytes(PR, M);
-  const size_t mid = stage_bytes(PR, pl->NF);
-  const size_t outb = stage_bytes(PR, pl->NFo);
-  pl->work_bytes = mid > outb ? mid : outb;
-  return pl->ring_bytes + pl->work_bytes <= kSmemMax;
+  // the first K step of a spatial or temporal item
+  __device__ bool item_start() const { return ks == 0 && ch == 0 && (ph == 0 || tap == tap_lo()); }
+  // the last K step of a spatial mid chunk or of a temporal out chunk
+  __device__ bool chunk_end(int T, int nks_s, int nks_t) const {
+    return ph == 0 ? ks == nks_s - 1 : (ks == nks_t - 1 && tap == tap_hi(T));
+  }
+  __device__ void advance(const FwdArgs& a, int nks_s, int nks_t) {
+    if (ph == 0) {
+      if (++ks < nks_s) return;
+      ks = 0;
+      if (++ch < a.nch_s) return;
+    } else {
+      if (++ks < nks_t) return;
+      ks = 0;
+      if (++tap <= tap_hi(a.T)) return;
+      tap = tap_lo();
+      if (++ch < a.nch_t) return;
+    }
+    ch = 0;
+    next_item(a.T);
+  }
+};
+
+// This thread's rows of the A gather: rows (tid / 8) + 32 i, channels
+// 8 * (tid % 8) .. + 8 of each K step.
+struct GatherRows {
+  int frame0[kMaxGatherRows];  // n * T (its clip's first frame)
+  int y[kMaxGatherRows], x[kMaxGatherRows];
+};
+
+// This thread's 16-byte column q and first row r of a B slice whose rows
+// hold a full chunk's width / 8 vectors, rows r, r + rstep, ...; threads
+// with q past a ragged chunk's width, or r >= rstep, copy nothing.
+struct BMap {
+  int q, r, rstep;
+};
+
+__device__ inline BMap bmap_for(int chunk) {
+  const int vpr = chunk / 8, rstep = kFwdThreads / vpr, r = threadIdx.x / vpr;
+  return r < rstep ? BMap{(int)threadIdx.x - r * vpr, r, rstep} : BMap{vpr, 0, 1};
 }
 
-__device__ inline uint4 pack8(const float* v) {
-  union {
-    __nv_bfloat162 h[4];
-    uint4 u;
-  } r;
+__device__ inline void stage_load(const FwdArgs& a, const Cursor& c, const GatherRows& gr,
+                                  BMap bmap_s, BMap bmap_t, int rank, unsigned char* stage) {
+  bf16* sA = reinterpret_cast<bf16*>(stage);
+  bf16* sB = reinterpret_cast<bf16*>(stage + a.a_bytes);
+  const int tid = threadIdx.x;
+  const bf16* src;
+  int rows, k0, width, ldg;
+  if (c.ph == 0) {
+    const int K = 9 * a.Cin;
+    k0 = c.ks * kFwdKC;
+    rows = min(kFwdKC, K - k0);
+    const int q = tid & 7, k = k0 + 8 * q;
+    if (8 * q < rows) {
+      const int tap = k / a.Cin, ci = k - tap * a.Cin;
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const size_t HW = (size_t)a.H * a.W;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) r.h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return r.u;
+      for (int i = 0; i < kMaxGatherRows; ++i) {
+        const int row = (tid >> 3) + 32 * i;
+        if (row < a.P) {
+          const int y = gr.y[i] + dy, x = gr.x[i] + dx;
+          const bool ok = gr.frame0[i] >= 0 && (unsigned)y < (unsigned)a.H &&
+                          (unsigned)x < (unsigned)a.W;
+          const bf16* g = a.x;
+          if (ok) g += ((size_t)(gr.frame0[i] + c.u) * HW + y * a.W + x) * a.Cin + ci;
+          cp_async16(sA + row * kFwdLdA + 8 * q, g, ok);
+        }
+      }
+    }
+    width = min(a.bn, a.Mc - c.ch * a.bn);
+    src = a.ws + (size_t)k0 * a.M + rank * a.Mc + c.ch * a.bn;
+    ldg = a.M;
+  } else {
+    // K runs over the mid slices of the cluster's blocks in rank order
+    const int from = c.ks / a.nks_c;
+    k0 = (c.ks - from * a.nks_c) * kFwdKC;
+    rows = min(kFwdKC, a.Mc - k0);
+    width = min(a.bno, a.Coc - c.ch * a.bno);
+    src = a.wt + ((size_t)c.tap * a.M + from * a.Mc + k0) * a.Cout + rank * a.Coc + c.ch * a.bno;
+    ldg = a.Cout;
+  }
+  const BMap bm = c.ph == 0 ? bmap_s : bmap_t;
+  if (bm.q < width / 8)
+    for (int r = bm.r; r < rows; r += bm.rstep)
+      cp_async16(sB + r * a.ldb + bm.q * 8, src + (size_t)r * ldg + bm.q * 8, true);
 }
 
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ws,
-           const bf16* __restrict__ wt, const float* __restrict__ gmean,
-           const float* __restrict__ rstd, const float* __restrict__ scale,
-           const float* __restrict__ bias, bf16* __restrict__ out, int T, int H,
-           int W, int Cin, int M, int Cout, int clips_per_group, int R, int PR,
-           int NF, int NFo, int ring_off) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n = blockIdx.y, y0 = blockIdx.x * R;
-  const int HW = H * W, pix0 = y0 * W, npix = min(R, H - y0) * W;
-  const int g = n / clips_per_group;
-  const int P = 16 * PR, ldr = M + 8;
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  unsigned char* work = smem + ring_off;
-  float* sC = reinterpret_cast<float*>(work);
-  const float* mean_g = gmean + (size_t)g * M;
-  const float* rstd_g = rstd + (size_t)g * M;
-
-  const Tile tm{PR, NF}, to{PR, NFo};
-  const int BN = 16 * NF, ldc = BN + 4;
-  const int BNo = 16 * NFo, ldbo = BNo + 8, ldco = BNo + 4;
-
-  // out frame `fo` from ring frames fo-1, fo, fo+1 (those inside [0, T))
-  auto emit = [&](int fo) {
-    for (int co0 = 0; co0 < Cout; co0 += BNo) {
-      Acc acc[kMaxFragsPerWarp];
-      zero_acc(acc);
-      bf16* sB = reinterpret_cast<bf16*>(work);
-      for (int k = 0; k < 3; ++k) {
-        const int f = fo - 1 + k;
-        if (f < 0 || f >= T) continue;
-        const bf16* A = ring + (size_t)(f % 3) * P * ldr;
-        for (int m0 = 0; m0 < M; m0 += kKStep) {
-          const int kk = min(kKStep, M - m0);
-          stage_b(sB, ldbo, wt + ((size_t)k * M + m0) * Cout + co0, Cout, kk, BNo);
-          __syncthreads();
-          mma_chunk(acc, A + m0, ldr, sB, ldbo, kk, to);
-          __syncthreads();
-        }
-      }
-      float* sO = reinterpret_cast<float*>(work);
-      store_acc(acc, sO, ldco, to);
-      __syncthreads();
-      const int vpr = BNo / 8;
-      for (int v = threadIdx.x; v < npix * vpr; v += kThreads) {
-        const int r = v / vpr, q = v - r * vpr;
-        const size_t o = ((size_t)(n * T + fo) * HW + pix0 + r) * Cout + co0 + q * 8;
-        *reinterpret_cast<uint4*>(out + o) = pack8(sO + r * ldco + q * 8);
-      }
-      __syncthreads();
-    }
-  };
-
-  for (int t = 0; t < T; ++t) {
-    const bf16* xf = x + (size_t)(n * T + t) * HW * Cin;
-    bf16* slot = ring + (size_t)(t % 3) * P * ldr;
-    for (int n0 = 0; n0 < M; n0 += BN) {
-      spatial_tile(xf, H, W, Cin, pix0, npix, ws, M, n0, tm, work, sC, ldc);
-      for (int e = threadIdx.x; e < P * BN; e += kThreads) {
-        const int r = e / BN, j = e - r * BN, m = n0 + j;
-        float v = 0.f;
-        if (r < npix) {
-          const float mid = bf16_round(sC[r * ldc + j]);
-          v = fmaxf((mid - mean_g[m]) * rstd_g[m] * scale[m] + bias[m], 0.f);
-        }
-        slot[r * ldr + m] = __float2bfloat16(v);
-      }
-      __syncthreads();
-    }
-    if (t >= 1) emit(t - 1);
+// The A fragments of this warp's 32-row strip at K offset k: from this
+// block's shared memory by ldmatrix, or (cluster) by 32-bit loads from the
+// distributed shared-memory address `ca` of another block's strip.
+struct ALocal {
+  const bf16* A;
+  int lda;
+  __device__ __forceinline__ void load(uint32_t (*af)[4], int k) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+      ldmatrix_x4(af[mi], A + (mi * 16 + (lane & 15)) * lda + k + (lane >> 4) * 8);
   }
-  emit(T - 1);
+};
+
+struct ACluster {
+  uint32_t ca;
+  int lda;
+  __device__ __forceinline__ void load(uint32_t (*af)[4], int k) const {
+    const int lane = threadIdx.x & 31, pitch = 2 * lda;
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const uint32_t p = ca + (mi * 16 + (lane >> 2)) * pitch + 2 * (k + 2 * (lane & 3));
+      af[mi][0] = ld_cluster_u32(p);
+      af[mi][1] = ld_cluster_u32(p + 8 * pitch);
+      af[mi][2] = ld_cluster_u32(p + 16);
+      af[mi][3] = ld_cluster_u32(p + 8 * pitch + 16);
+    }
+  }
+};
+
+// acc += A (32 rows of this warp's strip x 16) * B (16 x the warp's n8
+// tiles), at K offset k of the staged step
+template <int NI, class ASrc>
+__device__ __forceinline__ void mma_k16(float (*acc)[NI][4], const ASrc& A, const bf16* B,
+                                        int ldb, int k, int wn, int WN, int nb8) {
+  const int lane = threadIdx.x & 31;
+  uint32_t af[kMI][4];
+  A.load(af, k);
+  const bf16* brow = B + (k + (lane & 15)) * ldb + (lane >> 4) * 8;
+#pragma unroll
+  for (int i = 0; i < NI / 2; ++i) {
+    const int jj = wn + WN * i;
+    if (2 * jj < nb8) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, brow + jj * 16);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        mma_bf16(acc[mi][2 * i], af[mi], b);
+        mma_bf16(acc[mi][2 * i + 1], af[mi], b + 2);
+      }
+    }
+  }
+}
+
+// acc += A (32 x kk) * B (kk x ...). A full step of 64 is unrolled for warp
+// tiles up to 32 x 48, so the fragments of one k16 load while the previous
+// one multiplies; the 32 x 80 tile keeps the loop, which holds its
+// registers down.
+template <int NI, class ASrc>
+__device__ __forceinline__ void warp_mma(float (*acc)[NI][4], const ASrc& A, const bf16* B,
+                                         int ldb, int kk, int wn, int WN, int nb8) {
+  if (NI <= 6 && kk == kFwdKC) {
+#pragma unroll
+    for (int k = 0; k < kFwdKC; k += 16) mma_k16<NI>(acc, A, B, ldb, k, wn, WN, nb8);
+  } else {
+    for (int k = 0; k < kk; k += 16) mma_k16<NI>(acc, A, B, ldb, k, wn, WN, nb8);
+  }
+}
+
+template <int NI>
+__device__ __forceinline__ void zero_tile(float (*acc)[NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][i][e] = 0.f;
+}
+
+// The TPU kernel's order: mid rounded to bf16, (mid - mean) * rstd * scale
+// + bias, ReLU
+__device__ __forceinline__ float bn_relu(float v, float mean, float rstd, float scale,
+                                         float bias) {
+  return fmaxf((bf16_round(v) - mean) * rstd * scale + bias, 0.f);
+}
+
+template <int NI>
+__global__ void __launch_bounds__(kFwdThreads, 1) fwd_kernel(const FwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  unsigned char* stages = smem + a.ring_off;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wn = warp % a.WN, row0 = 32 * (warp / a.WN);
+  const int g8 = lane >> 2, c2 = 2 * (lane & 3);
+  const int HW = a.H * a.W, ldr = a.Mc + 8;
+  // a cluster of C blocks shares one row tile; block `rank` computes mid
+  // channels [rank * Mc, + Mc) into its ring and output channels
+  // [rank * Coc, + Coc) from all the cluster's rings
+  const int rank = blockIdx.x % a.C, r0 = blockIdx.x / a.C * a.P;
+
+  GatherRows gr;
+#pragma unroll
+  for (int i = 0; i < kMaxGatherRows; ++i) {
+    const int r = r0 + (tid >> 3) + 32 * i;
+    const int n = r / HW, p = r - n * HW;
+    gr.frame0[i] = r < a.nhw ? n * a.T : -1;
+    gr.y[i] = p / a.W;
+    gr.x[i] = p - gr.y[i] * a.W;
+  }
+
+  const BMap bmap_s = bmap_for(a.bn), bmap_t = bmap_for(a.bno);
+
+  const int nks_s = (9 * a.Cin + kFwdKC - 1) / kFwdKC, nks_t = a.C * a.nks_c;
+  const int n_iter = a.T * a.nch_s * nks_s + a.nch_t * nks_t * (a.T == 1 ? 1 : 3 * a.T - 2);
+  Cursor pc{0, 0, 0, 0, 0}, cc{0, 0, 0, 0, 0};
+  for (int s = 0; s < a.S - 1; ++s) {
+    if (s < n_iter) {
+      stage_load(a, pc, gr, bmap_s, bmap_t, rank, stages + s * a.stage_bytes);
+      pc.advance(a, nks_s, nks_t);
+    }
+    cp_async_commit();
+  }
+
+  float acc[kMI][NI][4];
+  zero_tile<NI>(acc);
+
+  for (int it = 0; it < n_iter; ++it) {
+    // step `it` has landed for this thread; the barrier makes it land for
+    // all and frees the stage that step it - 1 read
+    switch (a.S) {
+      case 3: cp_async_wait<1>(); break;
+      case 4: cp_async_wait<2>(); break;
+      case 5: cp_async_wait<3>(); break;
+      default: cp_async_wait<4>(); break;
+    }
+    __syncthreads();
+    // a cluster's blocks enter each item together: the rings the temporal
+    // items read are complete, and no block overwrites a ring slot that
+    // another still reads
+    if (a.C > 1 && cc.item_start()) cluster_sync();
+    const int li = it + a.S - 1;
+    if (li < n_iter) {
+      stage_load(a, pc, gr, bmap_s, bmap_t, rank, stages + (li % a.S) * a.stage_bytes);
+      pc.advance(a, nks_s, nks_t);
+    }
+    cp_async_commit();
+
+    const unsigned char* st = stages + (it % a.S) * a.stage_bytes;
+    const bf16* sB = reinterpret_cast<const bf16*>(st + a.a_bytes);
+    if (cc.ph == 0) {
+      const int nb8 = min(a.bn, a.Mc - cc.ch * a.bn) / 8;
+      const int kk = min(kFwdKC, 9 * a.Cin - cc.ks * kFwdKC);
+      const ALocal A{reinterpret_cast<const bf16*>(st) + row0 * kFwdLdA, kFwdLdA};
+      warp_mma<NI>(acc, A, sB, a.ldb, kk, wn, a.WN, nb8);
+    } else {
+      const int nb8 = min(a.bno, a.Coc - cc.ch * a.bno) / 8;
+      const int from = cc.ks / a.nks_c, k0 = (cc.ks - from * a.nks_c) * kFwdKC;
+      const int kk = min(kFwdKC, a.Mc - k0);
+      const bf16* strip = ring + ((size_t)((cc.u - 2 + cc.tap) % 3) * a.P + row0) * ldr + k0;
+      if (from == rank) {
+        warp_mma<NI>(acc, ALocal{strip, ldr}, sB, a.ldb, kk, wn, a.WN, nb8);
+      } else {
+        warp_mma<NI>(acc, ACluster{cluster_map(strip, from), ldr}, sB, a.ldb, kk, wn, a.WN, nb8);
+      }
+    }
+
+    if (cc.chunk_end(a.T, nks_s, nks_t)) {
+      if (cc.ph == 0) {
+        // mid chunk -> bf16 round, BN with its row's group stats, ReLU, bf16
+        const int n0 = cc.ch * a.bn, nb8 = min(a.bn, a.Mc - n0) / 8;
+        bf16* slot = ring + (size_t)(cc.u % 3) * a.P * ldr;
+        int grp[kMI][2];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + row0 + mi * 16 + g8 + 8 * h;
+            grp[mi][h] = r < a.nhw ? (r / HW) / a.cpg : 0;
+          }
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int j = 2 * (wn + a.WN * (i >> 1)) + (i & 1);
+          if (j < nb8) {
+            const int ml = n0 + 8 * j + c2, m = rank * a.Mc + ml;
+            const float2 sc = *reinterpret_cast<const float2*>(a.scale + m);
+            const float2 bi = *reinterpret_cast<const float2*>(a.bias + m);
+#pragma unroll
+            for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const size_t gm = (size_t)grp[mi][h] * a.M + m;
+                const float2 mu = *reinterpret_cast<const float2*>(a.gmean + gm);
+                const float2 rs = *reinterpret_cast<const float2*>(a.rstd + gm);
+                const float* v = acc[mi][i] + 2 * h;
+                const int row = row0 + mi * 16 + g8 + 8 * h;
+                *reinterpret_cast<__nv_bfloat162*>(slot + (size_t)row * ldr + ml) =
+                    __floats2bfloat162_rn(bn_relu(v[0], mu.x, rs.x, sc.x, bi.x),
+                                          bn_relu(v[1], mu.y, rs.y, sc.y, bi.y));
+              }
+          }
+        }
+      } else {
+        // out chunk of frame u - 1 -> bf16
+        const int nb8 = min(a.bno, a.Coc - cc.ch * a.bno) / 8, fo = cc.u - 1;
+        const int co0 = rank * a.Coc + cc.ch * a.bno;
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + row0 + mi * 16 + g8 + 8 * h;
+            if (r < a.nhw) {
+              const int n = r / HW, p = r - n * HW;
+              bf16* o = a.out + ((size_t)(n * a.T + fo) * HW + p) * a.Cout + co0 + c2;
+#pragma unroll
+              for (int i = 0; i < NI; ++i) {
+                const int j = 2 * (wn + a.WN * (i >> 1)) + (i & 1);
+                if (j < nb8)
+                  *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+                      __floats2bfloat162_rn(acc[mi][i][2 * h], acc[mi][i][2 * h + 1]);
+              }
+            }
+          }
+      }
+      zero_tile<NI>(acc);
+    }
+    cc.advance(a, nks_s, nks_t);
+  }
+  // no block leaves while another may still read its ring
+  if (a.C > 1) cluster_sync();
+}
+
+// The kernel instantiation for a warp tile of 32 x (8 * ni); the plan
+// (ops/conv21d.py plan_fwd) picks ni from these.
+const void* fwd_kernel_for(int ni) {
+  switch (ni) {
+    case 2: return (const void*)fwd_kernel<2>;
+    case 4: return (const void*)fwd_kernel<4>;
+    case 6: return (const void*)fwd_kernel<6>;
+    case 10: return (const void*)fwd_kernel<10>;
+  }
+  return nullptr;
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Dynamic shared memory of a pass-B plan: the ring of min(3, T) mid frames
+// (P x (M + 8) bf16 each, M a block's slice of the mid channels) and S
+// stages of (A gather P x 72, B 64 x ldb).
+inline size_t fwd_smem_bytes(int P, int T, int M, int ldb, int S, size_t* a_bytes,
+                             size_t* stage_bytes, size_t* ring) {
+  *ring = align128(sizeof(bf16) * (size_t)(T < 3 ? T : 3) * P * (M + 8));
+  *a_bytes = align128(sizeof(bf16) * (size_t)P * kFwdLdA);
+  *stage_bytes = align128(*a_bytes + sizeof(bf16) * (size_t)kFwdKC * ldb);
+  return *ring + S * *stage_bytes;
 }
 
 inline bool shapes_ok(int Cin, int M, int Cout) {
@@ -389,22 +703,81 @@ extern "C" int cstp_conv21d_stats(const void* x, const void* ws, void* psum, voi
 }
 
 // x, ws as above; wt (3, M, Cout) bf16; gmean/rstd (G, M) f32;
-// scale/bias (M,) f32; out (B, T, H, W, Cout) bf16.
+// scale/bias (M,) f32; out (B, T, H, W, Cout) bf16. The plan (P, stages,
+// ring_slots, blocks (row tiles), cluster (blocks per row tile), smem_bytes,
+// ni, bn, bno: chunks of a block's M and Cout slices) comes from
+// ops/conv21d.py plan_fwd and is checked here again.
 extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
                                 const void* gmean, const void* rstd, const void* scale,
                                 const void* bias, void* out, int B, int T, int H, int W,
-                                int Cin, int M, int Cout, int G, void* stream) {
-  FwdPlan pl;
-  if (!shapes_ok(Cin, M, Cout) || G <= 0 || B % G || !plan_fwd(H, W, M, Cout, &pl))
+                                int Cin, int M, int Cout, int G, int P, int stages,
+                                int ring_slots, int blocks, int cluster, int smem_bytes,
+                                int ni, int bn, int bno, void* stream) {
+  const long long nhw = (long long)B * H * W;
+  const void* kernel = fwd_kernel_for(ni);
+  if (!shapes_ok(Cin, M, Cout) || B <= 0 || T <= 0 || H <= 0 || W <= 0 || G <= 0 ||
+      B % G || nhw >= (1ll << 31) || kernel == nullptr || (P != 32 && P != 64 && P != 128) ||
+      stages < 3 || stages > 6 || ring_slots != (T < 3 ? T : 3) ||
+      (cluster != 1 && cluster != 2 && cluster != 4) || M % (16 * cluster) ||
+      Cout % (16 * cluster) || bn <= 0 || bn % 16 || bno <= 0 || bno % 16 ||
+      (long long)blocks * P < nhw || (long long)(blocks - 1) * P >= nhw)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = pl.ring_bytes + pl.work_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const int WN = kFwdThreads / P;
+  if (2 * cdiv(bn / 16, WN) > ni || 2 * cdiv(bno / 16, WN) > ni)
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a{(const bf16*)x, (const bf16*)ws, (const bf16*)wt, (const float*)gmean,
+            (const float*)rstd, (const float*)scale, (const float*)bias, (bf16*)out,
+            T, H, W, Cin, M, Cout, B / G, (int)nhw};
+  a.P = P;
+  a.S = stages;
+  a.WN = WN;
+  a.C = cluster;
+  a.Mc = M / cluster;
+  a.Coc = Cout / cluster;
+  a.nks_c = cdiv(a.Mc, kFwdKC);
+  a.bn = bn;
+  a.nch_s = cdiv(a.Mc, bn);
+  a.bno = bno;
+  a.nch_t = cdiv(a.Coc, bno);
+  a.ldb = (bn > bno ? bn : bno) + 8;
+  size_t ab, sb, ring;
+  const size_t bytes = fwd_smem_bytes(P, T, a.Mc, a.ldb, stages, &ab, &sb, &ring);
+  if (bytes != (size_t)smem_bytes || bytes > kSmemMax) return (int)cudaErrorInvalidValue;
+  a.a_bytes = (int)ab;
+  a.stage_bytes = (int)sb;
+  a.ring_off = (int)ring;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((H + pl.R - 1) / pl.R, B);
-  fwd_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)ws, (const bf16*)wt, (const float*)gmean,
-      (const float*)rstd, (const float*)scale, (const float*)bias, (bf16*)out, T, H, W,
-      Cin, M, Cout, B / G, pl.R, pl.PR, pl.NF, pl.NFo, (int)pl.ring_bytes);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks * cluster);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&a};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Resident pass-B blocks per SM for a plan's kernel (ni) and shared memory,
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on an error.
+extern "C" int cstp_conv21d_fwd_occupancy(int ni, int smem_bytes) {
+  const void* kernel = fwd_kernel_for(ni);
+  if (kernel == nullptr || smem_bytes < 0 || (size_t)smem_bytes > kSmemMax) return -1;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes) != cudaSuccess)
+    return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kFwdThreads,
+                                                    (size_t)smem_bytes) != cudaSuccess)
+    return -1;
+  return n;
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
 with ``ctypes``. Libraries go to ``build/cstp_tpu_torch/`` beside the
-package, named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. ``build_all`` starts one ``nvcc``
+package, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused. ``build_all`` starts one ``nvcc``
 per source at once. A missing ``nvcc`` or a failed build raises: there is
 no fallback for a CUDA tensor.
 """
@@ -42,7 +43,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of the source, of every shared
+    header in ``csrc`` (a source may include any of them) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

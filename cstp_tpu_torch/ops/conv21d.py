@@ -99,18 +99,117 @@ def fused_st_conv_plain(x, ws, wt, scale, bias, bn_groups: int = 1,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STATS_SIG = ([_P] * 6 + [_I] * 7 + [_P], _I)
-_FWD_SIG = ([_P] * 8 + [_I] * 8 + [_P], _I)
+_FWD_TAPS9_SIG = ([_P] * 8 + [_I] * 8 + [_P], _I)
+_FWD_PLAN = ("P", "stages", "ring_slots", "blocks", "cluster", "smem", "ni",
+             "bn", "bno")
+_FWD_SIG = ([_P] * 8 + [_I] * (8 + len(_FWD_PLAN)) + [_P], _I)
+_OCC_SIG = ([_I, _I], _I)
+
+# K3's launch plan (csrc/conv21d.cu checks it again): 256 threads, each warp
+# a 32 x (8 * ni) accumulator tile of ni / 2 column pairs of 16, so a block
+# tile of P in (128, 64, 32) rows has 256 / P warps across its columns; K
+# steps of 64 rows. A cluster of C blocks shares a row tile: each holds 1/C
+# of the mid channels in its ring and computes 1/C of the output channels.
+SMEM_MAX = 232448
+FWD_NI = (2, 4, 6, 10)          # the kernel's instantiations
+FWD_P = (128, 64, 32)
+FWD_CLUSTER = (1, 2, 4)
+FWD_STAGES = (3, 4, 5, 6)
+_KC = 64
+
+
+def _align128(b):
+    return -(-b // 128) * 128
+
+
+def _fwd_smem(p, t, mc, ldb, stages):
+    ring = _align128(2 * min(3, t) * p * (mc + 8))
+    stage = _align128(_align128(2 * p * (_KC + 8)) + 2 * _KC * ldb)
+    return ring + stages * stage
+
+
+def _even_chunk(width, cap):
+    """The width of ceil(width / cap) even chunks, a multiple of 16."""
+    n = -(-width // cap)
+    return -(-(width // 16) // n) * 16
+
+
+def fwd_plans(n, t, h, w, cin, m, cout):
+    """Every launch plan K3 takes for x (n, t, h, w, cin) -> mid m -> cout:
+    for each row tile P (largest first) and cluster size (smallest first),
+    the widest chunks of the block's mid and output slices whose ring of
+    min(3, t) frames and stages fit the shared memory, at each stage count
+    that fits. ``l2_bytes``: the bytes the blocks read from L2 per launch
+    (each block's ws slice and A gather per mid frame and mid chunk, its wt
+    slice per output frame and tap)."""
+    plans = []
+    for p in FWD_P:
+        wn = 256 // p
+        for c in FWD_CLUSTER:
+            if m % (16 * c) or cout % (16 * c):
+                continue
+            for cap_ni in reversed(FWD_NI):
+                bn = _even_chunk(m // c, 8 * cap_ni * wn)
+                bno = _even_chunk(cout // c, 8 * cap_ni * wn)
+                ldb = max(bn, bno) + 8
+                stages = [s for s in FWD_STAGES
+                          if _fwd_smem(p, t, m // c, ldb, s) <= SMEM_MAX]
+                if not stages:
+                    continue
+                need = 2 * -(-max(bn, bno) // (16 * wn))
+                blocks = -(-n * h * w // p)
+                nch = -(-(m // c) // bn)
+                taps = 1 if t == 1 else 3 * t - 2
+                l2 = blocks * 2 * (t * (9 * cin * m + c * nch * p * 9 * cin)
+                                   + taps * m * cout)
+                plans += [dict(P=p, stages=s, ring_slots=min(3, t),
+                               blocks=blocks, cluster=c,
+                               smem=_fwd_smem(p, t, m // c, ldb, s),
+                               ni=min(v for v in FWD_NI if v >= need), bn=bn,
+                               bno=bno, l2_bytes=l2) for s in stages]
+                break
+    return plans
+
+
+def plan_fwd(n, t, h, w, cin, m, cout):
+    """K3's launch plan: of ``fwd_plans``, the largest row tile P and then
+    the smallest cluster, among plans whose warp tiles are at least 32 x 48
+    or whose chunks are the whole slices (else among all), with 4 stages
+    where they fit, else 3. Each K step costs a fixed issue and barrier
+    time, so rows per step count for more than blocks in the grid (PERF.md
+    §6, ``python -m cstp_tpu_torch.perf.sweep_conv21d_fwd``). Raises
+    ValueError for a shape no plan fits."""
+    plans = [pl for pl in fwd_plans(n, t, h, w, cin, m, cout)
+             if pl["stages"] <= 4]
+    if not plans:
+        raise ValueError(f"conv21d fwd: no plan fits {SMEM_MAX} bytes of "
+                         f"shared memory for M={m}, Cout={cout}, T={t} (a "
+                         "32-row ring with 3 stages does not)")
+    wide = [pl for pl in plans if pl["ni"] >= 6 or (
+        pl["bn"] == m // pl["cluster"] and pl["bno"] == cout // pl["cluster"])]
+    first = (wide or plans)[0]
+    return [pl for pl in plans
+            if (pl["P"], pl["cluster"]) == (first["P"], first["cluster"])][-1]
+
+
+def fwd_occupancy(plan):
+    """Resident K3 blocks per SM for ``plan`` (needs the card)."""
+    got = _lib().cstp_conv21d_fwd_occupancy(plan["ni"], plan["smem"])
+    if got < 0:
+        raise RuntimeError("cstp_conv21d_fwd_occupancy failed")
+    return got
 
 
 def _lib():
     return build.load("conv21d", {"cstp_conv21d_stats": _STATS_SIG,
-                                  "cstp_conv21d_fwd": _FWD_SIG})
+                                  "cstp_conv21d_fwd": _FWD_SIG,
+                                  "cstp_conv21d_fwd_occupancy": _OCC_SIG})
 
 
 def _lib_taps9():
     return build.load("conv21d_taps9",
                       {"cstp_conv21d_taps9_stats": _STATS_SIG,
-                       "cstp_conv21d_taps9_fwd": _FWD_SIG})
+                       "cstp_conv21d_taps9_fwd": _FWD_TAPS9_SIG})
 
 
 def _check(name, t, dtype, shape, device):
@@ -172,8 +271,9 @@ def _pass_a(fn, load, x, ws, ws_shape, bn_groups, k_step, pad):
 
 
 def _pass_b(fn, load, x, ws, ws_shape, wt, gmean, gvar, scale, bias,
-            bn_groups, eps, k_step, pad):
-    """Pass B on CUDA: -> (B, T, H, W, Cout) bf16."""
+            bn_groups, eps, k_step, pad, plan_args=()):
+    """Pass B on CUDA: -> (B, T, H, W, Cout) bf16. ``plan_args``: ints the
+    kernel takes after the shapes (K3's launch plan)."""
     m, cout = ws.shape[-1], wt.shape[-1]
     dev, hw = _check_input(x, ws, ws_shape, bn_groups, k_step, pad, cout)
     rstd = torch.rsqrt(gvar + eps)
@@ -188,7 +288,7 @@ def _pass_b(fn, load, x, ws, ws_shape, wt, gmean, gvar, scale, bias,
     err = getattr(load(), fn)(
         x.data_ptr(), ws.data_ptr(), wt.data_ptr(), gmean.data_ptr(),
         rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, t, *hw, cin, m, cout, bn_groups,
+        b, t, *hw, cin, m, cout, bn_groups, *plan_args,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, fn)
     return out
@@ -204,11 +304,16 @@ def run_stats(x, ws2, bn_groups: int):
 
 
 def run_fwd(x, ws2, wt, gmean, gvar, scale, bias, bn_groups: int,
-            eps: float = 1e-5):
-    """Pass B, tiling "clip" (K3): -> (B, T, H, W, Cout) bf16."""
+            eps: float = 1e-5, plan=None):
+    """Pass B, tiling "clip" (K3), launched with ``plan`` (one of
+    ``fwd_plans``; by default ``plan_fwd``'s): -> (B, T, H, W, Cout)
+    bf16."""
+    if plan is None:
+        plan = plan_fwd(*x.shape, ws2.shape[-1], wt.shape[-1])
     out = _pass_b("cstp_conv21d_fwd", _lib, x, ws2,
                   (9 * x.shape[-1], ws2.shape[-1]), wt, gmean, gvar, scale,
-                  bias, bn_groups, eps, 32, 0)
+                  bias, bn_groups, eps, 32, 0,
+                  tuple(plan[k] for k in _FWD_PLAN))
     launches["fwd"] += 1
     return out
 

@@ -259,3 +259,86 @@ def test_pad_hw_matches_jax():
     x = _inputs(8, b=2, t=2, h=5, w=7)[0]
     np.testing.assert_array_equal(C.pad_hw(torch.from_numpy(x)).numpy(),
                                   np.asarray(jax_pad_hw(jnp.asarray(x), 3, 3)))
+
+
+# (name, N, T, H=W, Cin, M, Cout): the pretrain step's four sites at N=32,
+# the conv-block benchmark's default shape and the card tests' edge shapes
+_PLAN_SHAPES = [
+    ("conv2", 32, 16, 56, 64, 144, 64),
+    ("conv3", 32, 8, 28, 128, 288, 128),
+    ("conv4", 32, 4, 14, 256, 576, 256),
+    ("conv5", 32, 2, 7, 512, 1152, 512),
+    ("bench", 128, 16, 56, 64, 144, 64),
+    ("two_groups_one_tile", 2, 3, 7, 32, 16, 16),
+    ("t1", 2, 1, 5, 32, 16, 16),
+    ("t2", 4, 2, 6, 32, 48, 32),
+    ("ragged_chunks", 2, 3, 7, 32, 560, 16),
+    ("cluster2", 2, 3, 14, 32, 288, 32),
+    ("cluster4", 4, 4, 14, 256, 576, 256),
+]
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES,
+                         ids=[s[0] for s in _PLAN_SHAPES])
+def test_fwd_plan_fits_and_covers_every_row_once(shape):
+    """K3's plan: shared memory within the card's 232,448 bytes per block
+    (the same sum csrc/conv21d.cu checks), whole 32-row warp strips, every
+    (clip, pixel) row in exactly one tile with less than one tile over, a
+    ring of min(3, T) frames of the block's mid slice, and chunks of the
+    block's M and Cout slices within the kernel's warp tiles."""
+    _, n, t, hw, cin, m, cout = shape
+    p = C.plan_fwd(n, t, hw, hw, cin, m, cout)
+    rows = n * hw * hw
+    assert p["smem"] <= C.SMEM_MAX == 232448
+    assert p["P"] % 32 == 0 and p["P"] in C.FWD_P
+    assert p["blocks"] * p["P"] >= rows > (p["blocks"] - 1) * p["P"]
+    assert p["ring_slots"] == min(3, t)
+    assert p["stages"] >= 3 and p["cluster"] in C.FWD_CLUSTER
+    c = p["cluster"]
+    assert m % (16 * c) == 0 and cout % (16 * c) == 0
+    wn = 256 // p["P"]
+    assert p["ni"] in C.FWD_NI
+    for width, chunk in ((m // c, p["bn"]), (cout // c, p["bno"])):
+        assert chunk % 16 == 0 and 0 < chunk <= width
+        assert 2 * -(-chunk // (16 * wn)) <= p["ni"]
+    ring = 2 * min(3, t) * p["P"] * (m // c + 8)
+    ldb = max(p["bn"], p["bno"]) + 8
+    assert p["smem"] >= ring + p["stages"] * 2 * 64 * ldb
+    plans = C.fwd_plans(n, t, hw, hw, cin, m, cout)
+    assert p in plans and all(q["smem"] <= C.SMEM_MAX for q in plans)
+
+
+def test_fwd_plan_buys_wide_row_tiles_with_clusters():
+    """Where the ring of a wide mid does not fit one block at the largest
+    row tile, the plan splits the tile over a cluster: none at conv2, 2
+    blocks at conv3, 4 at conv4 and conv5 of the pretrain step at N=32."""
+    plans = [C.plan_fwd(n, t, hw, hw, cin, m, cout)
+             for _, n, t, hw, cin, m, cout in _PLAN_SHAPES[:4]]
+    assert [(p["P"], p["cluster"]) for p in plans] == [
+        (128, 1), (128, 2), (128, 4), (64, 4)]
+    assert all(p["ni"] == 10 for p in plans)
+
+
+def test_fwd_plan_sweep_needs_a_card():
+    """The plan sweep entry exits with an error where there is no card."""
+    from cstp_tpu_torch.perf import sweep_conv21d_fwd as sweep
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the sweep would run")
+    with pytest.raises(SystemExit, match="CUDA"):
+        sweep.main(["--sites", "conv5"])
+
+
+def test_fwd_plan_refuses_a_mid_too_wide_for_the_ring():
+    """M so wide that a 32-row ring of three mid frames and three stages
+    overflow the shared memory: refused before any launch, on the CPU too."""
+    with pytest.raises(ValueError, match="no plan fits"):
+        C.plan_fwd(2, 4, 7, 7, 32, 4096, 16)
+    x = torch.zeros((2, 4, 7, 7, 32), dtype=torch.bfloat16)
+    ws = torch.zeros((9 * 32, 4096), dtype=torch.bfloat16)
+    wt = torch.zeros((3, 4096, 16), dtype=torch.bfloat16)
+    gm = torch.zeros((1, 4096))
+    before = dict(C.launches)
+    with pytest.raises(ValueError, match="no plan fits"):
+        C.run_fwd(x, ws, wt, gm, gm, torch.ones(4096), torch.zeros(4096), 1)
+    assert dict(C.launches) == before

@@ -80,6 +80,32 @@ def test_conv21d_taps9_edge_shapes(dev, shape):
     _check_fused("taps9", *_conv_inputs(dev, rng, *shape))
 
 
+@pytest.mark.parametrize("shape", [
+    (2, 3, 7, 32, 16, 16),      # a tile spans both clips, of two BN groups
+    (2, 1, 5, 32, 16, 16),      # T = 1: the centre temporal tap only; a
+                                # frame smaller than a tile
+    (4, 2, 6, 32, 48, 32),      # T = 2: a ring of two mid frames
+    (2, 3, 7, 32, 560, 16),     # ragged last tile, three mid chunks, the
+                                # last one ragged
+    (2, 3, 14, 32, 288, 32),    # a cluster of 2 blocks per row tile, ragged
+                                # last tile
+    (4, 4, 14, 256, 576, 256),  # a cluster of 4 at conv4's widths
+])
+def test_conv21d_fwd_edge_shapes(dev, shape):
+    """K3 where a tile spans two clips of different BN groups, a frame is
+    smaller than a tile, T is 1 or 2, the last tile and the last mid chunk
+    are ragged, and a row tile is split over a cluster of 2 or 4 blocks."""
+    rng = np.random.default_rng(4)
+    _check_fused("clip", *_conv_inputs(dev, rng, *shape))
+
+
+def test_conv21d_fwd_plan_fills_each_sm_once(dev):
+    """The plan's shared memory leaves one resident K3 block per SM at the
+    conv2 site (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    plan = C.plan_fwd(32, 16, 56, 56, 64, 144, 64)
+    assert C.fwd_occupancy(plan) == 1
+
+
 def test_conv21d_backward_runs_on_the_card(dev):
     rng = np.random.default_rng(1)
     x = _t(rng.normal(size=(4, 4, 8, 8, 32)), dev,
