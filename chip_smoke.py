@@ -11,9 +11,10 @@ Phases:
      and roofline bounds: both (2+1)D conv kernel pairs (K2/K3, tiling
      "clip", and K4a/K4b, tiling "taps9") at the four sites of the pretrain
      step, K4a/K4b also at the conv-block benchmark's default shape, and
-     the augment kernel; per site, K3's launch plan (row tile, stages,
-     blocks, resident blocks per SM, cluster, shared bytes), its TFLOP/s
-     and its time over the plain chain's;
+     the augment kernel; per site, K2's and K3's launch plans (row tile,
+     stages, chunks, blocks, resident blocks per SM, shared bytes), their
+     TFLOP/s and their time over the plain version's, and a check that two
+     launches of K2 give bitwise the same statistics;
   3. the pretrain step itself (R(2+1)D depth 1, 16 x 112^2, bf16, per-view
      batch 16, fused conv blocks and fused augmentation): one warm-up and
      three timed steps, with the kernels' launch counts, then one step
@@ -127,6 +128,8 @@ def _hold_pair(tiling, x, ws, wt, scale, bias):
         stats, fwd = C.run_stats_taps9, C.run_fwd_taps9
     wtb = wt.to(torch.bfloat16).contiguous()
     gm, gv = stats(xk, wsk, G)
+    gm2, gv2 = stats(xk, wsk, G)
+    bitwise = torch.equal(gm, gm2) and torch.equal(gv, gv2)
     out = fwd(xk, wsk, wtb, gm, gv, scale, bias, G)
     pm, pv = C.reference_stats(x, ws, G)
     # pass B given the same statistics, so its check isolates pass B
@@ -149,8 +152,28 @@ def _hold_pair(tiling, x, ws, wt, scale, bias):
                + 2 * G * m * 4 + 2 * m * 4 + npix * cout * 2)
     ms_s = time_ms(lambda: stats(xk, wsk, G))
     ms_f = time_ms(lambda: fwd(xk, wsk, wtb, gm, gv, scale, bias, G))
-    return ok, {"stats": (ms_s, e_stats, ops_s, bytes_s),
-                "fwd": (ms_f, e_fwd, ops_f, bytes_f)}
+    return ok, bitwise, {"stats": (ms_s, e_stats, ops_s, bytes_s),
+                         "fwd": (ms_f, e_fwd, ops_f, bytes_f)}
+
+
+def log_stats_plan(plan, stats, plain_ms, bitwise):
+    """K2's launch plan at one site (resident blocks per SM from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor beside the plan's
+    assumption), its achieved bf16 rate on the operations the pass must do,
+    its time over the plain pass's, and whether two launches agreed
+    bitwise."""
+    from cstp_tpu_torch.ops import conv21d as C
+
+    kms, _, ops, _ = stats
+    tflops = ops / (kms * 1e-3) / 1e12
+    log(f"[conv21d]   K2 plan: P {plan['P']} rows, {plan['stages']} stages, "
+        f"mid chunk {plan['bn']}, warp tile 32x{8 * plan['ni']}, "
+        f"{plan['tiles']} row tiles, {plan['tpb']} per block, "
+        f"{plan['blocks']} blocks, {C.stats_occupancy(plan)} resident per SM "
+        f"(plan {C.STATS_PER_SM}), {plan['smem']} B shared | "
+        f"{tflops:.1f} TFLOP/s, {tflops * 1e12 / PEAK_BF16:.1%} of the bf16 "
+        f"peak | K2 / plain stats {kms / plain_ms:.2f}x | two launches "
+        f"bitwise equal: {bitwise}")
 
 
 def log_fwd_plan(plan, fwd, plain_ms):
@@ -207,7 +230,7 @@ def phase_conv21d(dev):
             f"{pms['fwd']:.3f} ms")
         ms = {}
         for tiling, weight in weights.items():
-            ok, passes = _hold_pair(tiling, x, ws, wt, scale, bias)
+            ok, bitwise, passes = _hold_pair(tiling, x, ws, wt, scale, bias)
             parts = []
             for p, (kms, err, ops, nb) in passes.items():
                 b, by = bound_ms(ops, nb, PEAK_BF16)
@@ -228,8 +251,13 @@ def phase_conv21d(dev):
                 raise SystemExit(f"conv21d {tiling} kernels disagree with "
                                  f"their plain version at {site}")
             if tiling == "clip":
+                log_stats_plan(C.plan_stats(n, t, hw, hw, cin, m, G),
+                               passes["stats"], pms["stats"], bitwise)
                 log_fwd_plan(C.plan_fwd(n, t, hw, hw, cin, m, cout),
                              passes["fwd"], pms["fwd"])
+                if not bitwise:
+                    raise SystemExit(f"two launches of K2 gave different "
+                                     f"statistics at {site}")
         if "clip" in weights:
             log(f"[conv21d]   taps9 / clip time: stats "
                 f"{ms['taps9', 'stats'] / ms['clip', 'stats']:.2f}x, fwd "

@@ -3,8 +3,8 @@
 // temporal (3,1,1) conv, stride 1, "same" padding, NDHWC bf16.
 //
 // Replaces cstp_tpu/ops/pallas/conv21d.py, tiling "clip":
-//   cstp_conv21d_stats <- _run_stats_clip / _stats_kernel_clip (pass A)
-//   cstp_conv21d_fwd   <- _run_fwd_clip / _fwd_kernel_clip (pass B)
+//   cstp_conv21d_stats <- _run_stats_clip / _stats_kernel_clip (pass A, :347)
+//   cstp_conv21d_fwd   <- _run_fwd_clip / _fwd_kernel_clip (pass B, :432)
 //
 // What bounds it on the H100: tensor-core operations. The spatial conv is an
 // implicit GEMM of (pixels) x (9*Cin) x (M) and pass B adds the temporal
@@ -13,33 +13,67 @@
 // and the mid tensor (M = 144..1152 channels) would be the largest tensor
 // moved if it were stored.
 //
-// Design of pass A (K2). The spatial conv runs on warp-level bf16 mma
-// (nvcuda::wmma 16x16x16, f32 accumulation) on tiles staged in shared
-// memory: A is gathered im2col-style from the unpadded input (out-of-frame
-// taps read as zero, so no padded copy of x is made), B is a slice of
-// ws (9*Cin, M). Each mid value is rounded to bf16 before it is used,
-// as on the TPU. The TPU kernel carried its sums across a sequential grid;
-// here blocks run in any order, so each block (channel chunk, frame) writes
-// its frame's per-channel sums of mid and mid^2 to a scratch, and a second
-// small kernel reduces them per BN group in a fixed order (deterministic, no
-// float atomics) into the mean and the biased variance.
+// One spatial mainloop serves both passes. A block of 256 threads (8 warps)
+// owns P consecutive rows of a flat row index (so no mma row idles on a 7x7
+// or 14x14 frame); each thread precomputes its gather rows' frame base and
+// (y, x) once per row tile (GatherRows). Every K step of 64 rows of 9 * Cin
+// is staged with 16-byte cp.async.cg into a ring of 3-4 stages: A is the
+// im2col gather of the unpadded input at the tile's rows (gather_a;
+// out-of-frame taps and rows past the end by the zero-filling form, so no
+// padded copy of x is made), B a slice of ws (9*Cin, M) (copy_b). One
+// __syncthreads per step; 8 warps run ldmatrix + mma.sync m16n8k16 on
+// 32 x (8 * ni) register tiles (warp_mma), and the epilogues go straight
+// from the accumulator fragments. Each mid value is rounded to bf16 before
+// it is used, as on the TPU (conv21d.py:327).
+//
+// Design of pass A (K2). The TPU kernel carried its sums across a
+// sequential grid and staged whole frames; here blocks run in any order.
+// A block walks tpb consecutive row tiles of the flat (frame, pixel) index
+// of one BN group, for one chunk of bn mid channels, as one sequence of K
+// steps whose producer runs S - 1 steps ahead across tile boundaries. Rows
+// past the group's end are zero-filled, and a zero row adds exactly 0 to
+// both sums, so tiles never mix groups and need no mask. After a tile's
+// last K step each accumulator value is rounded to bf16; each thread adds
+// its four rows' values and squares per column, and the 8 lanes that share
+// columns reduce-scatter those sums with __shfl_xor (16, 8, 4), so each lane
+// carries NI / 2 of its warp's column sums in registers from tile to tile.
+// At the block's end the warps' sums meet in shared memory (over the
+// stages), are added over the row strips in a fixed order, and the block
+// writes one partial row of sums and one of squares to a (blocks, M) f32
+// scratch; a second small kernel adds each group's partial rows in a fixed
+// order into the mean and the biased variance Q / count - mean^2
+// (conv21d.py:369-371). No float atomics: two launches give bitwise the same
+// statistics. Shared memory is the stages alone (113.7 KB at P = 128,
+// bn = 144, 3 stages), so two blocks are resident per SM, 16 warps. The
+// launch plan (row tile, stages, chunk, tiles per block, blocks) comes
+// from ops/conv21d.py plan_stats and is checked here again. Plans at the
+// pretrain step's sites, N = 32, two groups, and the time on one H100 80GB
+// HBM3 at 700 W (chip_smoke.py; the design this replaced, wmma tiles
+// staged synchronously with one block per frame and chunk, took 6.67 /
+// 3.48 / 2.08 / 1.05 ms):
+//   site   P  chunk stages  tiles  per block  blocks    ms    TFLOP/s
+//   conv2 128  144    3     12544     48       262    1.366    195
+//   conv3 128  144    3      3136     12       264    0.675    197
+//   conv4 128  144    3       784      3       264    0.328    203
+//   conv5 128  144    3       208      1       208    0.218    153
+// Plans with one block per SM, narrower chunks or smaller row tiles
+// measured slower at every site (perf/sweep_conv21d_fwd.py --pass stats),
+// and 3 or 4 stages time alike: by inference the warps' issue of ldmatrix,
+// mma.sync and cp.async per K step bounds it, which the wider warp tile and
+// the second block per SM amortise and hide. conv5 fills 208 of 264 block
+// slots with 72 K steps each.
 //
 // Design of pass B (K3, replaces cstp_tpu/ops/pallas/conv21d.py:432). The
 // TPU kernel kept a whole clip's mid resident (14.5 MB at layer 1), which
-// cannot live in 227 KB of shared memory. A block of 256 threads owns P
-// consecutive rows of the flat (clip, pixel) index (so no mma row idles on a
-// 7x7 or 14x14 frame; each row carries its own clip's frame base and BN
+// cannot live in 227 KB of shared memory. A block owns P rows of the flat
+// (clip, pixel) index (each row carries its own clip's frame base and BN
 // group, and a tile may span clips and groups) and walks the frames in
 // order, keeping the normalised bf16 mid of the min(3, T) latest frames in
 // a shared-memory ring; output frame t-1 is computed from the ring once mid
 // frame t is in (zero temporal padding at both ends). Mid never reaches
 // device memory and each mid frame's spatial conv is computed once per
-// launch (recompute factor 1). Every K step of 64 rows (im2col gather of x
-// and ws slice, or wt slice) is staged with 16-byte cp.async.cg into a ring
-// of 3-4 stages, out-of-frame taps by the zero-filling form, with one
-// __syncthreads per step; 8 warps run ldmatrix + mma.sync m16n8k16 on
-// 32 x (8 * ni) register tiles, and the epilogues go from the accumulator
-// fragments to the ring (bf16 round, BN, ReLU, bf16) or to the output.
+// launch (recompute factor 1). Its K steps (spatial: the mainloop above;
+// temporal: a ring slot as A and a slice of wt) share one ring of stages.
 // ws and wt stream from L2 once per mid frame or output frame per block.
 // Where the ring of a wide mid does not fit one block at a large row tile,
 // a cluster of C = 2 or 4 blocks shares the tile:
@@ -64,192 +98,341 @@
 // fixed cost per K step: by inference, cp.async and ldmatrix issue through
 // the same memory-instruction pipe, so staging and mma do not overlap, and
 // 8 warps per SM hide little of each step's mma chain and barrier.
-// No TMA, wgmma or warp specialisation yet.
+// No TMA, wgmma or warp specialisation yet, in either pass.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "warp_mma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kKStep = 32;             // K rows staged per iteration
-constexpr int kLdA = kKStep + 8;       // padded pitch (bf16) of the A stage
-constexpr int kMaxFragsPerWarp = 9;    // a tile holds at most 36 16x16 frags
-constexpr int kStatsRowStrips = 4;     // pass A pixel tile: 64 pixels
-constexpr size_t kSmemMax = 232448;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+constexpr int kThreads = 256;
+constexpr int kKC = 64;                  // K rows per pipeline stage
+constexpr int kLdA = kKC + 8;            // pitch (bf16) of the staged A gather
+constexpr int kMI = 2;                   // 16-row mma strips per warp
+constexpr int kMaxGatherRows = 4;        // rows per thread in the A gather (P <= 128)
+constexpr size_t kSmemMax = 232448;      // dynamic shared memory of one block
+constexpr size_t kSmemSM = 233472;       // of one SM; a resident block also takes 1 KB
+constexpr int kStatsPerSM = 2;           // pass-A blocks resident per SM (launch bound)
 
 __host__ __device__ inline size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
 
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 __device__ inline float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
-// Tile geometry shared by host and device: P = 16*PR rows, BN = 16*NF cols.
-struct Tile {
-  int PR, NF;
+// ------------------------------------------------------ spatial mainloop --
+
+// This thread's rows of the A gather: rows (tid / 8) + 32 i of the row
+// tile, channels 8 * (tid % 8) .. + 8 of each K step.
+struct GatherRows {
+  int frame0[kMaxGatherRows];  // the row's first frame; -1 past the end
+  int y[kMaxGatherRows], x[kMaxGatherRows];
 };
 
-__host__ __device__ inline size_t stage_bytes(int PR, int NF) {
-  const size_t a = align128(sizeof(bf16) * 16 * PR * kLdA);
-  const size_t b = sizeof(bf16) * kKStep * (16 * NF + 8);
-  const size_t c = sizeof(float) * 16 * PR * (16 * NF + 4);
-  return align128(a + b > c ? a + b : c);
+// This thread's rows r0 + (tid / 8) + 32 i of a flat row index whose unit
+// is `fstride` frames of HW pixels (K3: clips, fstride T; K2: frames, 1);
+// rows at or past `end` get frame0 -1.
+__device__ inline GatherRows gather_rows(int r0, int end, int HW, int W, int fstride) {
+  GatherRows gr;
+#pragma unroll
+  for (int i = 0; i < kMaxGatherRows; ++i) {
+    const int r = r0 + (threadIdx.x >> 3) + 32 * i;
+    const int n = r / HW, p = r - n * HW;
+    gr.frame0[i] = r < end ? n * fstride : -1;
+    gr.y[i] = p / W;
+    gr.x[i] = p - gr.y[i] * W;
+  }
+  return gr;
 }
 
-__device__ inline void zero_acc(Acc* acc) {
+// The A half of a spatial K step: the im2col gather, at K rows
+// [k0, k0 + rows) of 9 * Cin (tap-major, cin-minor), of this thread's rows
+// in frame frame0 + fu, into the first P rows of sA; out-of-frame taps and
+// rows past the end are zero-filled.
+__device__ inline void gather_a(bf16* sA, const bf16* __restrict__ x, const GatherRows& gr,
+                                int fu, int H, int W, int Cin, int P, int k0, int rows) {
+  const int tid = threadIdx.x, q = tid & 7, k = k0 + 8 * q;
+  if (8 * q >= rows) return;
+  const int tap = k / Cin, ci = k - tap * Cin;
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  const size_t HW = (size_t)H * W;
 #pragma unroll
-  for (int i = 0; i < kMaxFragsPerWarp; ++i) wmma::fill_fragment(acc[i], 0.f);
+  for (int i = 0; i < kMaxGatherRows; ++i) {
+    const int row = (tid >> 3) + 32 * i;
+    if (row < P) {
+      const int y = gr.y[i] + dy, xx = gr.x[i] + dx;
+      const bool ok = gr.frame0[i] >= 0 && (unsigned)y < (unsigned)H && (unsigned)xx < (unsigned)W;
+      const bf16* g = x;
+      if (ok) g += ((size_t)(gr.frame0[i] + fu) * HW + y * W + xx) * Cin + ci;
+      cp_async16(sA + row * kLdA + 8 * q, g, ok);
+    }
+  }
 }
 
-// acc += A[P x ks] * B[ks x BN] for one staged K chunk; frag f = warp + 4i
-// covers row strip f / NF and column frag f % NF.
-__device__ inline void mma_chunk(Acc* acc, const bf16* A, int lda, const bf16* B,
-                                 int ldb, int kk, Tile tl) {
-  const int warp = threadIdx.x >> 5, nfr = tl.PR * tl.NF;
-  for (int ks = 0; ks < kk; ks += 16) {
+// This thread's 16-byte column q and first row r of a B slice whose rows
+// hold a full chunk's width / 8 vectors, rows r, r + rstep, ...; threads
+// with q past a ragged chunk's width, or r >= rstep, copy nothing.
+struct BMap {
+  int q, r, rstep;
+};
+
+__device__ inline BMap bmap_for(int chunk) {
+  const int vpr = chunk / 8, rstep = kThreads / vpr, r = threadIdx.x / vpr;
+  return r < rstep ? BMap{(int)threadIdx.x - r * vpr, r, rstep} : BMap{vpr, 0, 1};
+}
+
+// The B half of a K step: rows x width columns of a row-major matrix
+// (pitch ldg) from `src` into sB (pitch ldb).
+__device__ inline void copy_b(bf16* sB, int ldb, const bf16* src, int ldg, int rows, int width,
+                              BMap bm) {
+  if (bm.q < width / 8)
+    for (int r = bm.r; r < rows; r += bm.rstep)
+      cp_async16(sB + r * ldb + bm.q * 8, src + (size_t)r * ldg + bm.q * 8, true);
+}
+
+// Wait for the oldest of the S - 1 copy groups in flight.
+__device__ __forceinline__ void cp_async_wait_stages(int S) {
+  switch (S) {
+    case 3: cp_async_wait<1>(); break;
+    case 4: cp_async_wait<2>(); break;
+    case 5: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
+// The A fragments of this warp's 32-row strip at K offset k: from this
+// block's shared memory by ldmatrix, or (cluster) by 32-bit loads from the
+// distributed shared-memory address `ca` of another block's strip.
+struct ALocal {
+  const bf16* A;
+  int lda;
+  __device__ __forceinline__ void load(uint32_t (*af)[4], int k) const {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int i = 0; i < kMaxFragsPerWarp; ++i) {
-      const int f = warp + i * kWarps;
-      if (f < nfr) {
-        const int rs = f / tl.NF, cf = f - rs * tl.NF;
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, A + rs * 16 * lda + ks, lda);
-        wmma::load_matrix_sync(b, B + ks * ldb + cf * 16, ldb);
-        wmma::mma_sync(acc[i], a, b, acc[i]);
+    for (int mi = 0; mi < kMI; ++mi)
+      ldmatrix_x4(af[mi], A + (mi * 16 + (lane & 15)) * lda + k + (lane >> 4) * 8);
+  }
+};
+
+struct ACluster {
+  uint32_t ca;
+  int lda;
+  __device__ __forceinline__ void load(uint32_t (*af)[4], int k) const {
+    const int lane = threadIdx.x & 31, pitch = 2 * lda;
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const uint32_t p = ca + (mi * 16 + (lane >> 2)) * pitch + 2 * (k + 2 * (lane & 3));
+      af[mi][0] = ld_cluster_u32(p);
+      af[mi][1] = ld_cluster_u32(p + 8 * pitch);
+      af[mi][2] = ld_cluster_u32(p + 16);
+      af[mi][3] = ld_cluster_u32(p + 8 * pitch + 16);
+    }
+  }
+};
+
+// acc += A (32 rows of this warp's strip x 16) * B (16 x the warp's n8
+// tiles), at K offset k of the staged step. Warp w holds a 32 x (8 * NI)
+// accumulator tile: rows 32 * (w / WN) .. + 32 (WN = 256 / P warps share a
+// row strip) and the chunk's n16 column tiles jj = w % WN + WN * i,
+// i < NI / 2; accumulator slot s holds n8 tile 2 * jj + s % 2 of pair s / 2.
+template <int NI, class ASrc>
+__device__ __forceinline__ void mma_k16(float (*acc)[NI][4], const ASrc& A, const bf16* B,
+                                        int ldb, int k, int wn, int WN, int nb8) {
+  const int lane = threadIdx.x & 31;
+  uint32_t af[kMI][4];
+  A.load(af, k);
+  const bf16* brow = B + (k + (lane & 15)) * ldb + (lane >> 4) * 8;
+#pragma unroll
+  for (int i = 0; i < NI / 2; ++i) {
+    const int jj = wn + WN * i;
+    if (2 * jj < nb8) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, brow + jj * 16);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        mma_bf16(acc[mi][2 * i], af[mi], b);
+        mma_bf16(acc[mi][2 * i + 1], af[mi], b + 2);
       }
     }
   }
 }
 
-__device__ inline void store_acc(Acc* acc, float* C, int ldc, Tile tl) {
-  const int warp = threadIdx.x >> 5, nfr = tl.PR * tl.NF;
+// acc += A (32 x kk) * B (kk x ...). A full step of 64 is unrolled for warp
+// tiles up to 32 x 48, so the fragments of one k16 load while the previous
+// one multiplies; the 32 x 80 tile keeps the loop, which holds its
+// registers down.
+template <int NI, class ASrc>
+__device__ __forceinline__ void warp_mma(float (*acc)[NI][4], const ASrc& A, const bf16* B,
+                                         int ldb, int kk, int wn, int WN, int nb8) {
+  if (NI <= 6 && kk == kKC) {
 #pragma unroll
-  for (int i = 0; i < kMaxFragsPerWarp; ++i) {
-    const int f = warp + i * kWarps;
-    if (f < nfr) {
-      const int rs = f / tl.NF, cf = f - rs * tl.NF;
-      wmma::store_matrix_sync(C + rs * 16 * ldc + cf * 16, acc[i], ldc,
-                              wmma::mem_row_major);
-    }
+    for (int k = 0; k < kKC; k += 16) mma_k16<NI>(acc, A, B, ldb, k, wn, WN, nb8);
+  } else {
+    for (int k = 0; k < kk; k += 16) mma_k16<NI>(acc, A, B, ldb, k, wn, WN, nb8);
   }
 }
 
-// Stage `rows` rows x BN columns of a row-major global matrix into smem.
-__device__ inline void stage_b(bf16* sB, int ldb, const bf16* g, int ldg,
-                               int rows, int bn) {
-  const int vpr = bn / 8;
-  for (int v = threadIdx.x; v < rows * vpr; v += kThreads) {
-    const int r = v / vpr, q = v - r * vpr;
-    *reinterpret_cast<uint4*>(sB + r * ldb + q * 8) =
-        *reinterpret_cast<const uint4*>(g + (size_t)r * ldg + q * 8);
-  }
-}
-
-// Spatial (1,3,3) conv of pixels [pix0, pix0 + npix) of one frame, mid
-// channels [n0, n0 + BN): sC[r * ldc + j] = f32 conv value (rows >= npix 0).
-// `work` holds the A and B stages, which sC overlays after the K loop.
-__device__ void spatial_tile(const bf16* __restrict__ xf, int H, int W, int Cin,
-                             int pix0, int npix, const bf16* __restrict__ ws,
-                             int M, int n0, Tile tl, unsigned char* work,
-                             float* sC, int ldc) {
-  const int P = 16 * tl.PR, BN = 16 * tl.NF, ldb = BN + 8;
-  bf16* sA = reinterpret_cast<bf16*>(work);
-  bf16* sB = reinterpret_cast<bf16*>(work + align128(sizeof(bf16) * P * kLdA));
-  Acc acc[kMaxFragsPerWarp];
-  zero_acc(acc);
-  const int K = 9 * Cin;
-  for (int k0 = 0; k0 < K; k0 += kKStep) {
-    const int tap = k0 / Cin, c0 = k0 - tap * Cin;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int v = threadIdx.x; v < P * 4; v += kThreads) {
-      const int r = v >> 2, q = v & 3;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < npix) {
-        const int p = pix0 + r;
-        const int y = p / W + dy, x = p % W + dx;
-        if (y >= 0 && y < H && x >= 0 && x < W)
-          val = *reinterpret_cast<const uint4*>(xf + (size_t)(y * W + x) * Cin + c0 + q * 8);
-      }
-      *reinterpret_cast<uint4*>(sA + r * kLdA + q * 8) = val;
-    }
-    stage_b(sB, ldb, ws + (size_t)k0 * M + n0, M, kKStep, BN);
-    __syncthreads();
-    mma_chunk(acc, sA, kLdA, sB, ldb, kKStep, tl);
-    __syncthreads();
-  }
-  store_acc(acc, sC, ldc, tl);
-  __syncthreads();
+template <int NI>
+__device__ __forceinline__ void zero_tile(float (*acc)[NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][i][e] = 0.f;
 }
 
 // ---------------------------------------------------------------- pass A --
 
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ws,
-             float* __restrict__ psum, float* __restrict__ psq, int H, int W,
-             int Cin, int M, int NF) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Tile tl{kStatsRowStrips, NF};
-  const int P = 16 * tl.PR, BN = 16 * NF, ldc = BN + 4;
-  const int n0 = blockIdx.x * BN;
-  const size_t frame = blockIdx.y;
-  const int HW = H * W;
-  const bf16* xf = x + frame * HW * Cin;
-  float* sC = reinterpret_cast<float*>(smem);
-  const int j0 = threadIdx.x, j1 = threadIdx.x + kThreads;  // BN <= 144
-  float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
-  for (int pix0 = 0; pix0 < HW; pix0 += P) {
-    const int npix = min(P, HW - pix0);
-    spatial_tile(xf, H, W, Cin, pix0, npix, ws, M, n0, tl, smem, sC, ldc);
-    if (j0 < BN)
-      for (int r = 0; r < npix; ++r) {
-        const float v = bf16_round(sC[r * ldc + j0]);
-        s0 += v;
-        q0 += v * v;
-      }
-    if (j1 < BN)
-      for (int r = 0; r < npix; ++r) {
-        const float v = bf16_round(sC[r * ldc + j1]);
-        s1 += v;
-        q1 += v * v;
-      }
-    __syncthreads();
-  }
-  if (j0 < BN) {
-    psum[frame * M + n0 + j0] = s0;
-    psq[frame * M + n0 + j0] = q0;
-  }
-  if (j1 < BN) {
-    psum[frame * M + n0 + j1] = s1;
-    psq[frame * M + n0 + j1] = q1;
+struct StatsArgs {
+  const bf16* x;
+  const bf16* ws;
+  float* psum;
+  float* psq;
+  int H, W, Cin, M, R;  // R: rows (frame, pixel) of one BN group
+  int P, S, WN, bn, ldb, a_bytes, stage_bytes;
+  int tpg, tpb, bpg;    // row tiles per group, per block; blocks per group
+};
+
+// Reduce-scatter of v[0, N) over the two lanes that differ in lane bit
+// `mask`: the lane with the bit set keeps the upper half, the other the
+// lower, and each adds its partner's copy of that half into v[0, N / 2).
+template <int N>
+__device__ __forceinline__ void reduce_scatter(float* v, int mask) {
+  const bool upper = threadIdx.x & mask;
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float keep = upper ? v[j + N / 2] : v[j];
+    const float send = upper ? v[j] : v[j + N / 2];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
   }
 }
 
-// Per group g: frames [g*fpg, (g+1)*fpg); mean = S / count, var = Q / count
-// - mean^2 with count = fpg * H * W (conv21d.py:369-371).
+// The statistics of a finished row tile. Entry e of a thread's 4 * NI
+// sums: n8 tile e / 4, column c2 + e % 2, the values (e & 2 == 0) or their
+// squares, over its rows g8, g8 + 8, g8 + 16, g8 + 24, each rounded to bf16
+// first. The reduce-scatter over the 8 lanes of equal lane % 4 leaves lane
+// (g8, c) with entries [NI / 2 * g8, + NI / 2) over the warp's 32 rows,
+// which it adds to carry.
+template <int NI>
+__device__ __forceinline__ void tile_stats(float (*acc)[NI][4], float* carry) {
+  float v[4 * NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float a0 = bf16_round(acc[0][i][c]), a1 = bf16_round(acc[0][i][2 + c]);
+      const float a2 = bf16_round(acc[1][i][c]), a3 = bf16_round(acc[1][i][2 + c]);
+      v[4 * i + c] = ((a0 + a1) + a2) + a3;
+      v[4 * i + 2 + c] = ((a0 * a0 + a1 * a1) + a2 * a2) + a3 * a3;
+    }
+  reduce_scatter<4 * NI>(v, 16);
+  reduce_scatter<2 * NI>(v, 8);
+  reduce_scatter<NI>(v, 4);
+#pragma unroll
+  for (int l = 0; l < NI / 2; ++l) carry[l] += v[l];
+}
+
+// Block (x, y): tiles [t0, t0 + tpb) of BN group x / bpg, mid channels
+// [y * bn, + bn); its partial sums go to row x of psum and psq.
+template <int NI>
+__global__ void __launch_bounds__(kThreads, kStatsPerSM) stats_kernel(const StatsArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wn = warp % a.WN, strip = warp / a.WN;
+  const int n0 = blockIdx.y * a.bn, width = min(a.bn, a.M - n0), nb8 = width / 8;
+  const int g = blockIdx.x / a.bpg, t0 = (blockIdx.x - g * a.bpg) * a.tpb;
+  const int r0 = g * a.R + t0 * a.P, rend = (g + 1) * a.R, HW = a.H * a.W;
+  const int K = 9 * a.Cin, nks = cdiv(K, kKC), n_iter = min(a.tpb, a.tpg - t0) * nks;
+  const BMap bm = bmap_for(a.bn);
+
+  // the producer: K step pks of the block's tile pt, whose rows are gr
+  int pt = 0, pks = 0;
+  GatherRows gr = gather_rows(r0, rend, HW, a.W, 1);
+  auto load = [&](unsigned char* st) {
+    const int k0 = pks * kKC, rows = min(kKC, K - k0);
+    gather_a(reinterpret_cast<bf16*>(st), a.x, gr, 0, a.H, a.W, a.Cin, a.P, k0, rows);
+    copy_b(reinterpret_cast<bf16*>(st + a.a_bytes), a.ldb, a.ws + (size_t)k0 * a.M + n0, a.M,
+           rows, width, bm);
+    if (++pks == nks) {
+      pks = 0;
+      gr = gather_rows(r0 + ++pt * a.P, rend, HW, a.W, 1);
+    }
+  };
+  for (int s = 0; s < a.S - 1; ++s) {
+    if (s < n_iter) load(smem + s * a.stage_bytes);
+    cp_async_commit();
+  }
+
+  float acc[kMI][NI][4];
+  zero_tile<NI>(acc);
+  float carry[NI / 2];
+#pragma unroll
+  for (int l = 0; l < NI / 2; ++l) carry[l] = 0.f;
+  int ks = 0;
+  for (int it = 0; it < n_iter; ++it) {
+    // step `it` has landed for this thread; the barrier makes it land for
+    // all and frees the stage that step it - 1 read
+    cp_async_wait_stages(a.S);
+    __syncthreads();
+    const int li = it + a.S - 1;
+    if (li < n_iter) load(smem + (li % a.S) * a.stage_bytes);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (it % a.S) * a.stage_bytes;
+    const ALocal A{reinterpret_cast<const bf16*>(st) + 32 * strip * kLdA, kLdA};
+    warp_mma<NI>(acc, A, reinterpret_cast<const bf16*>(st + a.a_bytes), a.ldb,
+                 min(kKC, K - ks * kKC), wn, a.WN, nb8);
+    if (++ks == nks) {
+      ks = 0;
+      tile_stats<NI>(acc, carry);
+      zero_tile<NI>(acc);
+    }
+  }
+
+  // every copy has landed and every warp has left the stages, which now
+  // take the warps' sums: red[kind][strip][column], kind 0 sums, 1 squares
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  const int nstrips = a.P / 32, g8 = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int l = 0; l < NI / 2; ++l) {
+    const int e = NI / 2 * g8 + l, i = e >> 2;
+    const int j = 2 * (wn + a.WN * (i >> 1)) + (i & 1);
+    if (j < nb8) red[(((e >> 1) & 1) * nstrips + strip) * a.bn + 8 * j + c2 + (e & 1)] = carry[l];
+  }
+  __syncthreads();
+  for (int c = tid; c < width; c += kThreads) {
+    float s = 0.f, q = 0.f;
+    for (int k = 0; k < nstrips; ++k) {
+      s += red[k * a.bn + c];
+      q += red[(nstrips + k) * a.bn + c];
+    }
+    a.psum[(size_t)blockIdx.x * a.M + n0 + c] = s;
+    a.psq[(size_t)blockIdx.x * a.M + n0 + c] = q;
+  }
+}
+
+// Per group g: partial rows [g * rpg, (g + 1) * rpg); mean = S / count,
+// var = Q / count - mean^2 (conv21d.py:369-371).
 __global__ void stats_reduce_kernel(const float* __restrict__ psum,
                                     const float* __restrict__ psq,
                                     float* __restrict__ gmean,
-                                    float* __restrict__ gvar, int fpg, int M,
+                                    float* __restrict__ gvar, int rpg, int M,
                                     float inv_count) {
   __shared__ float ss[8][33], sq[8][33];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int m = blockIdx.x * 32 + tx, g = blockIdx.y;
   float s = 0.f, q = 0.f;
   if (m < M)
-    for (int r = ty; r < fpg; r += 8) {
-      const size_t row = (size_t)g * fpg + r;
+    for (int r = ty; r < rpg; r += 8) {
+      const size_t row = (size_t)g * rpg + r;
       s += psum[row * M + m];
       q += psq[row * M + m];
     }
@@ -268,11 +451,24 @@ __global__ void stats_reduce_kernel(const float* __restrict__ psum,
   }
 }
 
-inline int largest_divisor_within(int n, int cap) {
-  int best = 1;
-  for (int d = 1; d <= n && d <= cap; ++d)
-    if (n % d == 0) best = d;
-  return best;
+// The kernel instantiation for a warp tile of 32 x (8 * ni); the plan
+// (ops/conv21d.py plan_stats) picks ni from these.
+const void* stats_kernel_for(int ni) {
+  switch (ni) {
+    case 2: return (const void*)stats_kernel<2>;
+    case 4: return (const void*)stats_kernel<4>;
+    case 6: return (const void*)stats_kernel<6>;
+    case 10: return (const void*)stats_kernel<10>;
+  }
+  return nullptr;
+}
+
+// Dynamic shared memory of a pass-A plan: S stages of (A gather P x 72,
+// B 64 x (bn + 8)).
+inline size_t stats_smem_bytes(int P, int bn, int S, size_t* a_bytes, size_t* stage_bytes) {
+  *a_bytes = align128(sizeof(bf16) * (size_t)P * kLdA);
+  *stage_bytes = align128(*a_bytes + sizeof(bf16) * (size_t)kKC * (bn + 8));
+  return S * *stage_bytes;
 }
 
 // ---------------------------------------------------------------- pass B --
@@ -288,16 +484,6 @@ inline int largest_divisor_within(int n, int cap) {
 //   temporal(f): for each out chunk of bno channels, for each tap k with
 //                f - 1 + k in [0, T), K = M: A is ring slot (f - 1 + k) % 3,
 //                B a slice of wt[k]; epilogue: bf16 -> out frame f
-// Warp w holds a 32 x (8 * NI) accumulator tile in registers: rows
-// 32 * (w / WN) .. + 32 (WN = 256 / P warps share a row strip) and the
-// chunk's n16 column tiles jj = w % WN + WN * i, i < NI / 2; accumulator
-// slot s holds n8 tile 2 * jj + s % 2 of pair i = s / 2.
-
-constexpr int kFwdThreads = 256;
-constexpr int kFwdKC = 64;               // K rows per pipeline stage
-constexpr int kFwdLdA = kFwdKC + 8;      // pitch (bf16) of the staged A gather
-constexpr int kMI = 2;                   // 16-row mma strips per warp
-constexpr int kMaxGatherRows = 4;        // rows per thread in the A gather (P <= 128)
 
 struct FwdArgs {
   const bf16* x;
@@ -351,149 +537,22 @@ struct Cursor {
   }
 };
 
-// This thread's rows of the A gather: rows (tid / 8) + 32 i, channels
-// 8 * (tid % 8) .. + 8 of each K step.
-struct GatherRows {
-  int frame0[kMaxGatherRows];  // n * T (its clip's first frame)
-  int y[kMaxGatherRows], x[kMaxGatherRows];
-};
-
-// This thread's 16-byte column q and first row r of a B slice whose rows
-// hold a full chunk's width / 8 vectors, rows r, r + rstep, ...; threads
-// with q past a ragged chunk's width, or r >= rstep, copy nothing.
-struct BMap {
-  int q, r, rstep;
-};
-
-__device__ inline BMap bmap_for(int chunk) {
-  const int vpr = chunk / 8, rstep = kFwdThreads / vpr, r = threadIdx.x / vpr;
-  return r < rstep ? BMap{(int)threadIdx.x - r * vpr, r, rstep} : BMap{vpr, 0, 1};
-}
-
 __device__ inline void stage_load(const FwdArgs& a, const Cursor& c, const GatherRows& gr,
                                   BMap bmap_s, BMap bmap_t, int rank, unsigned char* stage) {
   bf16* sA = reinterpret_cast<bf16*>(stage);
   bf16* sB = reinterpret_cast<bf16*>(stage + a.a_bytes);
-  const int tid = threadIdx.x;
-  const bf16* src;
-  int rows, k0, width, ldg;
   if (c.ph == 0) {
-    const int K = 9 * a.Cin;
-    k0 = c.ks * kFwdKC;
-    rows = min(kFwdKC, K - k0);
-    const int q = tid & 7, k = k0 + 8 * q;
-    if (8 * q < rows) {
-      const int tap = k / a.Cin, ci = k - tap * a.Cin;
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-      const size_t HW = (size_t)a.H * a.W;
-#pragma unroll
-      for (int i = 0; i < kMaxGatherRows; ++i) {
-        const int row = (tid >> 3) + 32 * i;
-        if (row < a.P) {
-          const int y = gr.y[i] + dy, x = gr.x[i] + dx;
-          const bool ok = gr.frame0[i] >= 0 && (unsigned)y < (unsigned)a.H &&
-                          (unsigned)x < (unsigned)a.W;
-          const bf16* g = a.x;
-          if (ok) g += ((size_t)(gr.frame0[i] + c.u) * HW + y * a.W + x) * a.Cin + ci;
-          cp_async16(sA + row * kFwdLdA + 8 * q, g, ok);
-        }
-      }
-    }
-    width = min(a.bn, a.Mc - c.ch * a.bn);
-    src = a.ws + (size_t)k0 * a.M + rank * a.Mc + c.ch * a.bn;
-    ldg = a.M;
+    const int k0 = c.ks * kKC, rows = min(kKC, 9 * a.Cin - k0);
+    gather_a(sA, a.x, gr, c.u, a.H, a.W, a.Cin, a.P, k0, rows);
+    copy_b(sB, a.ldb, a.ws + (size_t)k0 * a.M + rank * a.Mc + c.ch * a.bn, a.M, rows,
+           min(a.bn, a.Mc - c.ch * a.bn), bmap_s);
   } else {
     // K runs over the mid slices of the cluster's blocks in rank order
-    const int from = c.ks / a.nks_c;
-    k0 = (c.ks - from * a.nks_c) * kFwdKC;
-    rows = min(kFwdKC, a.Mc - k0);
-    width = min(a.bno, a.Coc - c.ch * a.bno);
-    src = a.wt + ((size_t)c.tap * a.M + from * a.Mc + k0) * a.Cout + rank * a.Coc + c.ch * a.bno;
-    ldg = a.Cout;
+    const int from = c.ks / a.nks_c, k0 = (c.ks - from * a.nks_c) * kKC;
+    copy_b(sB, a.ldb,
+           a.wt + ((size_t)c.tap * a.M + from * a.Mc + k0) * a.Cout + rank * a.Coc + c.ch * a.bno,
+           a.Cout, min(kKC, a.Mc - k0), min(a.bno, a.Coc - c.ch * a.bno), bmap_t);
   }
-  const BMap bm = c.ph == 0 ? bmap_s : bmap_t;
-  if (bm.q < width / 8)
-    for (int r = bm.r; r < rows; r += bm.rstep)
-      cp_async16(sB + r * a.ldb + bm.q * 8, src + (size_t)r * ldg + bm.q * 8, true);
-}
-
-// The A fragments of this warp's 32-row strip at K offset k: from this
-// block's shared memory by ldmatrix, or (cluster) by 32-bit loads from the
-// distributed shared-memory address `ca` of another block's strip.
-struct ALocal {
-  const bf16* A;
-  int lda;
-  __device__ __forceinline__ void load(uint32_t (*af)[4], int k) const {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-      ldmatrix_x4(af[mi], A + (mi * 16 + (lane & 15)) * lda + k + (lane >> 4) * 8);
-  }
-};
-
-struct ACluster {
-  uint32_t ca;
-  int lda;
-  __device__ __forceinline__ void load(uint32_t (*af)[4], int k) const {
-    const int lane = threadIdx.x & 31, pitch = 2 * lda;
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi) {
-      const uint32_t p = ca + (mi * 16 + (lane >> 2)) * pitch + 2 * (k + 2 * (lane & 3));
-      af[mi][0] = ld_cluster_u32(p);
-      af[mi][1] = ld_cluster_u32(p + 8 * pitch);
-      af[mi][2] = ld_cluster_u32(p + 16);
-      af[mi][3] = ld_cluster_u32(p + 8 * pitch + 16);
-    }
-  }
-};
-
-// acc += A (32 rows of this warp's strip x 16) * B (16 x the warp's n8
-// tiles), at K offset k of the staged step
-template <int NI, class ASrc>
-__device__ __forceinline__ void mma_k16(float (*acc)[NI][4], const ASrc& A, const bf16* B,
-                                        int ldb, int k, int wn, int WN, int nb8) {
-  const int lane = threadIdx.x & 31;
-  uint32_t af[kMI][4];
-  A.load(af, k);
-  const bf16* brow = B + (k + (lane & 15)) * ldb + (lane >> 4) * 8;
-#pragma unroll
-  for (int i = 0; i < NI / 2; ++i) {
-    const int jj = wn + WN * i;
-    if (2 * jj < nb8) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, brow + jj * 16);
-#pragma unroll
-      for (int mi = 0; mi < kMI; ++mi) {
-        mma_bf16(acc[mi][2 * i], af[mi], b);
-        mma_bf16(acc[mi][2 * i + 1], af[mi], b + 2);
-      }
-    }
-  }
-}
-
-// acc += A (32 x kk) * B (kk x ...). A full step of 64 is unrolled for warp
-// tiles up to 32 x 48, so the fragments of one k16 load while the previous
-// one multiplies; the 32 x 80 tile keeps the loop, which holds its
-// registers down.
-template <int NI, class ASrc>
-__device__ __forceinline__ void warp_mma(float (*acc)[NI][4], const ASrc& A, const bf16* B,
-                                         int ldb, int kk, int wn, int WN, int nb8) {
-  if (NI <= 6 && kk == kFwdKC) {
-#pragma unroll
-    for (int k = 0; k < kFwdKC; k += 16) mma_k16<NI>(acc, A, B, ldb, k, wn, WN, nb8);
-  } else {
-    for (int k = 0; k < kk; k += 16) mma_k16<NI>(acc, A, B, ldb, k, wn, WN, nb8);
-  }
-}
-
-template <int NI>
-__device__ __forceinline__ void zero_tile(float (*acc)[NI][4]) {
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][i][e] = 0.f;
 }
 
 // The TPU kernel's order: mid rounded to bf16, (mid - mean) * rstd * scale
@@ -504,7 +563,7 @@ __device__ __forceinline__ float bn_relu(float v, float mean, float rstd, float 
 }
 
 template <int NI>
-__global__ void __launch_bounds__(kFwdThreads, 1) fwd_kernel(const FwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const FwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   unsigned char* stages = smem + a.ring_off;
@@ -517,19 +576,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1) fwd_kernel(const FwdArgs a) {
   // [rank * Coc, + Coc) from all the cluster's rings
   const int rank = blockIdx.x % a.C, r0 = blockIdx.x / a.C * a.P;
 
-  GatherRows gr;
-#pragma unroll
-  for (int i = 0; i < kMaxGatherRows; ++i) {
-    const int r = r0 + (tid >> 3) + 32 * i;
-    const int n = r / HW, p = r - n * HW;
-    gr.frame0[i] = r < a.nhw ? n * a.T : -1;
-    gr.y[i] = p / a.W;
-    gr.x[i] = p - gr.y[i] * a.W;
-  }
+  const GatherRows gr = gather_rows(r0, a.nhw, HW, a.W, a.T);
 
   const BMap bmap_s = bmap_for(a.bn), bmap_t = bmap_for(a.bno);
 
-  const int nks_s = (9 * a.Cin + kFwdKC - 1) / kFwdKC, nks_t = a.C * a.nks_c;
+  const int nks_s = (9 * a.Cin + kKC - 1) / kKC, nks_t = a.C * a.nks_c;
   const int n_iter = a.T * a.nch_s * nks_s + a.nch_t * nks_t * (a.T == 1 ? 1 : 3 * a.T - 2);
   Cursor pc{0, 0, 0, 0, 0}, cc{0, 0, 0, 0, 0};
   for (int s = 0; s < a.S - 1; ++s) {
@@ -546,12 +597,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) fwd_kernel(const FwdArgs a) {
   for (int it = 0; it < n_iter; ++it) {
     // step `it` has landed for this thread; the barrier makes it land for
     // all and frees the stage that step it - 1 read
-    switch (a.S) {
-      case 3: cp_async_wait<1>(); break;
-      case 4: cp_async_wait<2>(); break;
-      case 5: cp_async_wait<3>(); break;
-      default: cp_async_wait<4>(); break;
-    }
+    cp_async_wait_stages(a.S);
     __syncthreads();
     // a cluster's blocks enter each item together: the rings the temporal
     // items read are complete, and no block overwrites a ring slot that
@@ -568,13 +614,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) fwd_kernel(const FwdArgs a) {
     const bf16* sB = reinterpret_cast<const bf16*>(st + a.a_bytes);
     if (cc.ph == 0) {
       const int nb8 = min(a.bn, a.Mc - cc.ch * a.bn) / 8;
-      const int kk = min(kFwdKC, 9 * a.Cin - cc.ks * kFwdKC);
-      const ALocal A{reinterpret_cast<const bf16*>(st) + row0 * kFwdLdA, kFwdLdA};
+      const int kk = min(kKC, 9 * a.Cin - cc.ks * kKC);
+      const ALocal A{reinterpret_cast<const bf16*>(st) + row0 * kLdA, kLdA};
       warp_mma<NI>(acc, A, sB, a.ldb, kk, wn, a.WN, nb8);
     } else {
       const int nb8 = min(a.bno, a.Coc - cc.ch * a.bno) / 8;
-      const int from = cc.ks / a.nks_c, k0 = (cc.ks - from * a.nks_c) * kFwdKC;
-      const int kk = min(kFwdKC, a.Mc - k0);
+      const int from = cc.ks / a.nks_c, k0 = (cc.ks - from * a.nks_c) * kKC;
+      const int kk = min(kKC, a.Mc - k0);
       const bf16* strip = ring + ((size_t)((cc.u - 2 + cc.tap) % 3) * a.P + row0) * ldr + k0;
       if (from == rank) {
         warp_mma<NI>(acc, ALocal{strip, ldr}, sB, a.ldb, kk, wn, a.WN, nb8);
@@ -660,46 +706,84 @@ const void* fwd_kernel_for(int ni) {
   return nullptr;
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // Dynamic shared memory of a pass-B plan: the ring of min(3, T) mid frames
 // (P x (M + 8) bf16 each, M a block's slice of the mid channels) and S
 // stages of (A gather P x 72, B 64 x ldb).
 inline size_t fwd_smem_bytes(int P, int T, int M, int ldb, int S, size_t* a_bytes,
                              size_t* stage_bytes, size_t* ring) {
   *ring = align128(sizeof(bf16) * (size_t)(T < 3 ? T : 3) * P * (M + 8));
-  *a_bytes = align128(sizeof(bf16) * (size_t)P * kFwdLdA);
-  *stage_bytes = align128(*a_bytes + sizeof(bf16) * (size_t)kFwdKC * ldb);
+  *a_bytes = align128(sizeof(bf16) * (size_t)P * kLdA);
+  *stage_bytes = align128(*a_bytes + sizeof(bf16) * (size_t)kKC * ldb);
   return *ring + S * *stage_bytes;
 }
 
+// Cin % 32, as the wrappers check; M and Cout % 16
 inline bool shapes_ok(int Cin, int M, int Cout) {
-  return Cin % kKStep == 0 && M % 16 == 0 && Cout % 16 == 0;
+  return Cin % 32 == 0 && M % 16 == 0 && Cout % 16 == 0;
 }
 
 }  // namespace
 
 // x (B, T, H, W, Cin) bf16; ws (9*Cin, M) bf16 (tap-major, cin-minor);
-// psum/psq (B*T, M) f32 scratch; gmean/gvar (G, M) f32 out.
+// psum/psq (G * blocks per group, M) f32 scratch; gmean/gvar (G, M) f32
+// out. The plan (P, stages, bn: the mid chunk, ni, tpb: row tiles per
+// block, blocks, smem_bytes) comes from ops/conv21d.py plan_stats and is
+// checked here again; its stages leave room for kStatsPerSM blocks per SM.
 extern "C" int cstp_conv21d_stats(const void* x, const void* ws, void* psum, void* psq,
                                   void* gmean, void* gvar, int B, int T, int H, int W,
-                                  int Cin, int M, int G, void* stream) {
-  if (!shapes_ok(Cin, M, 16) || G <= 0 || B % G) return (int)cudaErrorInvalidValue;
-  const int NF = largest_divisor_within(M / 16, kMaxFragsPerWarp);
-  const size_t bytes = stage_bytes(kStatsRowStrips, NF);
-  cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                  int Cin, int M, int G, int P, int stages, int bn, int ni,
+                                  int tpb, int blocks, int smem_bytes, void* stream) {
+  const long long nrows = (long long)B * T * H * W;
+  const void* kernel = stats_kernel_for(ni);
+  if (!shapes_ok(Cin, M, 16) || B <= 0 || T <= 0 || H <= 0 || W <= 0 || G <= 0 || B % G ||
+      nrows + P >= (1ll << 31) || kernel == nullptr || (P != 32 && P != 64 && P != 128) ||
+      stages < 3 || stages > 4 || bn <= 0 || bn % 16 || bn > M || tpb <= 0 ||
+      2 * cdiv(bn / 16, kThreads / P) > ni)
+    return (int)cudaErrorInvalidValue;
+  StatsArgs a{(const bf16*)x, (const bf16*)ws, (float*)psum, (float*)psq, H, W, Cin, M,
+              (B / G) * T * H * W};
+  a.P = P;
+  a.S = stages;
+  a.WN = kThreads / P;
+  a.bn = bn;
+  a.ldb = bn + 8;
+  a.tpg = cdiv(a.R, P);
+  a.tpb = tpb;
+  a.bpg = cdiv(a.tpg, tpb);
+  const int nch = cdiv(M, bn);
+  size_t ab, sb;
+  const size_t bytes = stats_smem_bytes(P, bn, stages, &ab, &sb);
+  if ((long long)blocks != (long long)nch * G * a.bpg || nch > 65535 ||
+      bytes != (size_t)smem_bytes || kStatsPerSM * (bytes + 1024) > kSmemSM)
+    return (int)cudaErrorInvalidValue;
+  a.a_bytes = (int)ab;
+  a.stage_bytes = (int)sb;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  stats_kernel<<<dim3(M / (16 * NF), B * T), kThreads, bytes, s>>>(
-      (const bf16*)x, (const bf16*)ws, (float*)psum, (float*)psq, H, W, Cin, M, NF);
-  err = cudaGetLastError();
+  void* args[] = {&a};
+  err = cudaLaunchKernel(kernel, dim3(G * a.bpg, nch), dim3(kThreads), args, bytes, s);
   if (err != cudaSuccess) return (int)err;
-  const int fpg = (B / G) * T;
-  stats_reduce_kernel<<<dim3((M + 31) / 32, G), dim3(32, 8), 0, s>>>(
-      (const float*)psum, (const float*)psq, (float*)gmean, (float*)gvar, fpg, M,
-      1.f / ((float)fpg * (float)(H * W)));
+  stats_reduce_kernel<<<dim3(cdiv(M, 32), G), dim3(32, 8), 0, s>>>(
+      (const float*)psum, (const float*)psq, (float*)gmean, (float*)gvar, a.bpg, M,
+      1.f / (float)a.R);
   return (int)cudaGetLastError();
+}
+
+// Resident pass-A blocks per SM for a plan's kernel (ni) and shared memory,
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on an error.
+extern "C" int cstp_conv21d_stats_occupancy(int ni, int smem_bytes) {
+  const void* kernel = stats_kernel_for(ni);
+  if (kernel == nullptr || smem_bytes < 0 || (size_t)smem_bytes > kSmemMax) return -1;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes) != cudaSuccess)
+    return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                    (size_t)smem_bytes) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // x, ws as above; wt (3, M, Cout) bf16; gmean/rstd (G, M) f32;
@@ -722,7 +806,7 @@ extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
       Cout % (16 * cluster) || bn <= 0 || bn % 16 || bno <= 0 || bno % 16 ||
       (long long)blocks * P < nhw || (long long)(blocks - 1) * P >= nhw)
     return (int)cudaErrorInvalidValue;
-  const int WN = kFwdThreads / P;
+  const int WN = kThreads / P;
   if (2 * cdiv(bn / 16, WN) > ni || 2 * cdiv(bno / 16, WN) > ni)
     return (int)cudaErrorInvalidValue;
   FwdArgs a{(const bf16*)x, (const bf16*)ws, (const bf16*)wt, (const float*)gmean,
@@ -734,7 +818,7 @@ extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
   a.C = cluster;
   a.Mc = M / cluster;
   a.Coc = Cout / cluster;
-  a.nks_c = cdiv(a.Mc, kFwdKC);
+  a.nks_c = cdiv(a.Mc, kKC);
   a.bn = bn;
   a.nch_s = cdiv(a.Mc, bn);
   a.bno = bno;
@@ -756,7 +840,7 @@ extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks * cluster);
-  cfg.blockDim = dim3(kFwdThreads);
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
@@ -776,7 +860,7 @@ extern "C" int cstp_conv21d_fwd_occupancy(int ni, int smem_bytes) {
                            smem_bytes) != cudaSuccess)
     return -1;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kFwdThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
                                                     (size_t)smem_bytes) != cudaSuccess)
     return -1;
   return n;

@@ -11,7 +11,9 @@ kernels:
   variance of the bf16-rounded spatial conv; ``run_fwd`` (pass B,
   ``cstp_conv21d_fwd``) recomputes the spatial conv, normalises, applies
   ReLU, rounds to bf16 and runs the temporal conv -> bf16 output. Both take
-  the unpadded input and one K=9*Cin product per pixel tile.
+  the unpadded input and one K=9*Cin product per row tile, on one shared
+  spatial mainloop, each with a launch plan computed here (``plan_stats``,
+  ``plan_fwd``) and checked again in C.
 * ``tiling="taps9"`` (``csrc/conv21d_taps9.cu``): ``run_stats_taps9`` and
   ``run_fwd_taps9`` compute the same two passes from the input padded once
   (``pad_hw``), with nine tap-wise K=Cin products, one block per frame (pass
@@ -32,6 +34,7 @@ are dropped (they only feed the running-stat update).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -98,7 +101,9 @@ def fused_st_conv_plain(x, ws, wt, scale, bias, bn_groups: int = 1,
 # ------------------------------------------------------------ CUDA kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_STATS_SIG = ([_P] * 6 + [_I] * 7 + [_P], _I)
+_STATS_TAPS9_SIG = ([_P] * 6 + [_I] * 7 + [_P], _I)
+_STATS_PLAN = ("P", "stages", "bn", "ni", "tpb", "blocks", "smem")
+_STATS_SIG = ([_P] * 6 + [_I] * (7 + len(_STATS_PLAN)) + [_P], _I)
 _FWD_TAPS9_SIG = ([_P] * 8 + [_I] * 8 + [_P], _I)
 _FWD_PLAN = ("P", "stages", "ring_slots", "blocks", "cluster", "smem", "ni",
              "bn", "bno")
@@ -200,15 +205,126 @@ def fwd_occupancy(plan):
     return got
 
 
+# K2's launch plan (csrc/conv21d.cu checks it again): K3's spatial mainloop
+# (256 threads, P rows, K steps of 64, warp tiles of 32 x (8 * ni)) over
+# the flat (frame, pixel) rows of one BN group and one mid chunk of bn
+# channels per block; a block walks ``tpb`` row tiles. Shared memory is the
+# stages alone, and they must leave room for two blocks per SM (the
+# kernel's launch bound, which caps its registers at 128): plans with one
+# block per SM measured slower at every site (PERF.md §6).
+STATS_STAGES = (3, 4)
+STATS_PER_SM = 2
+SM_COUNT = 132                  # the H100 SXM's SMs
+SMEM_SM = 233472                # one SM's shared memory; a block also takes 1 KB
+
+
+def _stats_smem(p, bn, stages):
+    return stages * _align128(_align128(2 * p * (_KC + 8)) + 2 * _KC * (bn + 8))
+
+
+def _tiles_per_block(tiles, blocks_per_tile, resident):
+    """Row tiles per block that make the fewest tile times per SM slot,
+    ``ceil(blocks / resident) * tpb`` with ``blocks = blocks_per_tile *
+    ceil(tiles / tpb)``: for each number of waves w, the fewest tiles per
+    block that fit w waves; of equal spans, the fewest waves."""
+    best = (float("inf"), 1)
+    for w in range(1, -(-blocks_per_tile * tiles // resident) + 1):
+        per_tile = w * resident // blocks_per_tile   # blocks per group-chunk
+        if per_tile == 0:
+            continue
+        tpb = -(-tiles // per_tile)
+        span = -(-blocks_per_tile * -(-tiles // tpb) // resident) * tpb
+        if span < best[0]:
+            best = (span, tpb)
+    return best[1]
+
+
+def _check_stats_shape(n, t, h, w, cin, m, groups):
+    if min(n, t, h, w) <= 0 or groups <= 0 or n % groups:
+        raise ValueError(f"conv21d stats: no plan fits {n} clips of "
+                         f"{t}x{h}x{w} in {groups} BN groups")
+    _check_dims(cin, m, 16)
+    if n * t * h * w + 128 >= 2 ** 31:
+        raise ValueError(f"conv21d stats: no plan fits {n * t * h * w} rows "
+                         "(the kernel indexes rows in 32 bits)")
+
+
+def stats_plans(n, t, h, w, cin, m, groups):
+    """Every launch plan K2 takes for x (n, t, h, w, cin) -> mid m in
+    ``groups`` BN groups: for each row tile P, each mid chunk width that
+    some warp tile fits (widest first) and each stage count whose stages
+    leave room for two blocks per SM, the tiles per block of
+    ``_tiles_per_block``. ``blocks``: chunks x groups x blocks per group;
+    ``partials``: the rows of the partial-sum scratch (blocks per chunk).
+    Raises ValueError for a shape no plan fits."""
+    _check_stats_shape(n, t, h, w, cin, m, groups)
+    rows = n // groups * t * h * w
+    plans = []
+    for p in FWD_P:
+        wn = 256 // p
+        tiles = -(-rows // p)
+        for bn in sorted({_even_chunk(m, 8 * ni * wn) for ni in FWD_NI},
+                         reverse=True):
+            need = 2 * -(-bn // (16 * wn))
+            nch = -(-m // bn)
+            for s in STATS_STAGES:
+                smem = _stats_smem(p, bn, s)
+                if STATS_PER_SM * (smem + 1024) > SMEM_SM:
+                    continue
+                tpb = _tiles_per_block(tiles, nch * groups,
+                                       STATS_PER_SM * SM_COUNT)
+                bpg = -(-tiles // tpb)
+                plans.append(dict(
+                    P=p, stages=s, bn=bn, ni=min(v for v in FWD_NI if v >= need),
+                    tpb=tpb, tiles=nch * groups * tiles,
+                    blocks=nch * groups * bpg, partials=groups * bpg,
+                    smem=smem))
+    return plans
+
+
+def stats_cost(pl):
+    """A plan's time in units of one K step of a 128 x 160 tile on an SM
+    slot: waves x tiles per block x (a fixed cost per K step, taken equal
+    to that step's mma time, + the mma time of its rows x the warps'
+    columns, idle ones included)."""
+    waves = -(-pl["blocks"] // (STATS_PER_SM * SM_COUNT))
+    cols = 8 * pl["ni"] * 256 // pl["P"]
+    return waves * pl["tpb"] * (1 + pl["P"] * cols / (128 * 160))
+
+
+def plan_stats(n, t, h, w, cin, m, groups):
+    """K2's launch plan: of ``stats_plans``, the one of least
+    ``stats_cost``; on ties the larger row tile, then the wider chunk,
+    then fewer stages. Raises ValueError for a shape no plan fits.
+    Computed once per shape (the model calls it at every launch)."""
+    return dict(_plan_stats(n, t, h, w, cin, m, groups))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_stats(n, t, h, w, cin, m, groups):
+    return min(stats_plans(n, t, h, w, cin, m, groups),
+               key=lambda pl: (stats_cost(pl), -pl["P"], -pl["bn"],
+                               pl["stages"]))
+
+
+def stats_occupancy(plan):
+    """Resident K2 blocks per SM for ``plan`` (needs the card)."""
+    got = _lib().cstp_conv21d_stats_occupancy(plan["ni"], plan["smem"])
+    if got < 0:
+        raise RuntimeError("cstp_conv21d_stats_occupancy failed")
+    return got
+
+
 def _lib():
     return build.load("conv21d", {"cstp_conv21d_stats": _STATS_SIG,
+                                  "cstp_conv21d_stats_occupancy": _OCC_SIG,
                                   "cstp_conv21d_fwd": _FWD_SIG,
                                   "cstp_conv21d_fwd_occupancy": _OCC_SIG})
 
 
 def _lib_taps9():
     return build.load("conv21d_taps9",
-                      {"cstp_conv21d_taps9_stats": _STATS_SIG,
+                      {"cstp_conv21d_taps9_stats": _STATS_TAPS9_SIG,
                        "cstp_conv21d_taps9_fwd": _FWD_TAPS9_SIG})
 
 
@@ -253,19 +369,23 @@ def _require_cuda(dev):
         raise ValueError(f"conv21d kernels take CUDA tensors, got {dev}")
 
 
-def _pass_a(fn, load, x, ws, ws_shape, bn_groups, k_step, pad):
-    """Pass A on CUDA: -> gmean, gvar (G, M) f32."""
+def _pass_a(fn, load, x, ws, ws_shape, bn_groups, k_step, pad,
+            partials=None, plan_args=()):
+    """Pass A on CUDA: -> gmean, gvar (G, M) f32. ``partials``: the rows of
+    the partial-sum scratch (default: one per frame); ``plan_args``: ints
+    the kernel takes after the shapes (K2's launch plan)."""
     dev, hw = _check_input(x, ws, ws_shape, bn_groups, k_step, pad)
     _require_cuda(dev)
     b, t, m = x.shape[0], x.shape[1], ws.shape[-1]
-    psum = torch.empty((b * t, m), dtype=torch.float32, device=dev)
+    psum = torch.empty((partials or b * t, m), dtype=torch.float32,
+                       device=dev)
     psq = torch.empty_like(psum)
     gmean = torch.empty((bn_groups, m), dtype=torch.float32, device=dev)
     gvar = torch.empty_like(gmean)
     err = getattr(load(), fn)(
         x.data_ptr(), ws.data_ptr(), psum.data_ptr(), psq.data_ptr(),
         gmean.data_ptr(), gvar.data_ptr(), b, t, *hw, x.shape[-1], m,
-        bn_groups, torch.cuda.current_stream(dev).cuda_stream)
+        bn_groups, *plan_args, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, fn)
     return gmean, gvar
 
@@ -294,11 +414,15 @@ def _pass_b(fn, load, x, ws, ws_shape, wt, gmean, gvar, scale, bias,
     return out
 
 
-def run_stats(x, ws2, bn_groups: int):
-    """Pass A, tiling "clip" (K2): x (B, T, H, W, Cin) bf16, ws2 (9*Cin, M)
-    bf16 -> gmean, gvar (G, M) f32."""
+def run_stats(x, ws2, bn_groups: int, plan=None):
+    """Pass A, tiling "clip" (K2), launched with ``plan`` (one of
+    ``stats_plans``; by default ``plan_stats``'s): x (B, T, H, W, Cin)
+    bf16, ws2 (9*Cin, M) bf16 -> gmean, gvar (G, M) f32."""
+    if plan is None:
+        plan = plan_stats(*x.shape, ws2.shape[-1], bn_groups)
     out = _pass_a("cstp_conv21d_stats", _lib, x, ws2,
-                  (9 * x.shape[-1], ws2.shape[-1]), bn_groups, 32, 0)
+                  (9 * x.shape[-1], ws2.shape[-1]), bn_groups, 32, 0,
+                  plan["partials"], tuple(plan[k] for k in _STATS_PLAN))
     launches["stats"] += 1
     return out
 

@@ -342,3 +342,117 @@ def test_fwd_plan_refuses_a_mid_too_wide_for_the_ring():
     with pytest.raises(ValueError, match="no plan fits"):
         C.run_fwd(x, ws, wt, gm, gm, torch.ones(4096), torch.zeros(4096), 1)
     assert dict(C.launches) == before
+
+
+# (name, N, T, H=W, Cin, M, G): the pretrain step's four sites and the
+# benchmark's shape at N=32 or 128 in two groups, then T = 1 and 2, 7x7
+# frames, G = 1, 2 and 4, and groups whose rows end inside a row tile
+_STATS_SHAPES = [
+    ("conv2", 32, 16, 56, 64, 144, 2),
+    ("conv3", 32, 8, 28, 128, 288, 2),
+    ("conv4", 32, 4, 14, 256, 576, 2),
+    ("conv5", 32, 2, 7, 512, 1152, 2),
+    ("bench", 128, 16, 56, 64, 144, 2),
+    ("conv2_g1", 32, 16, 56, 64, 144, 1),
+    ("conv5_g4", 32, 2, 7, 512, 1152, 4),
+    ("t1_7x7_g1", 2, 1, 7, 32, 16, 1),
+    ("t2_14x14_g2", 4, 2, 14, 32, 48, 2),
+    ("t1_5x5_g4_ragged", 8, 1, 5, 32, 1152, 4),
+]
+
+
+def _stats_blocks(plan, n, t, h, w, m, groups):
+    """Per block of one mid chunk, as csrc/conv21d.cu stats_kernel reads
+    its indices: (group, first row, end of its rows, end of its tiles) in
+    the flat (frame, pixel) index; rows past the group's end are
+    zero-filled."""
+    rows = n // groups * t * h * w
+    p, tpb = plan["P"], plan["tpb"]
+    tpg = -(-rows // p)
+    bpg = -(-tpg // tpb)
+    out = []
+    for blk in range(groups * bpg):
+        g = blk // bpg
+        t0 = (blk - g * bpg) * tpb
+        start = g * rows + t0 * p
+        tiles_end = start + min(tpb, tpg - t0) * p
+        out.append((g, start, min(tiles_end, (g + 1) * rows), tiles_end))
+    return out
+
+
+@pytest.mark.parametrize("shape", _STATS_SHAPES,
+                         ids=[s[0] for s in _STATS_SHAPES])
+def test_stats_plan_fits_and_covers_every_group_row_once(shape):
+    """K2's plans (plan_stats's and every other of stats_plans): shared
+    memory within 232,448 bytes (the sum csrc/conv21d.cu checks) that
+    leaves room for two resident blocks per SM, chunks within the warp
+    tiles and covering M, and row tiles that cover every row of every
+    group exactly once, never cross a group and overrun it by less than
+    one tile."""
+    _, n, t, hw, cin, m, groups = shape
+    chosen = C.plan_stats(n, t, hw, hw, cin, m, groups)
+    plans = C.stats_plans(n, t, hw, hw, cin, m, groups)
+    assert chosen in plans
+    rows = n // groups * t * hw * hw
+    for p in plans:
+        assert p["smem"] <= C.SMEM_MAX == 232448
+        assert C.STATS_PER_SM * (p["smem"] + 1024) <= C.SMEM_SM == 233472
+        assert p["P"] in C.FWD_P and p["stages"] in C.STATS_STAGES
+        assert p["ni"] in C.FWD_NI and p["bn"] % 16 == 0
+        assert 2 * -(-p["bn"] // (16 * (256 // p["P"]))) <= p["ni"]
+        nch = -(-m // p["bn"])
+        assert nch * p["bn"] >= m > (nch - 1) * p["bn"]
+        blocks = _stats_blocks(p, n, t, hw, hw, m, groups)
+        assert p["blocks"] == nch * len(blocks) and p["partials"] == len(
+            blocks)
+        assert p["tiles"] == nch * groups * -(-rows // p["P"])
+        pos = 0
+        for g, start, stop, tiles_end in blocks:
+            assert start == pos < stop <= (g + 1) * rows
+            assert g * rows <= start and tiles_end - stop < p["P"]
+            pos = stop
+        assert pos == n * t * hw * hw
+
+
+def test_stats_plan_at_the_sites():
+    """At the pretrain step's sites the rule takes 128-row tiles, one
+    144-wide mid chunk per block, 3 stages and two resident blocks per SM,
+    with one wave of blocks."""
+    for _, n, t, hw, cin, m, groups in _STATS_SHAPES[:4]:
+        p = C.plan_stats(n, t, hw, hw, cin, m, groups)
+        assert (p["P"], p["bn"], p["stages"]) == (128, 144, 3)
+        assert p["blocks"] <= C.STATS_PER_SM * C.SM_COUNT
+
+
+@pytest.mark.parametrize("shape,msg", [
+    ((2, 1, 5, 5, 32, 24, 1), "M % 16"),
+    ((2, 1, 5, 5, 16, 16, 1), "Cin % 32"),
+    ((3, 1, 5, 5, 32, 16, 2), "BN groups"),
+    ((2, 0, 5, 5, 32, 16, 1), "BN groups"),
+    ((2 ** 15, 16, 64, 64, 32, 16, 1), "32 bits"),
+], ids=["mid", "cin", "groups", "empty", "rows"])
+def test_stats_plan_refuses_shapes_no_plan_fits(shape, msg):
+    with pytest.raises(ValueError, match=msg):
+        C.plan_stats(*shape)
+
+
+def test_run_stats_on_cpu_tensors_launches_nothing():
+    """Well-shaped CPU tensors reach no K2 launch: run_stats raises."""
+    x = torch.zeros((2, 2, 7, 7, 32), dtype=torch.bfloat16)
+    ws2 = torch.zeros((9 * 32, 16), dtype=torch.bfloat16)
+    before = dict(C.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        C.run_stats(x, ws2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        C.run_stats(x, ws2, 2, plan=C.plan_stats(2, 2, 7, 7, 32, 16, 2))
+    assert dict(C.launches) == before and C.launches["stats"] == 0
+
+
+def test_stats_plan_sweep_needs_a_card():
+    """The sweep's K2 mode exits with an error where there is no card."""
+    from cstp_tpu_torch.perf import sweep_conv21d_fwd as sweep
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the sweep would run")
+    with pytest.raises(SystemExit, match="CUDA"):
+        sweep.main(["--pass", "stats", "--sites", "conv5"])

@@ -106,6 +106,53 @@ def test_conv21d_fwd_plan_fills_each_sm_once(dev):
     assert C.fwd_occupancy(plan) == 1
 
 
+@pytest.mark.parametrize("shape", [
+    (2, 1, 7, 32, 16, 1),       # 7x7, T = 1, one group, M = 16, Cin = 32
+    (4, 2, 14, 32, 48, 2),      # 14x14, T = 2, two groups
+    (8, 1, 5, 32, 1152, 4),     # four groups of 50 rows: each ends mid-tile;
+                                # M = 1152 in several chunks
+    (4, 2, 7, 512, 1152, 2),    # conv5's widths
+    (4, 3, 9, 64, 144, 4),      # conv2's widths, four groups of 243 rows
+])
+def test_conv21d_stats_edge_shapes(dev, shape):
+    """K2 under every plan of stats_plans (row tiles of 32 to 128 rows,
+    every chunk width, 3 or 4 stages) against the plain statistics, where
+    frames are smaller than a tile, T is 1 or 2, groups are 1, 2 or 4 and
+    end inside a tile, and M is 16 or 1152. Tolerances as chip_smoke.py."""
+    n, t, hw, cin, m, groups = shape
+    rng = np.random.default_rng(5)
+    x, ws = _conv_inputs(dev, rng, n, t, hw, cin, m, 16)[:2]
+    ws2 = ws.to(torch.bfloat16).reshape(9 * cin, m)
+    pm, pv = C.reference_stats(x, ws, groups)
+    for plan in C.stats_plans(n, t, hw, hw, cin, m, groups):
+        before = C.launches["stats"]
+        gm, gv = C.run_stats(x, ws2, groups, plan=plan)
+        assert C.launches["stats"] == before + 1
+        torch.testing.assert_close(gm, pm, rtol=1e-2, atol=1e-3)
+        torch.testing.assert_close(gv, pv, rtol=1e-2, atol=1e-3)
+
+
+def test_conv21d_stats_is_bitwise_deterministic(dev):
+    """Two launches of K2 give bitwise the same statistics: a fixed order of
+    sums throughout, no float atomics."""
+    rng = np.random.default_rng(6)
+    x, ws = _conv_inputs(dev, rng, 8, 4, 28, 128, 288, 16)[:2]
+    ws2 = ws.to(torch.bfloat16).reshape(9 * 128, 288)
+    first = C.run_stats(x, ws2, 2)
+    for _ in range(3):
+        again = C.run_stats(x, ws2, 2)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_conv21d_stats_plan_has_its_resident_blocks(dev):
+    """At the pretrain step's four sites, K2's plan has the resident blocks
+    per SM it assumes (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    for t, hw, cin, m in ((16, 56, 64, 144), (8, 28, 128, 288),
+                          (4, 14, 256, 576), (2, 7, 512, 1152)):
+        plan = C.plan_stats(32, t, hw, hw, cin, m, 2)
+        assert C.stats_occupancy(plan) == C.STATS_PER_SM == 2
+
+
 def test_conv21d_backward_runs_on_the_card(dev):
     rng = np.random.default_rng(1)
     x = _t(rng.normal(size=(4, 4, 8, 8, 32)), dev,
