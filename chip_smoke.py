@@ -11,10 +11,12 @@ Phases:
      and roofline bounds: both (2+1)D conv kernel pairs (K2/K3, tiling
      "clip", and K4a/K4b, tiling "taps9") at the four sites of the pretrain
      step, K4a/K4b also at the conv-block benchmark's default shape, and
-     the augment kernel; per site, K2's and K3's launch plans (row tile,
-     stages, chunks, blocks, resident blocks per SM, shared bytes), their
-     TFLOP/s and their time over the plain version's, and a check that two
-     launches of K2 give bitwise the same statistics;
+     the augment kernel (bf16 and float32 output, 128x171 and native
+     256x340 frames; its time with each optional stage switched off
+     through its identity parameters); per site, K2's and K3's launch
+     plans (row tile, stages, chunks, blocks, resident blocks per SM,
+     shared bytes), their TFLOP/s and their time over the plain version's,
+     and a check that two launches of K2 give bitwise the same statistics;
   3. the pretrain step itself (R(2+1)D depth 1, 16 x 112^2, bf16, per-view
      batch 16, fused conv blocks and fused augmentation): one warm-up and
      three timed steps, with the kernels' launch counts, then one step
@@ -59,6 +61,8 @@ SITES = [
     ("conv5.block1.conv2", 2, 7, 512, 1152, 512, 1),
 ]
 G = 2                   # per-view BN groups in the towers
+# native-size frames (data/extract_frames.py's 256 short side, 4:3)
+NATIVE_HW = (256, 340)
 # the conv-block benchmark's default shape: (name, N, T, H=W, Cin, M, Cout)
 BENCH_SHAPE = ("bench_conv21d default (conv2 shape, 2 x 64 clips)", 128, 16,
                56, 64, 144, 64)
@@ -269,15 +273,15 @@ def phase_conv21d(dev):
     return res
 
 
-def _aug_inputs(dev, gen, null: bool):
+def _aug_inputs(dev, gen, null: bool, n: int = 2 * B_VIEW, h0: int = H0,
+                w0: int = W0):
     from cstp_tpu_torch.pretext.boxes import sample_pair_boxes
 
-    n = 2 * B_VIEW
-    frames = torch.randint(0, 256, (n, T, H0, W0, 3), generator=gen,
+    frames = torch.randint(0, 256, (n, T, h0, w0, 3), generator=gen,
                            device=dev, dtype=torch.uint8)
     rot = torch.randint(0, 4, (n,), generator=gen, device=dev)
-    box1, box2, _ = sample_pair_boxes(gen, rot[:B_VIEW], rot[B_VIEW:],
-                                      float(W0), float(H0))
+    box1, box2, _ = sample_pair_boxes(gen, rot[:n // 2], rot[n // 2:],
+                                      float(w0), float(h0))
     box = torch.cat([box1, box2])
     if null:
         p = (torch.zeros(n, device=dev),
@@ -301,13 +305,18 @@ def _aug_inputs(dev, gen, null: bool):
 
 def _aug_ops(box, p, n_out):
     """Operations the augment chain needs on this data (f32, not tensor
-    cores): resize taps from the boxes, shears, blur, per-pixel jitter."""
+    cores): the separable resize's taps from the boxes, shears, blur,
+    per-pixel jitter."""
     from cstp_tpu_torch.augment.ops import resample_weights
 
-    ny = (resample_weights(H0, S, box[:, 1], box[:, 3]) != 0).sum(2).float()
-    nx = (resample_weights(W0, S, box[:, 0], box[:, 2]) != 0).sum(2).float()
-    # per output value: a multiply-add per (y tap, x tap) and per y tap
-    resize = (2 * ny[:, :, None] * nx[:, None, :] + 2 * ny[:, :, None]).sum()
+    wy = resample_weights(H0, S, box[:, 1], box[:, 3]) != 0   # (N, S, H0)
+    wx = resample_weights(W0, S, box[:, 0], box[:, 2]) != 0   # (N, S, W0)
+    ny, nx = wy.sum(2).float().sum(1), wx.sum(2).float().sum(1)
+    rows, cols = wy.any(1).sum(1).float(), wx.any(1).sum(1).float()
+    # per frame and channel, a multiply-add a tap in the cheaper order:
+    # every source row in reach to S columns (nx taps), then every output
+    # value over its ny row taps; or columns first, then rows
+    resize = 2 * torch.minimum(rows * nx + S * ny, cols * ny + S * nx).sum()
     ident = torch.tensor([1.0, 1.0, 1.0, 0.0], device=box.device)
     per_px = (resize * T * 3
               # rotated clips: three 2-tap shears, 4 operations a tap pair
@@ -321,46 +330,97 @@ def _aug_ops(box, p, n_out):
     return float(per_px) + n_out * (5 + 5)
 
 
+def augment_stage_times(dev, h0: int = H0, w0: int = W0):
+    """K5's time (bf16 output, 'tf') at 2 * B_VIEW clips of T x h0 x w0 ->
+    S with the sampled parameters, then with each optional stage switched
+    off through its identity parameters, which the kernel skips: angle 0
+    (no shears), factors (1, 1, 1, 0) (no jitter), sigma 0 (no blur), and
+    all three off with every rotk even, then odd (the rot90 index map).
+    Returns {variant: ms}."""
+    from cstp_tpu_torch.ops import augment as A
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames, box, rot, (angle, factors, graymix, sigma, flip) = _aug_inputs(
+        dev, gen, False, h0=h0, w0=w0)
+    n = frames.shape[0]
+    zero = torch.zeros(n, device=dev)
+    ident = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev).repeat(n, 1)
+    variants = {
+        "all stages": (rot, angle, factors, sigma),
+        "no shears": (rot, zero, factors, sigma),
+        "no jitter": (rot, angle, ident, sigma),
+        "no blur": (rot, angle, factors, zero),
+        "resize + gray + normalize, rotk even": (rot - rot % 2, zero, ident,
+                                                 zero),
+        "resize + gray + normalize, rotk odd": (rot | 1, zero, ident, zero),
+    }
+    times = {}
+    for name, (r, a, f, sg) in variants.items():
+        times[name] = time_ms(lambda: A.fused_augment_clips(
+            frames, box, r, a, f, graymix, sg, flip, sample_size=S))
+    log(f"[augment] stages, N={n} T={T} {h0}x{w0} -> {S} (ms): " + " | ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    return times
+
+
 def phase_augment(dev):
     from cstp_tpu_torch.ops import augment as A
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    null = _aug_inputs(dev, gen, True)
+    sampled = _aug_inputs(dev, gen, False)
+    native = _aug_inputs(dev, gen, False, n=2, h0=NATIVE_HW[0],
+                         w0=NATIVE_HW[1])
+    # Tolerances against the plain float32 chain. bf16 2e-2 as
+    # tests/test_pallas_augment.py: f32 summation order plus the output's
+    # rounding (half an ulp <= 7.8e-3 below |v| = 4). float32 has no output
+    # rounding, and the kernel rounds the resample's scale and sample
+    # positions as the plain version does on the card: what is left is the
+    # float32 summation order of the resample, blur and luma mean, about
+    # 1e-5 on normalised values (some 30 roundings of values <= 255, each
+    # within 2^-24 relative, over a scale of 127.5), kept here tenfold:
+    # 1e-4. Native-size frames (256x340, resample rows of up to 17 taps)
+    # hold each output dtype's tolerance. The bf16 cases at the main shape
+    # give the kernels line's max_abs_err.
+    cases = (("null=True", null, torch.bfloat16, 2e-2),
+             ("null=False", sampled, torch.bfloat16, 2e-2),
+             ("float32 out", sampled, torch.float32, 1e-4),
+             ("native bf16 out", native, torch.bfloat16, 2e-2),
+             ("native float32 out", native, torch.float32, 1e-4))
     err_max = 0.0
-    timing = None
-    for null in (True, False):
-        frames, box, rot, p = _aug_inputs(dev, gen, null)
+    for name, (fr, bx, rt, pp), dtype, tol in cases:
         for norm in ("tf", "imagenet"):
-            got = A.fused_augment_clips(frames, box, rot, *p, sample_size=S,
-                                        norm_method=norm)
-            want = A.fused_augment_clips_plain(frames, box, rot, *p,
+            got = A.fused_augment_clips(fr, bx, rt, *pp, sample_size=S,
+                                        norm_method=norm, out_dtype=dtype)
+            want = A.fused_augment_clips_plain(fr, bx, rt, *pp,
                                                sample_size=S, norm_method=norm,
                                                out_dtype=torch.float32)
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
-            # tolerance 2e-2 as tests/test_pallas_augment.py: f32 summation
-            # order plus the kernel's bf16 output (half an ulp <= 7.8e-3
-            # below |v| = 4)
-            ok = err <= 2e-2 and got.shape == (2 * B_VIEW, T, S, S, 3)
-            log(f"[augment] null={null} norm={norm}: max abs err {err:.3e} "
-                f"(tol 2e-2)")
-            if not ok:
-                raise SystemExit("augment kernel disagrees with its plain "
-                                 "version")
-            err_max = max(err_max, err)
-            if not null and norm == "tf":
-                ms = time_ms(lambda: A.fused_augment_clips(
-                    frames, box, rot, *p, sample_size=S))
-                pms = time_ms(lambda: A.fused_augment_clips_plain(
-                    frames, box, rot, *p, sample_size=S), iters=3, warmup=1)
-                n_out = frames.shape[0] * T * S * S * 3
-                nbytes = frames.numel() + n_out * 2 + frames.shape[0] * (T * 9 + 12) * 4
-                ops = _aug_ops(box, p, n_out)
-                b, by = bound_ms(ops, nbytes, PEAK_F32)
-                log(f"[augment] N={frames.shape[0]} T={T} {H0}x{W0} -> {S}: "
-                    f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b:.4f} ms "
-                    f"({by}) | library_ms null")
-                timing = dict(ms=ms, plain_ms=pms, bound=b, by=by)
-    return err_max, timing
+            log(f"[augment] {name}, N={fr.shape[0]} {fr.shape[2]}x"
+                f"{fr.shape[3]} -> {S}, norm={norm}: max abs err {err:.3e} "
+                f"(tol {tol:g})")
+            if not (err <= tol and got.dtype == dtype
+                    and got.shape == (fr.shape[0], T, S, S, 3)):
+                raise SystemExit(f"augment kernel ({name}) disagrees with its "
+                                 "plain version")
+            if fr is not native and dtype == torch.bfloat16:
+                err_max = max(err_max, err)
+    frames, box, rot, p = sampled
+    ms = time_ms(lambda: A.fused_augment_clips(frames, box, rot, *p,
+                                               sample_size=S))
+    pms = time_ms(lambda: A.fused_augment_clips_plain(
+        frames, box, rot, *p, sample_size=S), iters=3, warmup=1)
+    n_out = frames.shape[0] * T * S * S * 3
+    nbytes = frames.numel() + n_out * 2 + frames.shape[0] * (T * 9 + 12) * 4
+    b, by = bound_ms(_aug_ops(box, p, n_out), nbytes, PEAK_F32)
+    log(f"[augment] N={frames.shape[0]} T={T} {H0}x{W0} -> {S}: "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b:.4f} ms "
+        f"({by}) | library_ms null")
+    del null, sampled, native
+    augment_stage_times(dev)
+    augment_stage_times(dev, *NATIVE_HW)
+    return err_max, dict(ms=ms, plain_ms=pms, bound=b, by=by)
 
 
 def _slice_config(fused: bool):

@@ -3,9 +3,10 @@
 ``fused_augment_clips`` is the port of ``cstp_tpu/ops/pallas/augment.py``:
 crop + bicubic resize -> rot90 -> 3-shear small rotation -> jitter -> gray
 mix -> blur -> hflip -> normalize, one call for the batch. For CUDA tensors
-it launches ``csrc/augment.cu`` (one block per clip frame, bf16 output) or
-raises; for CPU tensors it runs :func:`fused_augment_clips_plain`, the same
-chain written with the ops of ``cstp_tpu_torch/augment/ops.py``.
+it launches ``csrc/augment.cu`` (one block per clip frame, output in bf16,
+f16 or f32) or raises; for CPU tensors it runs
+:func:`fused_augment_clips_plain`, the same chain written with the ops of
+``cstp_tpu_torch/augment/ops.py``.
 All randomness arrives as identity-when-off parameters
 (``cstp_tpu_torch/augment/params.py``).
 """
@@ -24,7 +25,47 @@ from cstp_tpu_torch.ops import build
 # launches of the CUDA kernel (one per call on CUDA tensors)
 launches = 0
 
-_MAX_TAPS = 16  # csrc/augment.cu kMaxTaps
+# output dtypes of the kernel, by the code csrc/augment.cu takes
+_OUT_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+# csrc/augment.cu's shared-memory formula, kept here so that a shape the
+# kernel cannot take is refused before a launch
+_MAX_SMEM = 232_448     # shared memory one block may use on sm_90
+_WARPS = 16             # kThreads / 32
+_BLUR_TAPS = 15         # 2 * kBlurRadius + 1
+_CHUNKS = (16, 8, 4, 2, 1)
+
+
+def _a128(b: int) -> int:
+    return (b + 127) & ~127
+
+
+def smem_bytes(s: int, w0: int, chunk: int) -> int:
+    """Dynamic shared memory of one block (csrc/augment.cu smem_bytes): the
+    f32 frame, then the larger of the resample's buffers (per-row taps and
+    normalisers, two stages of ``chunk`` uint8 source rows, ``chunk`` f32
+    rows of the horizontal pass, the vertical weights of the staged rows
+    for each output row) and the later stages' (per-warp temp rows,
+    block-sum slots, blur taps and reciprocals)."""
+    pitch = ((3 * w0 + 15) & ~15) + 32
+    resample = (_a128(6 * 4 * s) + _a128(2 * chunk * pitch)
+                + _a128(4 * chunk * 3 * s) + _a128(4 * s * chunk))
+    post = (_a128(4 * _WARPS * 3 * s) + _a128(4 * (_WARPS + 1))
+            + _a128(4 * _BLUR_TAPS) + _a128(4 * s))
+    return _a128(4 * s * (3 * s + 1)) + max(resample, post)
+
+
+def chunk_rows(s: int, w0: int) -> int:
+    """Source rows per copy stage (csrc/augment.cu chunk_rows): the largest
+    of 16, 8, 4, 2, 1 whose buffers fit beside the frame. Raises ValueError
+    when none does."""
+    for c in _CHUNKS:
+        if smem_bytes(s, w0, c) <= _MAX_SMEM:
+            return c
+    raise ValueError(
+        f"fused_augment_clips: sample_size {s} with frames {w0} wide needs "
+        f"{smem_bytes(s, w0, 1)} bytes of shared memory per block, more "
+        f"than the {_MAX_SMEM} one block may use")
 
 
 def fused_augment_clips_plain(frames, box, rotk, angle, factors, graymix,
@@ -43,7 +84,12 @@ def fused_augment_clips_plain(frames, box, rotk, angle, factors, graymix,
 
 
 def _check_cuda_inputs(frames, box, rotk, angle, factors, graymix, sigma,
-                       flip, sample_size):
+                       flip, sample_size, out_dtype=torch.bfloat16):
+    """Checks what the kernel takes, before any CUDA call; returns the chunk
+    height (source rows per copy stage) the kernel will choose."""
+    if out_dtype not in _OUT_TYPES:
+        raise ValueError(f"fused_augment_clips: the CUDA kernel writes "
+                         f"{', '.join(map(str, _OUT_TYPES))}, not {out_dtype}")
     n, t, h0, w0, c = frames.shape
     want = {
         "frames": (frames, torch.uint8, (n, t, h0, w0, 3)),
@@ -64,28 +110,21 @@ def _check_cuda_inputs(frames, box, rotk, angle, factors, graymix, sigma,
                              f"{shape}, got {x.dtype} {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"fused_augment_clips: {name} not contiguous")
-    # boxes lie inside the frame (pretext/boxes.py), so a resample row has
-    # at most floor(4 * max(1, size / S)) + 5 taps in its window
-    fmax = max(1.0, max(h0, w0) / sample_size)
-    if int(4 * fmax) + 5 > _MAX_TAPS:
-        raise ValueError(f"fused_augment_clips: frames {h0}x{w0} downscale "
-                         f"to {sample_size} beyond the kernel's "
-                         f"{_MAX_TAPS}-tap resample rows")
+    return chunk_rows(sample_size, w0)
 
 
 def fused_augment_clips(frames, box, rotk, angle, factors, graymix, sigma,
                         flip, sample_size: int = 112, norm_method: str = "tf",
                         out_dtype=torch.bfloat16):
     """(N, T, H0, W0, 3) uint8 frames + per-clip params ->
-    (N, T, S, S, 3) normalized views. CUDA tensors run the kernel, which
-    writes bf16 only; CPU tensors run the plain version in ``out_dtype``."""
+    (N, T, S, S, 3) normalized views in ``out_dtype``. CUDA tensors run the
+    kernel, which writes bf16, f16 or f32 (another dtype raises
+    ``ValueError``); CPU tensors run the plain version."""
     global launches
     if frames.device.type != "cuda":
         return fused_augment_clips_plain(frames, box, rotk, angle, factors,
                                          graymix, sigma, flip, sample_size,
                                          norm_method, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise ValueError("fused_augment_clips: the CUDA kernel writes bf16")
     if norm_method not in ("tf", "imagenet"):
         raise ValueError(f"unknown norm_method {norm_method!r}")
     box = box.float().contiguous()
@@ -95,17 +134,17 @@ def fused_augment_clips(frames, box, rotk, angle, factors, graymix, sigma,
     graymix = graymix.float().contiguous()
     sigma = sigma.float().contiguous()
     flip = flip.to(torch.int32).contiguous()
-    _check_cuda_inputs(frames, box, rotk, angle, factors, graymix, sigma,
-                       flip, sample_size)
+    _check_cuda_inputs(frames, box, rotk, angle, factors, graymix,
+                               sigma, flip, sample_size, out_dtype)
     n, t, h0, w0, _ = frames.shape
-    out = torch.empty((n, t, sample_size, sample_size, 3),
-                      dtype=torch.bfloat16, device=frames.device)
+    out = torch.empty((n, t, sample_size, sample_size, 3), dtype=out_dtype,
+                      device=frames.device)
     lib = _lib()
     err = lib.cstp_augment_clips(
         frames.data_ptr(), box.data_ptr(), rotk.data_ptr(), angle.data_ptr(),
         factors.data_ptr(), graymix.data_ptr(), sigma.data_ptr(),
         flip.data_ptr(), out.data_ptr(), n, t, h0, w0, sample_size,
-        int(norm_method == "imagenet"),
+        int(norm_method == "imagenet"), _OUT_TYPES[out_dtype],
         torch.cuda.current_stream(frames.device).cuda_stream)
     build.check(err, "cstp_augment_clips")
     launches += 1
@@ -113,7 +152,9 @@ def fused_augment_clips(frames, box, rotk, angle, factors, graymix, sigma,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"cstp_augment_clips": ([_P] * 9 + [_I] * 6 + [_P], _I)}
+_SIGNATURES = {"cstp_augment_clips": ([_P] * 9 + [_I] * 7 + [_P], _I),
+               "cstp_augment_chunk_rows": ([_I] * 2, _I),
+               "cstp_augment_smem_bytes": ([_I] * 3, _I)}
 
 
 def _lib():

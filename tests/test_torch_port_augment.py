@@ -97,12 +97,84 @@ def test_fused_and_ops_programs_agree_on_sampled_params():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
-def test_wrapper_refuses_wide_downscales():
-    """A box more than 2.75x the output size needs more resample taps than
-    the kernel keeps per row; the wrapper says so instead of truncating."""
-    frames = torch.zeros((1, 1, 400, 400, 3), dtype=torch.uint8)
-    z = torch.zeros(1)
-    with pytest.raises(ValueError, match="tap"):
-        A._check_cuda_inputs(frames, torch.zeros(1, 4), z.int(), z,
-                             torch.zeros(1, 4), torch.zeros(1, 1, 3, 3), z,
-                             z.int(), 112)
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.float32])
+def test_out_dtype_matches_jax_kernel(out_dtype):
+    """The port writes the ``out_dtype`` it is asked for (the plain version
+    here, the kernel on the card) and holds the JAX kernel's float32 output:
+    2e-2 as above, which also covers float16's rounding (half an ulp is
+    <= 2e-3 below |v| = 4)."""
+    frames, box, rotk, p = _inputs(6)
+    want = np.asarray(jax_fused(
+        *map(jnp.asarray, (frames, box, rotk, *p)), sample_size=S,
+        norm_method="tf", out_dtype=jnp.float32, interpret=True))
+    got = A.fused_augment_clips(
+        *map(torch.from_numpy, (frames, box, rotk, *p)), sample_size=S,
+        out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (N, T, S, S, 3)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=0)
+
+
+def _check_args(n, t, h0, w0):
+    frames = torch.zeros((n, t, h0, w0, 3), dtype=torch.uint8)
+    z = torch.zeros(n)
+    return (frames, torch.zeros(n, 4), z.int(), z, torch.zeros(n, 4),
+            torch.zeros(n, t, 3, 3), z, z.int())
+
+
+@pytest.mark.parametrize("hw", [(400, 400), (336, 448), (256, 340)])
+def test_wrapper_accepts_native_frames(hw):
+    """Frames 3x or more the output size on their longer side (native
+    256/320-short-side frames, about 17-21 taps per resample row) pass the
+    kernel's checks: it has no tap cap; its chunk height fits."""
+    chunk = A._check_cuda_inputs(*_check_args(1, 1, *hw), 112)
+    assert chunk in (16, 8, 4, 2, 1)
+    assert A.smem_bytes(112, hw[1], chunk) <= A._MAX_SMEM
+
+
+@pytest.mark.parametrize("null", [True, False])
+def test_wide_downscale_matches_jax_kernel(null):
+    """A box over 4x the output size (120x150 frames -> S = 32, more than
+    16 nonzero taps per resample row) through the port's plain path matches the JAX
+    kernel at the Pallas test's 2e-2."""
+    n, t, h0, w0, s = 2, 2, 120, 150, 32
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (n, t, h0, w0, 3)).astype(np.uint8)
+    box = np.stack([rng.uniform(0, 5, n), rng.uniform(0, 5, n),
+                    rng.uniform(140, 145, n), rng.uniform(110, 115, n)],
+                   axis=1).astype(np.float32)
+    rotk = rng.integers(0, 4, (n,)).astype(np.int32)
+    flip = rng.integers(0, 2, (n,)).astype(bool)
+    if null:
+        p = (np.zeros(n, np.float32),
+             np.tile(np.float32([1.0, 1.0, 1.0, 0.0]), (n, 1)),
+             np.tile(np.eye(3, dtype=np.float32), (n, t, 1, 1)),
+             np.zeros(n, np.float32), flip)
+    else:
+        p = (rng.uniform(-10, 10, n).astype(np.float32),
+             np.float32([[1.2, 0.8, 1.1, 0.05], [0.7, 1.3, 0.9, -0.05]]),
+             np.tile(np.eye(3, dtype=np.float32), (n, t, 1, 1)),
+             rng.uniform(0.1, 2.0, n).astype(np.float32), flip)
+    taps = (A.ops.resample_weights(w0, s, torch.from_numpy(box[:, 0]),
+                                   torch.from_numpy(box[:, 2])) != 0).sum(2)
+    assert int(taps.max()) > 16
+    want = np.asarray(jax_fused(
+        *map(jnp.asarray, (frames, box, rotk, *p)), sample_size=s,
+        out_dtype=jnp.float32, interpret=True))
+    got = A.fused_augment_clips(*map(torch.from_numpy, (frames, box, rotk,
+                                                        *p)),
+                                sample_size=s, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["sample_size", "out_dtype"])
+def test_wrapper_refuses_what_the_kernel_cannot_take(case):
+    """An S whose frame and buffers do not fit one block's shared memory,
+    and an integer output dtype, raise ValueError in the wrapper's checks,
+    which run before any CUDA call."""
+    if case == "sample_size":
+        with pytest.raises(ValueError, match=r"sample_size 224 .* bytes"):
+            A._check_cuda_inputs(*_check_args(1, 1, 256, 340), 224)
+    else:
+        with pytest.raises(ValueError, match="torch.int32"):
+            A._check_cuda_inputs(*_check_args(1, 1, 128, 171), 112,
+                                 out_dtype=torch.int32)
