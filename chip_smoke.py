@@ -9,14 +9,21 @@ Phases:
      kernel of the port built from ``cstp_tpu_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, with times
      and roofline bounds: both (2+1)D conv kernel pairs (K2/K3, tiling
-     "clip", and K4a/K4b, tiling "taps9") at the four sites of the pretrain
-     step, K4a/K4b also at the conv-block benchmark's default shape, and
-     the augment kernel (bf16 and float32 output, 128x171 and native
-     256x340 frames; its time with each optional stage switched off
-     through its identity parameters); per site, K2's and K3's launch
-     plans (row tile, stages, chunks, blocks, resident blocks per SM,
-     shared bytes), their TFLOP/s and their time over the plain version's,
-     and a check that two launches of K2 give bitwise the same statistics;
+     "clip", and K4a/K4b, tiling "taps9": the same kernels on the padded
+     input) at the four sites of the pretrain step, K4a/K4b also at the
+     conv-block benchmark's default shape, and the augment kernel (bf16
+     and float32 output, 128x171 and native 256x340 frames -> 112, and
+     256x340 -> 224 with its frame in device memory; its time with each
+     optional stage switched off through its identity parameters); per
+     site, K2's and K3's launch plans (row tile, stages, chunks, blocks,
+     resident blocks per SM, shared bytes), their TFLOP/s and their time
+     over the plain version's, and a check that two launches of K2 give
+     bitwise the same statistics; then hashes of K2's, K3's, K4a's, K4b's
+     and K5's outputs on seeded inputs: K4a/K4b's must equal K2/K3's, and
+     K2/K3/K5's are printed beside those of commit 0cb95b4, before K4a/K4b
+     moved onto K2/K3's kernels (``HASHES_0CB95B4``; a differing hash there
+     is reported, not a failure, since another PyTorch may draw other
+     inputs);
   3. the pretrain step itself (R(2+1)D depth 1, 16 x 112^2, bf16, per-view
      batch 16, fused conv blocks and fused augmentation): one warm-up and
      three timed steps, with the kernels' launch counts, then one step
@@ -66,6 +73,18 @@ NATIVE_HW = (256, 340)
 # the conv-block benchmark's default shape: (name, N, T, H=W, Cin, M, Cout)
 BENCH_SHAPE = ("bench_conv21d default (conv2 shape, 2 x 64 clips)", 128, 16,
                56, 64, 144, 64)
+S_LARGE = 224           # I3D's sample size: K5's frame in device memory
+# Output hashes of the kernels that must not move, at commit 0cb95b4 (before
+# K4a/K4b ran on K2/K3's kernels), with PyTorch 2.11 + CUDA 12.8 on one H100
+# 80GB HBM3: K3's output and K2's statistics per site
+# (perf/sweep_conv21d_fwd.py --hash) and K5's output (augment_hashes).
+HASHES_0CB95B4 = {
+    "K3 conv2": "756f24fbb7ee4f37", "K2 conv2": "d926f0e937c18fa4",
+    "K3 conv3": "f24fe584832912ab", "K2 conv3": "99ac0209fe934483",
+    "K3 conv4": "456aeabdf0fede1d", "K2 conv4": "19a3c9068bd9b80a",
+    "K3 conv5": "e7e65362a2d7b2dc", "K2 conv5": "a91067c5a36a34bb",
+    "K5 bfloat16": "a9fcb9655a7c227a", "K5 float32": "2bc8c5c8d7c982f8",
+}
 
 
 def log(msg: str) -> None:
@@ -116,8 +135,7 @@ def _hold_pair(tiling, x, ws, wt, scale, bias):
     """One tiling's kernel pair against the plain version on one input.
     Returns per pass its max abs error, kernel ms, and the operations and
     bytes the pass must do: one spatial conv, plus the temporal conv in pass
-    B (what the TPU kernel does once; the taps9 recompute is not counted),
-    each input read once and each output written once."""
+    B, each input read once and each output written once."""
     from cstp_tpu_torch.ops import conv21d as C
 
     cin, m = ws.shape[2:]
@@ -380,28 +398,33 @@ def phase_augment(dev):
     # 1e-5 on normalised values (some 30 roundings of values <= 255, each
     # within 2^-24 relative, over a scale of 127.5), kept here tenfold:
     # 1e-4. Native-size frames (256x340, resample rows of up to 17 taps)
-    # hold each output dtype's tolerance. The bf16 cases at the main shape
-    # give the kernels line's max_abs_err.
-    cases = (("null=True", null, torch.bfloat16, 2e-2),
-             ("null=False", sampled, torch.bfloat16, 2e-2),
-             ("float32 out", sampled, torch.float32, 1e-4),
-             ("native bf16 out", native, torch.bfloat16, 2e-2),
-             ("native float32 out", native, torch.float32, 1e-4))
+    # hold each output dtype's tolerance, at S = 112 and at S = 224, where
+    # the frame is in device memory. The bf16 cases at the main shape give
+    # the kernels line's max_abs_err.
+    cases = (("null=True", null, S, torch.bfloat16, 2e-2),
+             ("null=False", sampled, S, torch.bfloat16, 2e-2),
+             ("float32 out", sampled, S, torch.float32, 1e-4),
+             ("native bf16 out", native, S, torch.bfloat16, 2e-2),
+             ("native float32 out", native, S, torch.float32, 1e-4),
+             ("native bf16 out, frame in device memory", native, S_LARGE,
+              torch.bfloat16, 2e-2),
+             ("native float32 out, frame in device memory", native, S_LARGE,
+              torch.float32, 1e-4))
     err_max = 0.0
-    for name, (fr, bx, rt, pp), dtype, tol in cases:
+    for name, (fr, bx, rt, pp), s, dtype, tol in cases:
         for norm in ("tf", "imagenet"):
-            got = A.fused_augment_clips(fr, bx, rt, *pp, sample_size=S,
+            got = A.fused_augment_clips(fr, bx, rt, *pp, sample_size=s,
                                         norm_method=norm, out_dtype=dtype)
             want = A.fused_augment_clips_plain(fr, bx, rt, *pp,
-                                               sample_size=S, norm_method=norm,
+                                               sample_size=s, norm_method=norm,
                                                out_dtype=torch.float32)
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
             log(f"[augment] {name}, N={fr.shape[0]} {fr.shape[2]}x"
-                f"{fr.shape[3]} -> {S}, norm={norm}: max abs err {err:.3e} "
+                f"{fr.shape[3]} -> {s}, norm={norm}: max abs err {err:.3e} "
                 f"(tol {tol:g})")
             if not (err <= tol and got.dtype == dtype
-                    and got.shape == (fr.shape[0], T, S, S, 3)):
+                    and got.shape == (fr.shape[0], T, s, s, 3)):
                 raise SystemExit(f"augment kernel ({name}) disagrees with its "
                                  "plain version")
             if fr is not native and dtype == torch.bfloat16:
@@ -420,7 +443,84 @@ def phase_augment(dev):
     del null, sampled, native
     augment_stage_times(dev)
     augment_stage_times(dev, *NATIVE_HW)
+    augment_large_time(dev)
     return err_max, dict(ms=ms, plain_ms=pms, bound=b, by=by)
+
+
+def augment_large_time(dev):
+    """K5's time at 2 * B_VIEW clips of T native 256x340 frames -> S_LARGE
+    (bf16, 'tf'), its frame in device memory, beside its plain version's;
+    written down, not judged."""
+    from cstp_tpu_torch.ops import augment as A
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    frames, box, rot, p = _aug_inputs(dev, gen, False, h0=NATIVE_HW[0],
+                                      w0=NATIVE_HW[1])
+    n = frames.shape[0]
+    chunk, per_launch = A.launch_plan(n, T, S_LARGE, NATIVE_HW[1])
+    ms = time_ms(lambda: A.fused_augment_clips(frames, box, rot, *p,
+                                               sample_size=S_LARGE))
+    pms = time_ms(lambda: A.fused_augment_clips_plain(
+        frames, box, rot, *p, sample_size=S_LARGE), iters=3, warmup=1)
+    log(f"[augment] N={n} T={T} {NATIVE_HW[0]}x{NATIVE_HW[1]} -> {S_LARGE}, "
+        f"frame in device memory ({per_launch} clips per launch, chunk "
+        f"{chunk} rows, {A.smem_bytes(S_LARGE, NATIVE_HW[1], chunk, False)} B "
+        f"shared): {ms:.3f} ms, plain {pms:.3f} ms")
+    return ms, pms
+
+
+def augment_hashes(dev):
+    """{dtype: SHA-256 prefix of K5's output}: 2 * B_VIEW clips of T x 128 x
+    171 -> S with sampled parameters (generator seed 8), bf16 and float32
+    out, 'tf'."""
+    import hashlib
+
+    from cstp_tpu_torch.ops import augment as A
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    frames, box, rot, p = _aug_inputs(dev, gen, False)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        y = A.fused_augment_clips(frames, box, rot, *p, sample_size=S,
+                                  out_dtype=dtype)
+        if dtype == torch.bfloat16:
+            y = y.view(torch.int16)
+        out[str(dtype).split(".")[-1]] = hashlib.sha256(
+            y.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def phase_hashes(dev):
+    """K2/K3 and K4a/K4b output hashes at the four sites
+    (``perf/sweep_conv21d_fwd.py --hash``) and K5's at the slice shape,
+    each beside commit 0cb95b4's (``HASHES_0CB95B4``). Exits if K4a/K4b's
+    differ from K2/K3's. Returns {name: (hash, hash at 0cb95b4)}."""
+    from cstp_tpu_torch.perf import sweep_conv21d_fwd as sweep
+
+    got = {}
+    for tiling, (k_fwd, k_stats) in sweep.KERNELS.items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for site, (h_out, h_stats, _) in sweep.hash_outputs(gen,
+                                                            tiling).items():
+            got[f"{k_fwd} {site}"] = h_out
+            got[f"{k_stats} {site}"] = h_stats
+    for dtype, h in augment_hashes(dev).items():
+        got[f"K5 {dtype}"] = h
+    torch.cuda.empty_cache()
+    res = {k: (h, HASHES_0CB95B4.get(k)) for k, h in got.items()}
+    for k, (h, old) in res.items():
+        if old is not None:
+            log(f"[hash] {k}: {h}, at 0cb95b4 {old} "
+                f"({'same' if h == old else 'DIFFERENT'})")
+    for clip, taps9 in (("K3", "K4b"), ("K2", "K4a")):
+        same = all(got[f"{clip} {s[0]}"] == got[f"{taps9} {s[0]}"]
+                   for s in sweep.SITES)
+        log(f"[hash] {taps9} at the four sites: " + ", ".join(
+            got[f"{taps9} {s[0]}"] for s in sweep.SITES) + "; bitwise "
+            f"{clip}'s: {same}")
+        if not same:
+            raise SystemExit(f"{taps9} is not bitwise {clip} on the same x")
+    return res
 
 
 def _slice_config(fused: bool):
@@ -676,9 +776,9 @@ def kernels_line(conv, aug_err, aug_t, counts):
          f"{pallas}/conv21d.py:347", conv["stats"]),
         ("conv21d_fwd", "cstp_tpu_torch/csrc/conv21d.cu",
          f"{pallas}/conv21d.py:432", conv["fwd"]),
-        ("conv21d_taps9_stats", "cstp_tpu_torch/csrc/conv21d_taps9.cu",
+        ("conv21d_taps9_stats", "cstp_tpu_torch/csrc/conv21d.cu",
          f"{pallas}/conv21d.py:145", conv["stats_taps9"]),
-        ("conv21d_taps9_fwd", "cstp_tpu_torch/csrc/conv21d_taps9.cu",
+        ("conv21d_taps9_fwd", "cstp_tpu_torch/csrc/conv21d.cu",
          f"{pallas}/conv21d.py:238", conv["fwd_taps9"]),
         ("augment", "cstp_tpu_torch/csrc/augment.cu",
          f"{pallas}/augment.py:244", dict(aug_t, err=aug_err)),
@@ -717,6 +817,7 @@ def main(argv=None) -> int:
     phase_build()
     conv = phase_conv21d(dev)
     aug_err, aug_t = phase_augment(dev)
+    phase_hashes(dev)
     counts = None
     if not args.kernels_only:
         counts = dict(phase_slice(dev, card)["counts"])

@@ -19,7 +19,14 @@
 // frame, so nothing crosses blocks. The frame lives in dynamic shared
 // memory as f32 (112 x 112 x 3 = 147 KB, rows padded by one float so that
 // column walks hit distinct banks), so no intermediate reaches device
-// memory. The TPU kernel's dense band matrices are not materialised:
+// memory. Where it does not fit beside the other buffers (S above about
+// 130, such as I3D's 224: 603 KB), the frame lives instead in a slice of a
+// device-memory scratch that the wrapper allocates, one frame per block of
+// a launch, and the launches walk the clips in chunks that fit it; every
+// other buffer stays in shared memory, and the phase barriers, which order
+// a block's device-memory accesses too, serve as they are (the kernel's
+// template parameter kSmemFrame). The TPU kernel's dense band matrices are
+// not materialised:
 //  - crop + resize is separable. The box's source rows, uint8 and
 //    contiguous in x, are copied into shared memory with 16-byte cp.async
 //    in chunks of up to 16 rows, double-buffered, so the next chunk's copy
@@ -35,7 +42,8 @@
 //    the chunk's staged rows for each output row, filled once per chunk.
 //    No table spans a whole row of taps, so no cap on the downscale.
 //  - The chunk height is the largest of 16, 8, 4, 2, 1 rows whose buffers
-//    fit beside the frame (chunk_rows); their bytes depend on S and W0 only.
+//    fit (beside the frame, where it is in shared memory: chunk_rows);
+//    their bytes depend on S and W0 only.
 // The shears and the blur are in place, one row or column per warp, through
 // a per-warp temp row that reuses the resample's buffers; the blur's
 // normalisers are reciprocals taken once per output position.
@@ -85,20 +93,22 @@ __host__ __device__ inline size_t post_bytes(int s) {
          align128(sizeof(float) * (2 * kBlurRadius + 1)) + align128(sizeof(float) * (size_t)s);
 }
 
-__host__ __device__ inline size_t smem_bytes(int s, int w0, int chunk) {
+// One block's dynamic shared memory; the frame counts only when it is there.
+__host__ __device__ inline size_t smem_bytes(int s, int w0, int chunk, bool smem_frame) {
   const size_t r = resample_bytes(s, w0, chunk), p = post_bytes(s);
-  return frame_bytes(s) + (r > p ? r : p);
+  return (smem_frame ? frame_bytes(s) : 0) + (r > p ? r : p);
 }
 
-// The chunk height for (S, W0), or 0 when not even one row fits.
-__host__ inline int chunk_rows(int s, int w0) {
+// The chunk height for (S, W0) and the frame's place, or 0 when not even
+// one row fits.
+__host__ inline int chunk_rows(int s, int w0, bool smem_frame) {
   for (int c = kMaxChunk; c >= 1; c /= 2)
-    if (smem_bytes(s, w0, c) <= kMaxSmem) return c;
+    if (smem_bytes(s, w0, c, smem_frame) <= kMaxSmem) return c;
   return 0;
 }
 
 struct Smem {
-  float* frame;  // [S][ldf], ldf = 3S + 1
+  float* frame;  // [S][ldf], ldf = 3S + 1; shared or device memory
   int ldf;
   // resample
   int* lo_y;     // [S] first tap (clamped to the frame)
@@ -117,11 +127,13 @@ struct Smem {
   float* blur_d;  // [S] reciprocal of each position's weight sum
 };
 
-__device__ Smem carve(unsigned char* base, int s, int w0, int chunk) {
+// The buffers in shared memory at `base`; the frame there too, or at
+// `gframe` (device memory) when it is not null.
+__device__ Smem carve(unsigned char* base, float* gframe, int s, int w0, int chunk) {
   Smem m;
   m.ldf = 3 * s + 1;
-  m.frame = reinterpret_cast<float*>(base);
-  unsigned char* u = base + frame_bytes(s);
+  m.frame = gframe ? gframe : reinterpret_cast<float*>(base);
+  unsigned char* u = gframe ? base : base + frame_bytes(s);
   size_t off = 0;
   auto take = [&](size_t bytes) { unsigned char* p = u + off; off += align128(bytes); return p; };
   float* rows = reinterpret_cast<float*>(take(6 * sizeof(float) * (size_t)s));
@@ -450,17 +462,22 @@ __device__ void resample(const Smem& m, const uint8_t* fr, const uint8_t* fbegin
   __syncthreads();
 }
 
-template <typename OutT>
+// Block (t, c): frame t of clip clip0 + c. kSmemFrame false: its frame is
+// frame c * T + t of `scratch` (frame_bytes(S) apart).
+template <typename OutT, bool kSmemFrame>
 __global__ void __launch_bounds__(kThreads)
 augment_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ box,
                const int* __restrict__ rotk, const float* __restrict__ angle,
                const float* __restrict__ factors, const float* __restrict__ graymix,
                const float* __restrict__ sigma, const int* __restrict__ flip,
-               OutT* __restrict__ out, int N, int T, int H0, int W0, int S,
-               int norm_imagenet, int chunk) {
+               OutT* __restrict__ out, float* __restrict__ scratch, int clip0, int N, int T,
+               int H0, int W0, int S, int norm_imagenet, int chunk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem, S, W0, chunk);
-  const int t = blockIdx.x, clip = blockIdx.y, tid = threadIdx.x;
+  float* gframe = nullptr;
+  if constexpr (!kSmemFrame)
+    gframe = scratch + ((size_t)blockIdx.y * T + blockIdx.x) * (frame_bytes(S) / sizeof(float));
+  const Smem m = carve(smem, gframe, S, W0, chunk);
+  const int t = blockIdx.x, clip = clip0 + blockIdx.y, tid = threadIdx.x;
   const int npx = S * S;
 
   // ---- crop + resize, written through rot90^k ----
@@ -586,57 +603,85 @@ augment_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ box
   }
 }
 
-template <typename OutT>
+// One launch per chunk of `per_launch` clips (all N with the frame in
+// shared memory, scratch null).
+template <typename OutT, bool kSmemFrame>
 int launch(const void* frames, const void* box, const void* rotk, const void* angle,
            const void* factors, const void* graymix, const void* sigma, const void* flip,
-           void* out, int N, int T, int H0, int W0, int S, int norm_imagenet, int chunk,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes(S, W0, chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      augment_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+           void* out, float* scratch, int per_launch, int N, int T, int H0, int W0, int S,
+           int norm_imagenet, int chunk, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(S, W0, chunk, kSmemFrame);
+  cudaError_t err = cudaFuncSetAttribute(augment_kernel<OutT, kSmemFrame>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(T, N);
-  augment_kernel<OutT><<<grid, kThreads, bytes, stream>>>(
-      (const uint8_t*)frames, (const float*)box, (const int*)rotk, (const float*)angle,
-      (const float*)factors, (const float*)graymix, (const float*)sigma, (const int*)flip,
-      (OutT*)out, N, T, H0, W0, S, norm_imagenet, chunk);
-  return (int)cudaGetLastError();
+  for (int clip0 = 0; clip0 < N; clip0 += per_launch) {
+    dim3 grid(T, per_launch < N - clip0 ? per_launch : N - clip0);
+    augment_kernel<OutT, kSmemFrame><<<grid, kThreads, bytes, stream>>>(
+        (const uint8_t*)frames, (const float*)box, (const int*)rotk, (const float*)angle,
+        (const float*)factors, (const float*)graymix, (const float*)sigma, (const int*)flip,
+        (OutT*)out, scratch, clip0, N, T, H0, W0, S, norm_imagenet, chunk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+template <typename OutT>
+int launch_for(const void* frames, const void* box, const void* rotk, const void* angle,
+               const void* factors, const void* graymix, const void* sigma, const void* flip,
+               void* out, float* scratch, int per_launch, int N, int T, int H0, int W0, int S,
+               int norm_imagenet, int chunk, cudaStream_t stream) {
+  if (scratch == nullptr)
+    return launch<OutT, true>(frames, box, rotk, angle, factors, graymix, sigma, flip, out,
+                              nullptr, N, N, T, H0, W0, S, norm_imagenet, chunk, stream);
+  return launch<OutT, false>(frames, box, rotk, angle, factors, graymix, sigma, flip, out,
+                             scratch, per_launch, N, T, H0, W0, S, norm_imagenet, chunk, stream);
 }
 
 }  // namespace
 
 // The chunk height (source rows per stage) for sample size S and frames W0
-// wide, 0 when none fits; and the dynamic shared memory of one block.
-// ops/augment.py keeps a Python copy of both.
-extern "C" int cstp_augment_chunk_rows(int s, int w0) { return chunk_rows(s, w0); }
-extern "C" int cstp_augment_smem_bytes(int s, int w0, int chunk) {
-  return (int)smem_bytes(s, w0, chunk);
+// wide, with the frame in shared memory (smem_frame 1) or not (0), 0 when
+// none fits; the dynamic shared memory of one block; one frame's bytes in
+// the device-memory scratch. ops/augment.py keeps a Python copy of all three.
+extern "C" int cstp_augment_chunk_rows(int s, int w0, int smem_frame) {
+  return chunk_rows(s, w0, smem_frame != 0);
 }
+extern "C" int cstp_augment_smem_bytes(int s, int w0, int chunk, int smem_frame) {
+  return (int)smem_bytes(s, w0, chunk, smem_frame != 0);
+}
+extern "C" long long cstp_augment_frame_bytes(int s) { return (long long)frame_bytes(s); }
 
 // frames (N, T, H0, W0, 3) u8; box (N, 4) f32; rotk (N,) i32; angle (N,) f32;
 // factors (N, 4) f32; graymix (N, T, 3, 3) f32; sigma (N,) f32; flip (N,) i32;
-// out (N, T, S, S, 3) in bf16 (out_type 0), f16 (1) or f32 (2). Returns
-// cudaErrorInvalidValue when no chunk height fits (S, W0) or for another
-// out_type, else the CUDA error code of the launch.
+// out (N, T, S, S, 3) in bf16 (out_type 0), f16 (1) or f32 (2). scratch:
+// null to hold each frame in shared memory, or per_launch * T frames of
+// cstp_augment_frame_bytes(S) each in device memory, and then one launch
+// per per_launch clips. Returns cudaErrorInvalidValue when no chunk height
+// fits (S, W0) with that frame place or for another out_type, else the CUDA
+// error code of the launches.
 extern "C" int cstp_augment_clips(const void* frames, const void* box, const void* rotk,
                                   const void* angle, const void* factors,
                                   const void* graymix, const void* sigma,
-                                  const void* flip, void* out, int N, int T, int H0,
-                                  int W0, int S, int norm_imagenet, int out_type,
-                                  void* stream) {
-  const int chunk = (S < 1 || H0 < 1 || W0 < 1) ? 0 : chunk_rows(S, W0);
-  if (chunk == 0) return (int)cudaErrorInvalidValue;
+                                  const void* flip, void* out, void* scratch, int per_launch,
+                                  int N, int T, int H0, int W0, int S, int norm_imagenet,
+                                  int out_type, void* stream) {
+  const bool smem_frame = scratch == nullptr;
+  const int chunk = (S < 1 || H0 < 1 || W0 < 1) ? 0 : chunk_rows(S, W0, smem_frame);
+  if (chunk == 0 || (!smem_frame && per_launch < 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* scr = (float*)scratch;
   switch (out_type) {
     case 0:
-      return launch<__nv_bfloat16>(frames, box, rotk, angle, factors, graymix, sigma, flip, out,
-                                   N, T, H0, W0, S, norm_imagenet, chunk, st);
+      return launch_for<__nv_bfloat16>(frames, box, rotk, angle, factors, graymix, sigma, flip,
+                                       out, scr, per_launch, N, T, H0, W0, S, norm_imagenet,
+                                       chunk, st);
     case 1:
-      return launch<__half>(frames, box, rotk, angle, factors, graymix, sigma, flip, out, N, T,
-                            H0, W0, S, norm_imagenet, chunk, st);
+      return launch_for<__half>(frames, box, rotk, angle, factors, graymix, sigma, flip, out,
+                                scr, per_launch, N, T, H0, W0, S, norm_imagenet, chunk, st);
     case 2:
-      return launch<float>(frames, box, rotk, angle, factors, graymix, sigma, flip, out, N, T,
-                           H0, W0, S, norm_imagenet, chunk, st);
+      return launch_for<float>(frames, box, rotk, angle, factors, graymix, sigma, flip, out,
+                               scr, per_launch, N, T, H0, W0, S, norm_imagenet, chunk, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,9 +2,19 @@
 // spatial (1,3,3) conv -> BatchNorm with batch statistics -> ReLU ->
 // temporal (3,1,1) conv, stride 1, "same" padding, NDHWC bf16.
 //
-// Replaces cstp_tpu/ops/pallas/conv21d.py, tiling "clip":
-//   cstp_conv21d_stats <- _run_stats_clip / _stats_kernel_clip (pass A, :347)
-//   cstp_conv21d_fwd   <- _run_fwd_clip / _fwd_kernel_clip (pass B, :432)
+// Replaces cstp_tpu/ops/pallas/conv21d.py, both tilings:
+//   cstp_conv21d_stats       <- _run_stats_clip / _stats_kernel_clip (pass A, :347)
+//   cstp_conv21d_fwd         <- _run_fwd_clip / _fwd_kernel_clip (pass B, :432)
+//   cstp_conv21d_taps9_stats <- _run_stats / _stats_kernel (pass A, taps9, :145)
+//   cstp_conv21d_taps9_fwd   <- _run_fwd / _fwd_kernel (pass B, taps9, :238)
+// The two tilings compute one function; here they share both kernels and
+// differ only in where the A gather reads (the A-source policy, a template
+// parameter): "clip" takes the unpadded x and zero-fills out-of-frame taps,
+// "taps9" takes x padded once, (B, T, H+2, W+2, Cin), as the TPU kernel
+// does, so every tap reads a dense shifted window and the only predicate
+// left is "row past the end". The K order (tap-major, cin-minor) and every
+// reduction's order are the same, so on the same x the two tilings give
+// bitwise the same statistics and output.
 //
 // What bounds it on the H100: tensor-core operations. The spatial conv is an
 // implicit GEMM of (pixels) x (9*Cin) x (M) and pass B adds the temporal
@@ -152,24 +162,44 @@ __device__ inline GatherRows gather_rows(int r0, int end, int HW, int W, int fst
 
 // The A half of a spatial K step: the im2col gather, at K rows
 // [k0, k0 + rows) of 9 * Cin (tap-major, cin-minor), of this thread's rows
-// in frame frame0 + fu, into the first P rows of sA; out-of-frame taps and
-// rows past the end are zero-filled.
+// in frame frame0 + fu, into the first P rows of sA; rows past the end are
+// zero-filled. kPad false: x is unpadded (H x W frames) and out-of-frame
+// taps are zero-filled too. kPad true: x is padded, (H + 2) x (W + 2)
+// frames, and tap (dy, dx) of pixel (y, x) is at (y + dy + 1, x + dx + 1),
+// always inside the frame. A piece of 8 channels never crosses a tap, since
+// Cin % 16 == 0.
+template <bool kPad>
 __device__ inline void gather_a(bf16* sA, const bf16* __restrict__ x, const GatherRows& gr,
                                 int fu, int H, int W, int Cin, int P, int k0, int rows) {
   const int tid = threadIdx.x, q = tid & 7, k = k0 + 8 * q;
   if (8 * q >= rows) return;
   const int tap = k / Cin, ci = k - tap * Cin;
   const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const size_t HW = (size_t)H * W;
+  if constexpr (kPad) {
+    const int Wp = W + 2, off = (dy + 1) * Wp + dx + 1;
+    const size_t HWp = (size_t)(H + 2) * Wp;
 #pragma unroll
-  for (int i = 0; i < kMaxGatherRows; ++i) {
-    const int row = (tid >> 3) + 32 * i;
-    if (row < P) {
-      const int y = gr.y[i] + dy, xx = gr.x[i] + dx;
-      const bool ok = gr.frame0[i] >= 0 && (unsigned)y < (unsigned)H && (unsigned)xx < (unsigned)W;
-      const bf16* g = x;
-      if (ok) g += ((size_t)(gr.frame0[i] + fu) * HW + y * W + xx) * Cin + ci;
-      cp_async16(sA + row * kLdA + 8 * q, g, ok);
+    for (int i = 0; i < kMaxGatherRows; ++i) {
+      const int row = (tid >> 3) + 32 * i;
+      if (row < P) {
+        const bool ok = gr.frame0[i] >= 0;
+        const bf16* g = x;
+        if (ok) g += ((size_t)(gr.frame0[i] + fu) * HWp + gr.y[i] * Wp + gr.x[i] + off) * Cin + ci;
+        cp_async16(sA + row * kLdA + 8 * q, g, ok);
+      }
+    }
+  } else {
+    const size_t HW = (size_t)H * W;
+#pragma unroll
+    for (int i = 0; i < kMaxGatherRows; ++i) {
+      const int row = (tid >> 3) + 32 * i;
+      if (row < P) {
+        const int y = gr.y[i] + dy, xx = gr.x[i] + dx;
+        const bool ok = gr.frame0[i] >= 0 && (unsigned)y < (unsigned)H && (unsigned)xx < (unsigned)W;
+        const bf16* g = x;
+        if (ok) g += ((size_t)(gr.frame0[i] + fu) * HW + y * W + xx) * Cin + ci;
+        cp_async16(sA + row * kLdA + 8 * q, g, ok);
+      }
     }
   }
 }
@@ -339,8 +369,9 @@ __device__ __forceinline__ void tile_stats(float (*acc)[NI][4], float* carry) {
 }
 
 // Block (x, y): tiles [t0, t0 + tpb) of BN group x / bpg, mid channels
-// [y * bn, + bn); its partial sums go to row x of psum and psq.
-template <int NI>
+// [y * bn, + bn); its partial sums go to row x of psum and psq. kPad: the
+// A-source policy of gather_a.
+template <int NI, bool kPad>
 __global__ void __launch_bounds__(kThreads, kStatsPerSM) stats_kernel(const StatsArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -356,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, kStatsPerSM) stats_kernel(const Stat
   GatherRows gr = gather_rows(r0, rend, HW, a.W, 1);
   auto load = [&](unsigned char* st) {
     const int k0 = pks * kKC, rows = min(kKC, K - k0);
-    gather_a(reinterpret_cast<bf16*>(st), a.x, gr, 0, a.H, a.W, a.Cin, a.P, k0, rows);
+    gather_a<kPad>(reinterpret_cast<bf16*>(st), a.x, gr, 0, a.H, a.W, a.Cin, a.P, k0, rows);
     copy_b(reinterpret_cast<bf16*>(st + a.a_bytes), a.ldb, a.ws + (size_t)k0 * a.M + n0, a.M,
            rows, width, bm);
     if (++pks == nks) {
@@ -451,14 +482,15 @@ __global__ void stats_reduce_kernel(const float* __restrict__ psum,
   }
 }
 
-// The kernel instantiation for a warp tile of 32 x (8 * ni); the plan
-// (ops/conv21d.py plan_stats) picks ni from these.
+// The kernel instantiation for a warp tile of 32 x (8 * ni) and an A
+// source; the plan (ops/conv21d.py plan_stats) picks ni from these.
+template <bool kPad>
 const void* stats_kernel_for(int ni) {
   switch (ni) {
-    case 2: return (const void*)stats_kernel<2>;
-    case 4: return (const void*)stats_kernel<4>;
-    case 6: return (const void*)stats_kernel<6>;
-    case 10: return (const void*)stats_kernel<10>;
+    case 2: return (const void*)stats_kernel<2, kPad>;
+    case 4: return (const void*)stats_kernel<4, kPad>;
+    case 6: return (const void*)stats_kernel<6, kPad>;
+    case 10: return (const void*)stats_kernel<10, kPad>;
   }
   return nullptr;
 }
@@ -537,13 +569,14 @@ struct Cursor {
   }
 };
 
+template <bool kPad>
 __device__ inline void stage_load(const FwdArgs& a, const Cursor& c, const GatherRows& gr,
                                   BMap bmap_s, BMap bmap_t, int rank, unsigned char* stage) {
   bf16* sA = reinterpret_cast<bf16*>(stage);
   bf16* sB = reinterpret_cast<bf16*>(stage + a.a_bytes);
   if (c.ph == 0) {
     const int k0 = c.ks * kKC, rows = min(kKC, 9 * a.Cin - k0);
-    gather_a(sA, a.x, gr, c.u, a.H, a.W, a.Cin, a.P, k0, rows);
+    gather_a<kPad>(sA, a.x, gr, c.u, a.H, a.W, a.Cin, a.P, k0, rows);
     copy_b(sB, a.ldb, a.ws + (size_t)k0 * a.M + rank * a.Mc + c.ch * a.bn, a.M, rows,
            min(a.bn, a.Mc - c.ch * a.bn), bmap_s);
   } else {
@@ -562,7 +595,7 @@ __device__ __forceinline__ float bn_relu(float v, float mean, float rstd, float 
   return fmaxf((bf16_round(v) - mean) * rstd * scale + bias, 0.f);
 }
 
-template <int NI>
+template <int NI, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const FwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -585,7 +618,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const FwdArgs a) {
   Cursor pc{0, 0, 0, 0, 0}, cc{0, 0, 0, 0, 0};
   for (int s = 0; s < a.S - 1; ++s) {
     if (s < n_iter) {
-      stage_load(a, pc, gr, bmap_s, bmap_t, rank, stages + s * a.stage_bytes);
+      stage_load<kPad>(a, pc, gr, bmap_s, bmap_t, rank, stages + s * a.stage_bytes);
       pc.advance(a, nks_s, nks_t);
     }
     cp_async_commit();
@@ -605,7 +638,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const FwdArgs a) {
     if (a.C > 1 && cc.item_start()) cluster_sync();
     const int li = it + a.S - 1;
     if (li < n_iter) {
-      stage_load(a, pc, gr, bmap_s, bmap_t, rank, stages + (li % a.S) * a.stage_bytes);
+      stage_load<kPad>(a, pc, gr, bmap_s, bmap_t, rank, stages + (li % a.S) * a.stage_bytes);
       pc.advance(a, nks_s, nks_t);
     }
     cp_async_commit();
@@ -694,14 +727,15 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const FwdArgs a) {
   if (a.C > 1) cluster_sync();
 }
 
-// The kernel instantiation for a warp tile of 32 x (8 * ni); the plan
-// (ops/conv21d.py plan_fwd) picks ni from these.
+// The kernel instantiation for a warp tile of 32 x (8 * ni) and an A
+// source; the plan (ops/conv21d.py plan_fwd) picks ni from these.
+template <bool kPad>
 const void* fwd_kernel_for(int ni) {
   switch (ni) {
-    case 2: return (const void*)fwd_kernel<2>;
-    case 4: return (const void*)fwd_kernel<4>;
-    case 6: return (const void*)fwd_kernel<6>;
-    case 10: return (const void*)fwd_kernel<10>;
+    case 2: return (const void*)fwd_kernel<2, kPad>;
+    case 4: return (const void*)fwd_kernel<4, kPad>;
+    case 6: return (const void*)fwd_kernel<6, kPad>;
+    case 10: return (const void*)fwd_kernel<10, kPad>;
   }
   return nullptr;
 }
@@ -717,24 +751,22 @@ inline size_t fwd_smem_bytes(int P, int T, int M, int ldb, int S, size_t* a_byte
   return *ring + S * *stage_bytes;
 }
 
-// Cin % 32, as the wrappers check; M and Cout % 16
+// Cin, M and Cout % 16, as the wrappers check: the mainloop's last K step
+// may be 16 rows (9 * Cin % 16) and a gather piece of 8 channels stays
+// within one tap.
 inline bool shapes_ok(int Cin, int M, int Cout) {
-  return Cin % 32 == 0 && M % 16 == 0 && Cout % 16 == 0;
+  return Cin > 0 && Cin % 16 == 0 && M % 16 == 0 && Cout % 16 == 0;
 }
 
-}  // namespace
-
-// x (B, T, H, W, Cin) bf16; ws (9*Cin, M) bf16 (tap-major, cin-minor);
-// psum/psq (G * blocks per group, M) f32 scratch; gmean/gvar (G, M) f32
-// out. The plan (P, stages, bn: the mid chunk, ni, tpb: row tiles per
-// block, blocks, smem_bytes) comes from ops/conv21d.py plan_stats and is
-// checked here again; its stages leave room for kStatsPerSM blocks per SM.
-extern "C" int cstp_conv21d_stats(const void* x, const void* ws, void* psum, void* psq,
-                                  void* gmean, void* gvar, int B, int T, int H, int W,
-                                  int Cin, int M, int G, int P, int stages, int bn, int ni,
-                                  int tpb, int blocks, int smem_bytes, void* stream) {
+// Pass A with the A source kPad: x (B, T, H, W, Cin) bf16, or padded
+// (B, T, H + 2, W + 2, Cin) with H and W the unpadded sizes; the rest as
+// cstp_conv21d_stats below.
+template <bool kPad>
+int launch_stats(const void* x, const void* ws, void* psum, void* psq, void* gmean, void* gvar,
+                 int B, int T, int H, int W, int Cin, int M, int G, int P, int stages, int bn,
+                 int ni, int tpb, int blocks, int smem_bytes, void* stream) {
   const long long nrows = (long long)B * T * H * W;
-  const void* kernel = stats_kernel_for(ni);
+  const void* kernel = stats_kernel_for<kPad>(ni);
   if (!shapes_ok(Cin, M, 16) || B <= 0 || T <= 0 || H <= 0 || W <= 0 || G <= 0 || B % G ||
       nrows + P >= (1ll << 31) || kernel == nullptr || (P != 32 && P != 64 && P != 128) ||
       stages < 3 || stages > 4 || bn <= 0 || bn % 16 || bn > M || tpb <= 0 ||
@@ -771,34 +803,15 @@ extern "C" int cstp_conv21d_stats(const void* x, const void* ws, void* psum, voi
   return (int)cudaGetLastError();
 }
 
-// Resident pass-A blocks per SM for a plan's kernel (ni) and shared memory,
-// from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on an error.
-extern "C" int cstp_conv21d_stats_occupancy(int ni, int smem_bytes) {
-  const void* kernel = stats_kernel_for(ni);
-  if (kernel == nullptr || smem_bytes < 0 || (size_t)smem_bytes > kSmemMax) return -1;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_bytes) != cudaSuccess)
-    return -1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
-                                                    (size_t)smem_bytes) != cudaSuccess)
-    return -1;
-  return n;
-}
-
-// x, ws as above; wt (3, M, Cout) bf16; gmean/rstd (G, M) f32;
-// scale/bias (M,) f32; out (B, T, H, W, Cout) bf16. The plan (P, stages,
-// ring_slots, blocks (row tiles), cluster (blocks per row tile), smem_bytes,
-// ni, bn, bno: chunks of a block's M and Cout slices) comes from
-// ops/conv21d.py plan_fwd and is checked here again.
-extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
-                                const void* gmean, const void* rstd, const void* scale,
-                                const void* bias, void* out, int B, int T, int H, int W,
-                                int Cin, int M, int Cout, int G, int P, int stages,
-                                int ring_slots, int blocks, int cluster, int smem_bytes,
-                                int ni, int bn, int bno, void* stream) {
+// Pass B with the A source kPad: x as launch_stats; the rest as
+// cstp_conv21d_fwd below.
+template <bool kPad>
+int launch_fwd(const void* x, const void* ws, const void* wt, const void* gmean,
+               const void* rstd, const void* scale, const void* bias, void* out, int B, int T,
+               int H, int W, int Cin, int M, int Cout, int G, int P, int stages, int ring_slots,
+               int blocks, int cluster, int smem_bytes, int ni, int bn, int bno, void* stream) {
   const long long nhw = (long long)B * H * W;
-  const void* kernel = fwd_kernel_for(ni);
+  const void* kernel = fwd_kernel_for<kPad>(ni);
   if (!shapes_ok(Cin, M, Cout) || B <= 0 || T <= 0 || H <= 0 || W <= 0 || G <= 0 ||
       B % G || nhw >= (1ll << 31) || kernel == nullptr || (P != 32 && P != 64 && P != 128) ||
       stages < 3 || stages > 6 || ring_slots != (T < 3 ? T : 3) ||
@@ -851,10 +864,10 @@ extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
   return (int)cudaGetLastError();
 }
 
-// Resident pass-B blocks per SM for a plan's kernel (ni) and shared memory,
-// from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on an error.
-extern "C" int cstp_conv21d_fwd_occupancy(int ni, int smem_bytes) {
-  const void* kernel = fwd_kernel_for(ni);
+// Resident blocks per SM of a kernel instantiation at a plan's shared
+// memory, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative on
+// an error.
+int occupancy(const void* kernel, int smem_bytes) {
   if (kernel == nullptr || smem_bytes < 0 || (size_t)smem_bytes > kSmemMax) return -1;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes) != cudaSuccess)
@@ -864,4 +877,69 @@ extern "C" int cstp_conv21d_fwd_occupancy(int ni, int smem_bytes) {
                                                     (size_t)smem_bytes) != cudaSuccess)
     return -1;
   return n;
+}
+
+}  // namespace
+
+// x (B, T, H, W, Cin) bf16; ws (9*Cin, M) bf16 (tap-major, cin-minor);
+// psum/psq (G * blocks per group, M) f32 scratch; gmean/gvar (G, M) f32
+// out. The plan (P, stages, bn: the mid chunk, ni, tpb: row tiles per
+// block, blocks, smem_bytes) comes from ops/conv21d.py plan_stats and is
+// checked here again; its stages leave room for kStatsPerSM blocks per SM.
+extern "C" int cstp_conv21d_stats(const void* x, const void* ws, void* psum, void* psq,
+                                  void* gmean, void* gvar, int B, int T, int H, int W,
+                                  int Cin, int M, int G, int P, int stages, int bn, int ni,
+                                  int tpb, int blocks, int smem_bytes, void* stream) {
+  return launch_stats<false>(x, ws, psum, psq, gmean, gvar, B, T, H, W, Cin, M, G, P, stages,
+                             bn, ni, tpb, blocks, smem_bytes, stream);
+}
+
+// The same with x_pad (B, T, H+2, W+2, Cin) bf16 (H, W unpadded) and
+// Cin % 16; the plan is plan_stats's for the unpadded shape.
+extern "C" int cstp_conv21d_taps9_stats(const void* x_pad, const void* ws, void* psum,
+                                        void* psq, void* gmean, void* gvar, int B, int T,
+                                        int H, int W, int Cin, int M, int G, int P, int stages,
+                                        int bn, int ni, int tpb, int blocks, int smem_bytes,
+                                        void* stream) {
+  return launch_stats<true>(x_pad, ws, psum, psq, gmean, gvar, B, T, H, W, Cin, M, G, P,
+                            stages, bn, ni, tpb, blocks, smem_bytes, stream);
+}
+
+// x, ws as above; wt (3, M, Cout) bf16; gmean/rstd (G, M) f32;
+// scale/bias (M,) f32; out (B, T, H, W, Cout) bf16. The plan (P, stages,
+// ring_slots, blocks (row tiles), cluster (blocks per row tile), smem_bytes,
+// ni, bn, bno: chunks of a block's M and Cout slices) comes from
+// ops/conv21d.py plan_fwd and is checked here again.
+extern "C" int cstp_conv21d_fwd(const void* x, const void* ws, const void* wt,
+                                const void* gmean, const void* rstd, const void* scale,
+                                const void* bias, void* out, int B, int T, int H, int W,
+                                int Cin, int M, int Cout, int G, int P, int stages,
+                                int ring_slots, int blocks, int cluster, int smem_bytes,
+                                int ni, int bn, int bno, void* stream) {
+  return launch_fwd<false>(x, ws, wt, gmean, rstd, scale, bias, out, B, T, H, W, Cin, M, Cout,
+                           G, P, stages, ring_slots, blocks, cluster, smem_bytes, ni, bn, bno,
+                           stream);
+}
+
+// The same with x_pad (B, T, H+2, W+2, Cin) bf16 (H, W unpadded) and
+// Cin % 16; the plan is plan_fwd's for the unpadded shape.
+extern "C" int cstp_conv21d_taps9_fwd(const void* x_pad, const void* ws, const void* wt,
+                                      const void* gmean, const void* rstd, const void* scale,
+                                      const void* bias, void* out, int B, int T, int H, int W,
+                                      int Cin, int M, int Cout, int G, int P, int stages,
+                                      int ring_slots, int blocks, int cluster, int smem_bytes,
+                                      int ni, int bn, int bno, void* stream) {
+  return launch_fwd<true>(x_pad, ws, wt, gmean, rstd, scale, bias, out, B, T, H, W, Cin, M,
+                          Cout, G, P, stages, ring_slots, blocks, cluster, smem_bytes, ni, bn,
+                          bno, stream);
+}
+
+// Resident pass-A (K2) and pass-B (K3) blocks per SM for a plan's kernel
+// (ni) and shared memory; negative on an error.
+extern "C" int cstp_conv21d_stats_occupancy(int ni, int smem_bytes) {
+  return occupancy(stats_kernel_for<false>(ni), smem_bytes);
+}
+
+extern "C" int cstp_conv21d_fwd_occupancy(int ni, int smem_bytes) {
+  return occupancy(fwd_kernel_for<false>(ni), smem_bytes);
 }

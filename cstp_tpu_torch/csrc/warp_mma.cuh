@@ -1,5 +1,5 @@
 // Warp-level bf16 tensor-core and asynchronous-copy helpers for sm_90a,
-// shared by the (2+1)D conv kernels (conv21d.cu, conv21d_taps9.cu).
+// shared by the (2+1)D conv kernels (conv21d.cu) and the augment kernel.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -23,7 +23,7 @@ from typing import Any, Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cstp_tpu_torch"
-SOURCES = ("conv21d", "conv21d_taps9", "augment")
+SOURCES = ("conv21d", "augment")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

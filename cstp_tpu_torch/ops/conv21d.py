@@ -14,10 +14,11 @@ kernels:
   the unpadded input and one K=9*Cin product per row tile, on one shared
   spatial mainloop, each with a launch plan computed here (``plan_stats``,
   ``plan_fwd``) and checked again in C.
-* ``tiling="taps9"`` (``csrc/conv21d_taps9.cu``): ``run_stats_taps9`` and
-  ``run_fwd_taps9`` compute the same two passes from the input padded once
-  (``pad_hw``), with nine tap-wise K=Cin products, one block per frame (pass
-  A) or per output frame and pixel tile (pass B).
+* ``tiling="taps9"`` (the same library): ``run_stats_taps9`` and
+  ``run_fwd_taps9`` launch the same two kernels on the input padded once
+  (``pad_hw``), as the TPU kernels take it, with the plans of the unpadded
+  shape; only the A gather's addressing differs, so on the same input they
+  give bitwise the clip pair's results. Both pairs take Cin % 16.
 
 The two tilings compute one function, so both pairs share one plain
 version: ``reference_stats`` and ``reference_chain``.
@@ -101,10 +102,8 @@ def fused_st_conv_plain(x, ws, wt, scale, bias, bn_groups: int = 1,
 # ------------------------------------------------------------ CUDA kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_STATS_TAPS9_SIG = ([_P] * 6 + [_I] * 7 + [_P], _I)
 _STATS_PLAN = ("P", "stages", "bn", "ni", "tpb", "blocks", "smem")
 _STATS_SIG = ([_P] * 6 + [_I] * (7 + len(_STATS_PLAN)) + [_P], _I)
-_FWD_TAPS9_SIG = ([_P] * 8 + [_I] * 8 + [_P], _I)
 _FWD_PLAN = ("P", "stages", "ring_slots", "blocks", "cluster", "smem", "ni",
              "bn", "bno")
 _FWD_SIG = ([_P] * 8 + [_I] * (8 + len(_FWD_PLAN)) + [_P], _I)
@@ -319,13 +318,9 @@ def _lib():
     return build.load("conv21d", {"cstp_conv21d_stats": _STATS_SIG,
                                   "cstp_conv21d_stats_occupancy": _OCC_SIG,
                                   "cstp_conv21d_fwd": _FWD_SIG,
-                                  "cstp_conv21d_fwd_occupancy": _OCC_SIG})
-
-
-def _lib_taps9():
-    return build.load("conv21d_taps9",
-                      {"cstp_conv21d_taps9_stats": _STATS_TAPS9_SIG,
-                       "cstp_conv21d_taps9_fwd": _FWD_TAPS9_SIG})
+                                  "cstp_conv21d_fwd_occupancy": _OCC_SIG,
+                                  "cstp_conv21d_taps9_stats": _STATS_SIG,
+                                  "cstp_conv21d_taps9_fwd": _FWD_SIG})
 
 
 def _check(name, t, dtype, shape, device):
@@ -339,20 +334,20 @@ def _check(name, t, dtype, shape, device):
                          "aligned")
 
 
-def _check_dims(cin, m, cout, k_step=32):
-    """Cin a multiple of the kernel's K step, M and Cout of 16."""
-    if cin % k_step or m % 16 or cout % 16:
-        raise ValueError(f"conv21d kernels need Cin % {k_step} == 0, "
+def _check_dims(cin, m, cout):
+    """Cin, M and Cout multiples of 16 (csrc/conv21d.cu shapes_ok)."""
+    if cin % 16 or m % 16 or cout % 16:
+        raise ValueError(f"conv21d kernels need Cin % 16 == 0, "
                          f"M % 16 == 0, Cout % 16 == 0; got {cin}, {m}, "
                          f"{cout}")
 
 
-def _check_input(x, ws, ws_shape, bn_groups, k_step, pad, cout=16):
+def _check_input(x, ws, ws_shape, bn_groups, pad, cout=16):
     """Checks shared by the four wrappers, before any launch: x (B, T,
     H + pad, W + pad, Cin) bf16 with whole BN groups, ws of ``ws_shape``.
     Returns the device and the unpadded (H, W)."""
     b, t, hp, wp, cin = x.shape
-    _check_dims(cin, ws.shape[-1], cout, k_step)
+    _check_dims(cin, ws.shape[-1], cout)
     if bn_groups <= 0 or b % bn_groups:
         raise ValueError(f"batch {b} not divisible by {bn_groups} BN groups")
     if hp <= pad or wp <= pad:
@@ -369,46 +364,49 @@ def _require_cuda(dev):
         raise ValueError(f"conv21d kernels take CUDA tensors, got {dev}")
 
 
-def _pass_a(fn, load, x, ws, ws_shape, bn_groups, k_step, pad,
-            partials=None, plan_args=()):
-    """Pass A on CUDA: -> gmean, gvar (G, M) f32. ``partials``: the rows of
-    the partial-sum scratch (default: one per frame); ``plan_args``: ints
-    the kernel takes after the shapes (K2's launch plan)."""
-    dev, hw = _check_input(x, ws, ws_shape, bn_groups, k_step, pad)
+def _pass_a(fn, x, ws, ws_shape, bn_groups, pad, plan):
+    """Pass A on CUDA, launched with ``plan`` (``plan_stats``'s by
+    default, for the unpadded shape): -> gmean, gvar (G, M) f32."""
+    dev, hw = _check_input(x, ws, ws_shape, bn_groups, pad)
+    b, t, cin, m = x.shape[0], x.shape[1], x.shape[-1], ws.shape[-1]
+    if plan is None:
+        plan = plan_stats(b, t, *hw, cin, m, bn_groups)
     _require_cuda(dev)
-    b, t, m = x.shape[0], x.shape[1], ws.shape[-1]
-    psum = torch.empty((partials or b * t, m), dtype=torch.float32,
+    psum = torch.empty((plan["partials"], m), dtype=torch.float32,
                        device=dev)
     psq = torch.empty_like(psum)
     gmean = torch.empty((bn_groups, m), dtype=torch.float32, device=dev)
     gvar = torch.empty_like(gmean)
-    err = getattr(load(), fn)(
+    err = getattr(_lib(), fn)(
         x.data_ptr(), ws.data_ptr(), psum.data_ptr(), psq.data_ptr(),
-        gmean.data_ptr(), gvar.data_ptr(), b, t, *hw, x.shape[-1], m,
-        bn_groups, *plan_args, torch.cuda.current_stream(dev).cuda_stream)
+        gmean.data_ptr(), gvar.data_ptr(), b, t, *hw, cin, m, bn_groups,
+        *(plan[k] for k in _STATS_PLAN),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, fn)
     return gmean, gvar
 
 
-def _pass_b(fn, load, x, ws, ws_shape, wt, gmean, gvar, scale, bias,
-            bn_groups, eps, k_step, pad, plan_args=()):
-    """Pass B on CUDA: -> (B, T, H, W, Cout) bf16. ``plan_args``: ints the
-    kernel takes after the shapes (K3's launch plan)."""
+def _pass_b(fn, x, ws, ws_shape, wt, gmean, gvar, scale, bias, bn_groups,
+            eps, pad, plan):
+    """Pass B on CUDA, launched with ``plan`` (``plan_fwd``'s by default,
+    for the unpadded shape): -> (B, T, H, W, Cout) bf16."""
     m, cout = ws.shape[-1], wt.shape[-1]
-    dev, hw = _check_input(x, ws, ws_shape, bn_groups, k_step, pad, cout)
+    dev, hw = _check_input(x, ws, ws_shape, bn_groups, pad, cout)
     rstd = torch.rsqrt(gvar + eps)
     _check("wt", wt, torch.bfloat16, (3, m, cout), dev)
     _check("gmean", gmean, torch.float32, (bn_groups, m), dev)
     _check("rstd", rstd, torch.float32, (bn_groups, m), dev)
     _check("scale", scale, torch.float32, (m,), dev)
     _check("bias", bias, torch.float32, (m,), dev)
-    _require_cuda(dev)
     b, t, cin = x.shape[0], x.shape[1], x.shape[-1]
+    if plan is None:
+        plan = plan_fwd(b, t, *hw, cin, m, cout)
+    _require_cuda(dev)
     out = torch.empty((b, t, *hw, cout), dtype=torch.bfloat16, device=dev)
-    err = getattr(load(), fn)(
+    err = getattr(_lib(), fn)(
         x.data_ptr(), ws.data_ptr(), wt.data_ptr(), gmean.data_ptr(),
         rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, t, *hw, cin, m, cout, bn_groups, *plan_args,
+        b, t, *hw, cin, m, cout, bn_groups, *(plan[k] for k in _FWD_PLAN),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, fn)
     return out
@@ -418,11 +416,8 @@ def run_stats(x, ws2, bn_groups: int, plan=None):
     """Pass A, tiling "clip" (K2), launched with ``plan`` (one of
     ``stats_plans``; by default ``plan_stats``'s): x (B, T, H, W, Cin)
     bf16, ws2 (9*Cin, M) bf16 -> gmean, gvar (G, M) f32."""
-    if plan is None:
-        plan = plan_stats(*x.shape, ws2.shape[-1], bn_groups)
-    out = _pass_a("cstp_conv21d_stats", _lib, x, ws2,
-                  (9 * x.shape[-1], ws2.shape[-1]), bn_groups, 32, 0,
-                  plan["partials"], tuple(plan[k] for k in _STATS_PLAN))
+    out = _pass_a("cstp_conv21d_stats", x, ws2,
+                  (9 * x.shape[-1], ws2.shape[-1]), bn_groups, 0, plan)
     launches["stats"] += 1
     return out
 
@@ -432,31 +427,32 @@ def run_fwd(x, ws2, wt, gmean, gvar, scale, bias, bn_groups: int,
     """Pass B, tiling "clip" (K3), launched with ``plan`` (one of
     ``fwd_plans``; by default ``plan_fwd``'s): -> (B, T, H, W, Cout)
     bf16."""
-    if plan is None:
-        plan = plan_fwd(*x.shape, ws2.shape[-1], wt.shape[-1])
-    out = _pass_b("cstp_conv21d_fwd", _lib, x, ws2,
+    out = _pass_b("cstp_conv21d_fwd", x, ws2,
                   (9 * x.shape[-1], ws2.shape[-1]), wt, gmean, gvar, scale,
-                  bias, bn_groups, eps, 32, 0,
-                  tuple(plan[k] for k in _FWD_PLAN))
+                  bias, bn_groups, eps, 0, plan)
     launches["fwd"] += 1
     return out
 
 
-def run_stats_taps9(x_pad, ws, bn_groups: int):
-    """Pass A, tiling "taps9" (K4a): x_pad (B, T, H+2, W+2, Cin) bf16, ws
+def run_stats_taps9(x_pad, ws, bn_groups: int, plan=None):
+    """Pass A, tiling "taps9" (K4a: K2's kernel on the padded input),
+    launched with ``plan`` (one of ``stats_plans`` of the unpadded shape;
+    by default ``plan_stats``'s): x_pad (B, T, H+2, W+2, Cin) bf16, ws
     (3, 3, Cin, M) bf16 -> gmean, gvar (G, M) f32."""
-    out = _pass_a("cstp_conv21d_taps9_stats", _lib_taps9, x_pad, ws,
-                  (3, 3, x_pad.shape[-1], ws.shape[-1]), bn_groups, 16, 2)
+    out = _pass_a("cstp_conv21d_taps9_stats", x_pad, ws,
+                  (3, 3, x_pad.shape[-1], ws.shape[-1]), bn_groups, 2, plan)
     launches["stats_taps9"] += 1
     return out
 
 
 def run_fwd_taps9(x_pad, ws, wt, gmean, gvar, scale, bias, bn_groups: int,
-                  eps: float = 1e-5):
-    """Pass B, tiling "taps9" (K4b): -> (B, T, H, W, Cout) bf16."""
-    out = _pass_b("cstp_conv21d_taps9_fwd", _lib_taps9, x_pad, ws,
+                  eps: float = 1e-5, plan=None):
+    """Pass B, tiling "taps9" (K4b: K3's kernel on the padded input),
+    launched with ``plan`` (one of ``fwd_plans`` of the unpadded shape; by
+    default ``plan_fwd``'s): -> (B, T, H, W, Cout) bf16."""
+    out = _pass_b("cstp_conv21d_taps9_fwd", x_pad, ws,
                   (3, 3, x_pad.shape[-1], ws.shape[-1]), wt, gmean, gvar,
-                  scale, bias, bn_groups, eps, 16, 2)
+                  scale, bias, bn_groups, eps, 2, plan)
     launches["fwd_taps9"] += 1
     return out
 

@@ -84,9 +84,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", default="both", choices=["fwd", "grad", "both"])
     ap.add_argument("--tiling", default="clip", choices=list(C.TILINGS),
                     help="kernel pair of the fused forward: clip = K2/K3 "
-                         "(K=9*Cin products, frames walked per clip); taps9 "
-                         "= K4a/K4b (nine K=Cin tap products, one block per "
-                         "output frame)")
+                         "(the unpadded input); taps9 = K4a/K4b (the same "
+                         "kernels on the input padded once)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a card only cpu runs")
     args = ap.parse_args(argv)
@@ -137,7 +136,7 @@ def main(argv=None) -> dict:
     if args.mode in ("fwd", "both") and dev.type == "cuda":
         # useful contraction FLOPs, as the JAX entry counts them: the plain
         # chain runs the spatial conv once, the fused forward twice (pass A
-        # and pass B; taps9's pass B recomputes more, which is not counted)
+        # and pass B)
         sp = 2 * b * t * hw * hw * (9 * args.cin) * args.mid
         tc = 2 * b * t * hw * hw * args.mid * args.cout * 3
         for name, flops in (("plain_fwd", sp + tc), ("fused_fwd", 2 * sp + tc)):

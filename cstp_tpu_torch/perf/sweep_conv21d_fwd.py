@@ -4,6 +4,11 @@ pretrain step (N=32 clips, two BN groups), on one CUDA GPU:
 
     python -m cstp_tpu_torch.perf.sweep_conv21d_fwd [--sites conv2,conv5]
     python -m cstp_tpu_torch.perf.sweep_conv21d_fwd --pass stats
+    python -m cstp_tpu_torch.perf.sweep_conv21d_fwd --tiling taps9 [...]
+
+With ``--tiling taps9`` it does the same for K4b / K4a
+(``cstp_conv21d_taps9_fwd`` / ``_stats``: the same kernels on the input
+padded once) under the same plans.
 
 For each site it prints every plan of ``fwd_plans`` (row tile P, cluster,
 chunks, stages), fastest first, with its ms (CUDA events, 10 launches
@@ -15,12 +20,16 @@ against ``plan_stats``'s; there the difference of the mean and variance is
 not 0 but a few f32 ulps, since a plan changes the order of the sums.
 Without a card it exits with an error.
 
-    python -m cstp_tpu_torch.perf.sweep_conv21d_fwd --hash
+    python -m cstp_tpu_torch.perf.sweep_conv21d_fwd --hash [--tiling taps9]
 
-prints instead a SHA-256 of K3's output under ``plan_fwd``'s plan at each
-site, on the inputs ``chip_smoke.py`` draws (generator seed 0, the same
-draws in the same order) with the plain statistics (cuDNN, deterministic),
-so two builds of K3 can be held to bitwise equal outputs.
+prints instead, at each site, a SHA-256 of K3's output under ``plan_fwd``'s
+plan, given the plain statistics (cuDNN, deterministic), and one of K2's
+statistics under ``plan_stats``'s plan, on the inputs ``chip_smoke.py``
+draws (generator seed 0, the same draws in the same order), so two builds
+of K2 and K3 can be held to bitwise equal outputs; with ``--tiling taps9``
+the same of K4b and K4a, which equal K3's and K2's where the two tilings
+agree bitwise. It calls only the wrappers' default plans, so it also runs
+against an older checkout of the package (``PYTHONPATH``).
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from cstp_tpu_torch.ops import conv21d as C
 SITES = [("conv2", 16, 56, 64, 144, 64), ("conv3", 8, 28, 128, 288, 128),
          ("conv4", 4, 14, 256, 576, 256), ("conv5", 2, 7, 512, 1152, 512)]
 N, GROUPS = 32, 2
+# the kernel pair of each tiling: (pass B, pass A)
+KERNELS = {"clip": ("K3", "K2"), "taps9": ("K4b", "K4a")}
 
 
 def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -53,7 +64,17 @@ def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sweep_site(site, t, hw, cin, m, cout, gen):
+def _passes(tiling, x, ws2):
+    """The tiling's kernel input and wrappers: (x or its padded copy, ws in
+    the wrapper's shape, pass A, pass B)."""
+    cin, m = x.shape[-1], ws2.shape[-1]
+    if tiling == "taps9":
+        return (C.pad_hw(x), ws2.reshape(3, 3, cin, m), C.run_stats_taps9,
+                C.run_fwd_taps9)
+    return x, ws2, C.run_stats, C.run_fwd
+
+
+def sweep_site(site, t, hw, cin, m, cout, gen, tiling="clip"):
     """[(ms, ms, plan, max abs diff from plan_fwd's output)], fastest
     first."""
     dev = gen.device
@@ -65,10 +86,11 @@ def sweep_site(site, t, hw, cin, m, cout, gen):
           * (3 * m) ** -0.5).to(torch.bfloat16)
     scale = 0.5 + torch.rand(m, generator=gen, device=dev)
     bias = 0.1 * torch.randn(m, generator=gen, device=dev)
-    gm, gv = C.run_stats(x, ws2, GROUPS)
+    xk, wsk, stats, fwd = _passes(tiling, x, ws2)
+    gm, gv = stats(xk, wsk, GROUPS)
 
     def run(plan=None):
-        return C.run_fwd(x, ws2, wt, gm, gv, scale, bias, GROUPS, plan=plan)
+        return fwd(xk, wsk, wt, gm, gv, scale, bias, GROUPS, plan=plan)
 
     ref = run()
     rows = []
@@ -79,7 +101,7 @@ def sweep_site(site, t, hw, cin, m, cout, gen):
     return sorted(rows, key=lambda r: min(r[:2]))
 
 
-def sweep_site_stats(t, hw, cin, m, gen):
+def sweep_site_stats(t, hw, cin, m, gen, tiling="clip"):
     """[(ms, ms, plan, max abs diff from plan_stats's mean and variance)],
     fastest first."""
     dev = gen.device
@@ -87,22 +109,45 @@ def sweep_site_stats(t, hw, cin, m, gen):
                     device=dev).to(torch.bfloat16)
     ws2 = (torch.randn((9 * cin, m), generator=gen, device=dev)
            * (9 * cin) ** -0.5).to(torch.bfloat16)
-    ref = torch.cat(C.run_stats(x, ws2, GROUPS))
+    xk, wsk, stats, _ = _passes(tiling, x, ws2)
+    ref = torch.cat(stats(xk, wsk, GROUPS))
     rows = []
     for plan in C.stats_plans(N, t, hw, hw, cin, m, GROUPS):
         def run(plan=plan):
-            return C.run_stats(x, ws2, GROUPS, plan=plan)
+            return stats(xk, wsk, GROUPS, plan=plan)
         diff = (torch.cat(run()) - ref).abs().max().item()
         rows.append((*(_time_ms(run) for _ in range(2)), plan, diff))
     return sorted(rows, key=lambda r: min(r[:2]))
 
 
-def hash_fwd(gen):
-    """{site: SHA-256 prefix of K3's bf16 output bytes}, on chip_smoke.py's
-    phase-2 inputs."""
-    dev = gen.device
+def _digest(*tensors):
+    """SHA-256 prefix of the tensors' bytes (bf16 as int16)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def hash_outputs(gen, tiling="clip"):
+    """{site: (SHA-256 prefix of pass B's bf16 output given the plain
+    statistics, of pass A's mean and variance, of the plain statistics)}
+    of the tiling's kernels (K3, K2 or K4b, K4a), on chip_smoke.py's
+    phase-2 inputs. cuDNN runs deterministic here (the plain statistics
+    are a cuDNN conv) and its flags are restored on return."""
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    try:
+        return _hash_sites(gen, tiling)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _hash_sites(gen, tiling):
+    dev = gen.device
     out = {}
     for site, t, hw, cin, m, cout in SITES:
         def rnd(*shape, std=1.0):
@@ -113,14 +158,12 @@ def hash_fwd(gen):
         scale = 0.5 + torch.rand(m, generator=gen, device=dev)
         bias = rnd(m, std=0.1)
         gm, gv = C.reference_stats(x, ws, GROUPS)
-        y = C.run_fwd(x, ws.to(torch.bfloat16).reshape(9 * cin, m),
-                      wt.to(torch.bfloat16), gm, gv, scale, bias, GROUPS)
-        digest = hashlib.sha256
-        out[site] = (digest(y.view(torch.int16).cpu().numpy().tobytes())
-                     .hexdigest()[:16],
-                     digest(torch.cat([gm, gv]).cpu().numpy().tobytes())
-                     .hexdigest()[:16])
-        del x, y
+        xk, wsk, stats, fwd = _passes(
+            tiling, x, ws.to(torch.bfloat16).reshape(9 * cin, m))
+        y = fwd(xk, wsk, wt.to(torch.bfloat16), gm, gv, scale, bias, GROUPS)
+        out[site] = (_digest(y), _digest(*stats(xk, wsk, GROUPS)),
+                     _digest(gm, gv))
+        del x, xk, y
         torch.cuda.empty_cache()
     return out
 
@@ -131,23 +174,31 @@ def main(argv=None):
                     help="comma-separated sites to sweep")
     ap.add_argument("--pass", dest="which", choices=("fwd", "stats"),
                     default="fwd", help="K3 (fwd) or K2 (stats)")
+    ap.add_argument("--tiling", choices=("clip", "taps9"), default="clip",
+                    help="K2/K3 (clip) or K4a/K4b (taps9, the same kernels "
+                         "on the padded input)")
     ap.add_argument("--hash", action="store_true",
-                    help="print a hash of K3's output per site instead")
+                    help="print hashes of pass B's output and pass A's "
+                         "statistics per site instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sweep_conv21d_fwd needs a CUDA GPU")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    kernel = "K3" if args.which == "fwd" else "K2"
-    print(f"{kernel} plan sweep, N={N}, {GROUPS} BN groups, on {card}")
+    k_fwd, k_stats = KERNELS[args.tiling]
+    kernel = k_fwd if args.which == "fwd" else k_stats
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.hash:
-        hashes = hash_fwd(gen)
-        for site, (h_out, h_stats) in hashes.items():
-            print(f"K3 output sha256 {site}: {h_out} (its input statistics "
-                  f"{h_stats})")
+        print(f"{k_fwd}/{k_stats} output hashes, N={N}, {GROUPS} BN groups, "
+              f"on {card}")
+        hashes = hash_outputs(gen, args.tiling)
+        for site, (h_out, h_stats, h_plain) in hashes.items():
+            print(f"{k_fwd} output sha256 {site}: {h_out} (its input "
+                  f"statistics {h_plain}); {k_stats} statistics sha256 "
+                  f"{site}: {h_stats}")
         return hashes
+    print(f"{kernel} plan sweep, N={N}, {GROUPS} BN groups, on {card}")
     wanted = args.sites.split(",")
     out = {}
     for site, t, hw, cin, m, cout in SITES:
@@ -155,7 +206,8 @@ def main(argv=None):
             continue
         if args.which == "stats":
             chosen = C.plan_stats(N, t, hw, hw, cin, m, GROUPS)
-            out[site] = rows = sweep_site_stats(t, hw, cin, m, gen)
+            out[site] = rows = sweep_site_stats(t, hw, cin, m, gen,
+                                                args.tiling)
             print(f"== {site}: T={t} {hw}x{hw} {cin}->{m}")
             for ms0, ms1, p, diff in rows:
                 mark = " <- plan_stats" if p == chosen else ""
@@ -168,7 +220,8 @@ def main(argv=None):
             torch.cuda.empty_cache()
             continue
         chosen = C.plan_fwd(N, t, hw, hw, cin, m, cout)
-        out[site] = rows = sweep_site(site, t, hw, cin, m, cout, gen)
+        out[site] = rows = sweep_site(site, t, hw, cin, m, cout, gen,
+                                      args.tiling)
         print(f"== {site}: T={t} {hw}x{hw} {cin}->{m}->{cout}")
         for ms0, ms1, p, diff in rows:
             mark = " <- plan_fwd" if p == chosen else ""

@@ -168,13 +168,68 @@ def test_wide_downscale_matches_jax_kernel(null):
 
 @pytest.mark.parametrize("case", ["sample_size", "out_dtype"])
 def test_wrapper_refuses_what_the_kernel_cannot_take(case):
-    """An S whose frame and buffers do not fit one block's shared memory,
-    and an integer output dtype, raise ValueError in the wrapper's checks,
-    which run before any CUDA call."""
+    """An S whose buffers do not fit one block's shared memory even with
+    the frame in device memory (S = 1200: 16 warps' temp rows alone take
+    230 KB), and an integer output dtype, raise ValueError in the
+    wrapper's checks, which run before any CUDA call."""
     if case == "sample_size":
-        with pytest.raises(ValueError, match=r"sample_size 224 .* bytes"):
-            A._check_cuda_inputs(*_check_args(1, 1, 256, 340), 224)
+        with pytest.raises(ValueError,
+                           match=r"sample_size 1200 .* bytes .* device"):
+            A._check_cuda_inputs(*_check_args(1, 1, 256, 340), 1200)
     else:
         with pytest.raises(ValueError, match="torch.int32"):
             A._check_cuda_inputs(*_check_args(1, 1, 128, 171), 112,
                                  out_dtype=torch.int32)
+
+
+def _smem_formula(s, w0, chunk, smem_frame):
+    """csrc/augment.cu's shared-memory sum, written out: the f32 frame
+    [S][3S + 1] where it is in shared memory, then the larger of the
+    resample's buffers and the later stages' (16 warps), each 128-aligned."""
+    a = lambda b: -(-b // 128) * 128  # noqa: E731
+    pitch = -(-3 * w0 // 16) * 16 + 32
+    resample = (a(24 * s) + a(2 * chunk * pitch) + a(12 * chunk * s)
+                + a(4 * s * chunk))
+    post = a(4 * 16 * 3 * s) + a(4 * 17) + a(4 * 15) + a(4 * s)
+    return (a(4 * s * (3 * s + 1)) if smem_frame else 0) + max(resample,
+                                                               post)
+
+
+@pytest.mark.parametrize("s,w0", [(112, 171), (224, 340), (224, 171),
+                                  (131, 171), (600, 1920)])
+def test_smem_formula_with_the_frame_in_either_place(s, w0):
+    """The Python copy of the kernel's shared-memory formula, with the frame
+    in shared memory and outside it, and its chunk height: the largest of
+    16..1 rows that fits 232,448 bytes."""
+    for smem_frame in (True, False):
+        for chunk in A._CHUNKS:
+            assert A.smem_bytes(s, w0, chunk, smem_frame) == _smem_formula(
+                s, w0, chunk, smem_frame)
+        fits = [c for c in A._CHUNKS
+                if _smem_formula(s, w0, c, smem_frame) <= 232448]
+        if fits:
+            assert A.chunk_rows(s, w0, smem_frame) == fits[0]
+        else:
+            with pytest.raises(ValueError, match=f"sample_size {s}"):
+                A.chunk_rows(s, w0, smem_frame)
+    assert A.frame_bytes(s) == _smem_formula(s, w0, 1, True) - \
+        _smem_formula(s, w0, 1, False)
+
+
+def test_wrapper_puts_a_frame_too_large_for_shared_memory_in_device_memory():
+    """S = 224 from native 256x340 frames (I3D's sample size): the f32
+    frame (603 KB) cannot be in shared memory, so the wrapper takes the
+    device-memory frame, raises nothing, and walks the clips in launches
+    whose frames fit SCRATCH_BYTES; S = 112 keeps its frame in shared
+    memory and the chunk height it had."""
+    n, t = 64, 16
+    assert A._check_cuda_inputs(*_check_args(n, t, 256, 340), 224) == 16
+    chunk, per_launch = A.launch_plan(n, t, 224, 340)
+    assert A.smem_bytes(224, 340, 1, smem_frame=True) > A._MAX_SMEM
+    assert chunk == A.chunk_rows(224, 340, smem_frame=False) == 16
+    assert A.smem_bytes(224, 340, chunk, smem_frame=False) <= A._MAX_SMEM
+    assert 1 <= per_launch < n
+    assert per_launch * t * A.frame_bytes(224) <= A.SCRATCH_BYTES
+    assert (per_launch + 1) * t * A.frame_bytes(224) > A.SCRATCH_BYTES
+    assert A.launch_plan(2, t, 224, 340) == (16, 2)
+    assert A.launch_plan(n, t, 112, 171) == (A.chunk_rows(112, 171), 0)

@@ -176,7 +176,7 @@ def test_running_update_uses_biased_group_variance():
 def test_kernel_wrappers_refuse_shapes_they_do_not_take():
     """The wrappers check shapes before anything reaches a kernel."""
     x = torch.zeros((2, 2, 4, 4, 8), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Cin % 32"):
+    with pytest.raises(ValueError, match="Cin % 16"):
         C.run_stats(x, torch.zeros((72, 16), dtype=torch.bfloat16), 1)
     with pytest.raises(ValueError, match="ws"):
         C.fused_st_conv_cuda(x, torch.zeros(1, 3, 8, 16), torch.zeros(3, 16, 8),
@@ -426,7 +426,7 @@ def test_stats_plan_at_the_sites():
 
 @pytest.mark.parametrize("shape,msg", [
     ((2, 1, 5, 5, 32, 24, 1), "M % 16"),
-    ((2, 1, 5, 5, 16, 16, 1), "Cin % 32"),
+    ((2, 1, 5, 5, 8, 16, 1), "Cin % 16"),
     ((3, 1, 5, 5, 32, 16, 2), "BN groups"),
     ((2, 0, 5, 5, 32, 16, 1), "BN groups"),
     ((2 ** 15, 16, 64, 64, 32, 16, 1), "32 bits"),
@@ -456,3 +456,81 @@ def test_stats_plan_sweep_needs_a_card():
         pytest.skip("a card is present; the sweep would run")
     with pytest.raises(SystemExit, match="CUDA"):
         sweep.main(["--pass", "stats", "--sites", "conv5"])
+
+
+# (name, N, T, H=W, Cin, M, Cout, G): the shapes K4a/K4b take on the card
+# (tests/test_torch_port_cuda.py: frames smaller than a tile, tiles crossing
+# image rows, T = 1, Cin = 16) and the conv-block benchmark's default
+_TAPS9_SHAPES = [
+    ("frame_below_tile_t1", 4, 1, 5, 32, 16, 16, 2),
+    ("cin16_rows_cross", 2, 3, 9, 16, 48, 32, 2),
+    ("cin16_3x3", 2, 2, 3, 16, 16, 16, 2),
+    ("bench", 128, 16, 56, 64, 144, 64, 2),
+]
+
+
+@pytest.mark.parametrize("shape", _TAPS9_SHAPES,
+                         ids=[s[0] for s in _TAPS9_SHAPES])
+def test_taps9_plans_fit_the_unpadded_shape(shape):
+    """K4a/K4b run K2's and K3's kernels with the plans of the unpadded
+    shape: plan_stats gives a plan that fits and covers every group row
+    once, and plan_fwd one that fits and covers every (clip, pixel) row
+    once."""
+    _, n, t, hw, cin, m, cout, groups = shape
+    ps = C.plan_stats(n, t, hw, hw, cin, m, groups)
+    assert ps in C.stats_plans(n, t, hw, hw, cin, m, groups)
+    assert C.STATS_PER_SM * (ps["smem"] + 1024) <= C.SMEM_SM
+    rows = n // groups * t * hw * hw
+    pos = 0
+    for g, start, stop, _ in _stats_blocks(ps, n, t, hw, hw, m, groups):
+        assert start == pos < stop <= (g + 1) * rows
+        pos = stop
+    assert pos == n * t * hw * hw
+    pf = C.plan_fwd(n, t, hw, hw, cin, m, cout)
+    assert pf["smem"] <= C.SMEM_MAX
+    assert pf["blocks"] * pf["P"] >= n * hw * hw > (pf["blocks"] - 1) * pf["P"]
+
+
+class _Recorder:
+    """A stand-in for the conv21d library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.calls.append((fn, args))
+            return 0
+        return call
+
+
+def test_taps9_wrappers_launch_the_conv21d_library_with_the_plans(monkeypatch):
+    """run_stats_taps9 / run_fwd_taps9 call cstp_conv21d_taps9_* of the
+    conv21d library with x_pad, the unpadded H and W and the plans of the
+    unpadded shape, one int per field of the C signature (here with the
+    library and the CUDA checks stubbed, so that CPU tensors get as far as
+    the call)."""
+    from types import SimpleNamespace
+
+    lib = _Recorder()
+    monkeypatch.setattr(C, "_lib", lambda: lib)
+    monkeypatch.setattr(C, "_require_cuda", lambda dev: None)
+    monkeypatch.setattr(C.torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    x_pad, ws, wt, gm, gv, scale, bias, groups = _taps9_args(groups=2)
+    before = dict(C.launches)
+    C.run_stats_taps9(x_pad, ws, groups)
+    C.run_fwd_taps9(x_pad, ws, wt, gm, gv, scale, bias, groups)
+    assert [fn for fn, _ in lib.calls] == ["cstp_conv21d_taps9_stats",
+                                           "cstp_conv21d_taps9_fwd"]
+    (_, a), (_, b) = lib.calls
+    assert len(a) == len(C._STATS_SIG[0]) and len(b) == len(C._FWD_SIG[0])
+    ps = C.plan_stats(2, 2, 4, 4, 16, 16, 2)
+    pf = C.plan_fwd(2, 2, 4, 4, 16, 16, 16)
+    assert a[0] == x_pad.data_ptr() and b[0] == x_pad.data_ptr()
+    assert a[6:-1] == (2, 2, 4, 4, 16, 16, 2,
+                       *(ps[k] for k in C._STATS_PLAN))
+    assert b[8:-1] == (2, 2, 4, 4, 16, 16, 16, 2,
+                       *(pf[k] for k in C._FWD_PLAN))
+    assert {k: C.launches[k] - before[k] for k in C.launches} == {
+        "stats": 0, "fwd": 0, "stats_taps9": 1, "fwd_taps9": 1}

@@ -75,9 +75,26 @@ def test_conv21d_kernels_match_plain_version(dev, shape, tiling):
                                    (2, 2, 3, 16, 16, 16)])
 def test_conv21d_taps9_edge_shapes(dev, shape):
     """K4a/K4b where a frame is smaller than a pixel tile, a tile crosses
-    image rows, and T = 1 leaves only the centre temporal tap."""
+    image rows, T = 1 leaves only the centre temporal tap, and Cin = 16."""
     rng = np.random.default_rng(3)
     _check_fused("taps9", *_conv_inputs(dev, rng, *shape))
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 28, 128, 288, 128),
+                                   (4, 3, 9, 32, 48, 32),
+                                   (2, 3, 9, 16, 48, 32)])
+def test_conv21d_taps9_is_bitwise_the_clip_pair(dev, shape):
+    """K4a/K4b are K2/K3 with the padded A source: the same K order and
+    the same order of every sum, so on the same x the two tilings give
+    bitwise the same statistics and output (conv3's widths, where K3 runs a
+    cluster of 2; a ragged shape with a tile across image rows; and Cin =
+    16, where the last K step is 16 rows)."""
+    rng = np.random.default_rng(7)
+    x, ws, wt, scale, bias = _conv_inputs(dev, rng, *shape)
+    clip = C.fused_st_conv(x, ws, wt, scale, bias, 2, 1e-5, "clip")
+    taps9 = C.fused_st_conv(x, ws, wt, scale, bias, 2, 1e-5, "taps9")
+    for a, b in zip(clip, taps9):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", [
@@ -259,28 +276,52 @@ def test_augment_kernel_is_bitwise_deterministic(dev):
 
 
 def test_augment_kernel_refuses_what_it_cannot_take(dev):
-    """An S too large for one block's shared memory and an integer dtype
-    raise ValueError before any launch; the Python copy of the kernel's
-    shared-memory formula agrees with the kernel's own."""
+    """An S whose buffers do not fit one block's shared memory even beside
+    a device-memory frame, and an integer dtype, raise ValueError before
+    any launch; the Python copy of the kernel's shared-memory formula
+    agrees with the kernel's own, with the frame in either place."""
     rng = np.random.default_rng(11)
     args = _aug_args(dev, rng, 2, 2, 128, 171, True)
     before = A.launches
-    with pytest.raises(ValueError, match="sample_size 224"):
-        A.fused_augment_clips(*args, sample_size=224)
+    with pytest.raises(ValueError, match="sample_size 1200"):
+        A.fused_augment_clips(*args, sample_size=1200)
     with pytest.raises(ValueError, match="int32"):
         A.fused_augment_clips(*args, sample_size=112, out_dtype=torch.int32)
     assert A.launches == before
     lib = A._lib()
     for s, w0 in ((112, 171), (112, 400), (112, 1920), (128, 171),
-                  (130, 171), (140, 171), (32, 150)):
-        c = lib.cstp_augment_chunk_rows(s, w0)
-        try:
-            assert c == A.chunk_rows(s, w0)
-        except ValueError:
-            assert c == 0
-            continue
-        assert lib.cstp_augment_smem_bytes(s, w0, c) == A.smem_bytes(s, w0,
-                                                                    c)
+                  (130, 171), (140, 171), (32, 150), (224, 340),
+                  (1200, 340)):
+        assert lib.cstp_augment_frame_bytes(s) == A.frame_bytes(s)
+        for smem_frame in (True, False):
+            c = lib.cstp_augment_chunk_rows(s, w0, int(smem_frame))
+            try:
+                assert c == A.chunk_rows(s, w0, smem_frame)
+            except ValueError:
+                assert c == 0
+                continue
+            assert lib.cstp_augment_smem_bytes(
+                s, w0, c, int(smem_frame)) == A.smem_bytes(s, w0, c,
+                                                           smem_frame)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_augment_kernel_at_sample_size_224(dev, out_dtype):
+    """K5 at I3D's S = 224 from native 256x340 frames, whose f32 frame does
+    not fit shared memory: the device-memory frame, at AUG_TOL. With a
+    scratch of one clip per launch too, so the clips are walked in several
+    launches."""
+    rng = np.random.default_rng(12)
+    args = _aug_args(dev, rng, 3, 4, 256, 340, False)
+    assert A.launch_plan(3, 4, 224, 340)[1] == 3
+    got = _check_augment(args, 224, out_dtype)
+    scratch_bytes = A.SCRATCH_BYTES
+    try:
+        A.SCRATCH_BYTES = 4 * A.frame_bytes(224)
+        assert A.launch_plan(3, 4, 224, 340)[1] == 1
+        assert torch.equal(got, _check_augment(args, 224, out_dtype))
+    finally:
+        A.SCRATCH_BYTES = scratch_bytes
 
 
 def test_augment_kernel_on_a_float32_pretrain_step(dev):
