@@ -36,7 +36,29 @@ Phases:
   5. the conv-block benchmark entry (``cstp_tpu_torch.perf.bench_conv21d``)
      at its default shapes, once per tiling: the taps9 run's fused forward
      must launch K4a/K4b and not K2/K3, and the two tilings' outputs must
-     agree on one seeded input.
+     agree on one seeded input;
+  6. K2/K3 against the plain chain at the four sites for every shape the
+     later phases give them: the finetune step's (one tower, one BN group
+     of 64 clips; its times summed over the step's 5 + 5 launches), a
+     grad_accum=2 microbatch's (16 clips in 2 BN groups of 8) and
+     bench_step pretrain's (128 clips in 2 BN groups of 64);
+  7. the finetune step (``train/finetune.py``: R(2+1)D depth 1, batch 64,
+     101 classes, bf16, fused_conv=1, ft_all): one warm-up and three timed
+     steps, exactly 5 + 5 K2/K3 launches a step and no augment launch; then
+     one ft_fc step from the same state, which must leave the backbone's
+     parameters bitwise as they were and move the head and the backbone's
+     BN running statistics;
+  8. the eval and test entry points on that model (eval step with a masked
+     tail, window logits over one synthetic video's sliding windows,
+     features, retrieval), each timed, none launching a kernel;
+  9. one finetune step from the same weights and pre-augmented batch with
+     fused_conv 1 and 0 in bf16 and 0 in float32 (the arbiter), held to
+     phase 4's rule, then each one's step time;
+  10. the pretrain step with grad_accum=2 at per-view batch 16: 20/20/1
+     launches a step, finite losses;
+  11. the step benchmark entry (``cstp_tpu_torch.perf.bench_step``) once
+     per mode (pretrain, ft, eval) at bench.py's shape, kernels on, 2 timed
+     steps, with each mode's launches per step checked.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``), the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -47,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -131,11 +154,12 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def _hold_pair(tiling, x, ws, wt, scale, bias):
-    """One tiling's kernel pair against the plain version on one input.
-    Returns per pass its max abs error, kernel ms, and the operations and
-    bytes the pass must do: one spatial conv, plus the temporal conv in pass
-    B, each input read once and each output written once."""
+def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G):
+    """One tiling's kernel pair against the plain version on one input in
+    ``groups`` BN groups. Returns per pass its max abs error, kernel ms,
+    and the operations and bytes the pass must do: one spatial conv, plus
+    the temporal conv in pass B, each input read once and each output
+    written once."""
     from cstp_tpu_torch.ops import conv21d as C
 
     cin, m = ws.shape[2:]
@@ -149,13 +173,13 @@ def _hold_pair(tiling, x, ws, wt, scale, bias):
         wsk = ws.to(torch.bfloat16).contiguous()
         stats, fwd = C.run_stats_taps9, C.run_fwd_taps9
     wtb = wt.to(torch.bfloat16).contiguous()
-    gm, gv = stats(xk, wsk, G)
-    gm2, gv2 = stats(xk, wsk, G)
+    gm, gv = stats(xk, wsk, groups)
+    gm2, gv2 = stats(xk, wsk, groups)
     bitwise = torch.equal(gm, gm2) and torch.equal(gv, gv2)
-    out = fwd(xk, wsk, wtb, gm, gv, scale, bias, G)
-    pm, pv = C.reference_stats(x, ws, G)
+    out = fwd(xk, wsk, wtb, gm, gv, scale, bias, groups)
+    pm, pv = C.reference_stats(x, ws, groups)
     # pass B given the same statistics, so its check isolates pass B
-    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, G)
+    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, groups)
     torch.cuda.synchronize()
     e_stats = max((gm - pm).abs().max().item(), (gv - pv).abs().max().item())
     e_fwd = (out.float() - pout.float()).abs().max().item()
@@ -168,12 +192,12 @@ def _hold_pair(tiling, x, ws, wt, scale, bias):
           and torch.allclose(out.float(), pout.float(), rtol=0.1, atol=0.05))
     npix = x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3]
     ops_s = 2.0 * npix * 9 * cin * m
-    bytes_s = xk.numel() * 2 + wsk.numel() * 2 + 2 * G * m * 4
+    bytes_s = xk.numel() * 2 + wsk.numel() * 2 + 2 * groups * m * 4
     ops_f = ops_s + 2.0 * npix * 3 * m * cout
     bytes_f = (xk.numel() * 2 + wsk.numel() * 2 + wtb.numel() * 2
-               + 2 * G * m * 4 + 2 * m * 4 + npix * cout * 2)
-    ms_s = time_ms(lambda: stats(xk, wsk, G))
-    ms_f = time_ms(lambda: fwd(xk, wsk, wtb, gm, gv, scale, bias, G))
+               + 2 * groups * m * 4 + 2 * m * 4 + npix * cout * 2)
+    ms_s = time_ms(lambda: stats(xk, wsk, groups))
+    ms_f = time_ms(lambda: fwd(xk, wsk, wtb, gm, gv, scale, bias, groups))
     return ok, bitwise, {"stats": (ms_s, e_stats, ops_s, bytes_s),
                          "fwd": (ms_f, e_fwd, ops_f, bytes_f)}
 
@@ -548,22 +572,15 @@ def _slice_batch(dev, seed: int):
 
 
 def _launch_counts():
-    from cstp_tpu_torch.ops import augment as A
-    from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.ops import launch_counts
 
-    return {"conv21d_stats": C.launches["stats"],
-            "conv21d_fwd": C.launches["fwd"],
-            "conv21d_taps9_stats": C.launches["stats_taps9"],
-            "conv21d_taps9_fwd": C.launches["fwd_taps9"],
-            "augment": A.launches}
+    return launch_counts()
 
 
 def _reset_launch_counts():
-    from cstp_tpu_torch.ops import augment as A
-    from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.ops import reset_launch_counts
 
-    C.launches.update(dict.fromkeys(C.launches, 0))
-    A.launches = 0
+    reset_launch_counts()
 
 
 def phase_slice(dev, card: str, steps: int = 3):
@@ -663,10 +680,10 @@ def phase_parity(dev, timed_steps: int = 2):
     pallas_augment=on), the plain bf16 configuration (fused_conv=0,
     pallas_augment=off) and the plain configuration in float32, which
     arbitrates. Then the step time of each."""
+    from cstp_tpu_torch.train import optim
     from cstp_tpu_torch.train.pretrain import (
         create_pretrain_state,
         make_pretrain_step,
-        trainable,
     )
 
     batch = _slice_batch(dev, seed=4)
@@ -675,12 +692,13 @@ def phase_parity(dev, timed_steps: int = 2):
                       ("plain", _slice_config(False)),
                       ("f32", _slice_config_plain_f32())):
         model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
-        p0 = {n: p.detach().clone() for n, p in trainable(model).items()}
+        p0 = {n: p.detach().clone()
+              for n, p in optim.trainable(model).items()}
         step = make_pretrain_step(model, tx, cfg)
         gen = torch.Generator(device=dev).manual_seed(5)
         state, m = step(state, gen, batch, cfg.learning_rate)
         update = torch.cat([(p.detach() - p0[n]).flatten().double()
-                            for n, p in trainable(model).items()])
+                            for n, p in optim.trainable(model).items()])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(timed_steps):
@@ -763,6 +781,391 @@ def phase_bench(dev):
     torch.cuda.empty_cache()
     return runs["taps9"][1]
 
+# ------------------------------------------------------------ finetune/test
+
+B_FT = 64               # finetune batch: one BN group of 64 clips
+N_FT_CLASSES = 101      # UCF101
+FT_LAUNCHES = 5         # fused sites of one tower: conv2 x 2, conv3..conv5
+
+
+def _ft_config(fused: int = 1, dtype: str = "bfloat16", **over):
+    from cstp_tpu_torch.config import Config
+
+    kw = dict(model_name="r21d", model_depth=1, sample_duration=T,
+              sample_size=S, batch_size=B_FT, compute_dtype=dtype,
+              fused_conv=fused, task="ft_all",
+              n_finetune_classes=N_FT_CLASSES)
+    kw.update(over)
+    return Config(**kw).finalize()
+
+
+def _ft_batch(dev, seed: int):
+    n = B_FT
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return dict(frames=torch.randint(0, 256, (n, T, H0, W0, 3), generator=gen,
+                                     device=dev, dtype=torch.uint8),
+                labels=torch.randint(0, N_FT_CLASSES, (n,), generator=gen,
+                                     device=dev))
+
+
+BENCH_STEP_BS = 64      # bench_step's default per-chip batch (bench.py's)
+# K2/K3's inputs on the paths this file drives after phase 2, as (path,
+# clips N at a site, BN groups): the finetune step (and bench_step --mode
+# ft), one group of B_FT; a grad_accum=2 pretrain microbatch, B_VIEW / 2
+# clips per view in each of 2 groups; bench_step --mode pretrain, per-view
+# batch 64 in 2 groups
+PATH_SHAPES = [("finetune", B_FT, 1),
+               ("grad_accum=2 microbatch", B_VIEW, G),
+               ("bench_step pretrain", 2 * BENCH_STEP_BS, G)]
+
+
+def phase_conv21d_paths(dev):
+    """K2/K3 against the plain chain at the four sites for every shape of
+    PATH_SHAPES, with phase 2's tolerances and K2's bitwise repeat. The
+    finetune shape's times (kernel and plain) are summed over the finetune
+    step's launches."""
+    from cstp_tpu_torch.ops import conv21d as C
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tot = {p: dict(ms=0.0, plain_ms=0.0, bound=0.0) for p in ("stats", "fwd")}
+    for path, n, groups in PATH_SHAPES:
+        for site, t, hw, cin, m, cout, calls in SITES:
+            def rnd(*shape, std=1.0):
+                return torch.randn(shape, generator=gen, device=dev) * std
+            x = rnd(n, t, hw, hw, cin).to(torch.bfloat16)
+            ws = rnd(3, 3, cin, m, std=(9 * cin) ** -0.5)
+            wt = rnd(3, m, cout, std=(3 * m) ** -0.5)
+            scale = 0.5 + torch.rand(m, generator=gen, device=dev)
+            bias = rnd(m, std=0.1)
+            ok, bitwise, passes = _hold_pair("clip", x, ws, wt, scale, bias,
+                                             groups)
+            pms = {}
+            if path == "finetune":
+                gm, gv = C.reference_stats(x, ws, 1)
+                pms = {"stats": time_ms(lambda: C.reference_stats(x, ws, 1)),
+                       "fwd": time_ms(lambda: C.reference_chain(
+                           x, ws, wt, scale, bias, gm, gv, 1))}
+                del gm, gv
+            parts = []
+            for p, (kms, err, ops, nb) in passes.items():
+                b, _ = bound_ms(ops, nb, PEAK_BF16)
+                part = f"{p} err {err:.3e} {kms:.3f} ms (bound {b:.3f}"
+                if pms:
+                    tot[p]["ms"] += calls * kms
+                    tot[p]["plain_ms"] += calls * pms[p]
+                    tot[p]["bound"] += calls * b
+                    part += f", plain {pms[p]:.3f}"
+                parts.append(part + ")")
+            log(f"[path-conv21d] {path}: {site} N={n} T={t} {hw}x{hw} "
+                f"{groups} BN group(s): " + " | ".join(parts)
+                + f" | K2 bitwise on repeat: {bitwise}")
+            if not (ok and bitwise):
+                raise SystemExit(f"K2/K3 disagree with their plain version "
+                                 f"at {site}, {n} clips in {groups} BN "
+                                 f"group(s) ({path})")
+            del x
+            torch.cuda.empty_cache()
+    k2, k3 = tot["stats"], tot["fwd"]
+    log(f"[path-conv21d] per finetune step ({FT_LAUNCHES} launches each):"
+        f" K2 {k2['ms']:.3f} ms (plain {k2['plain_ms']:.3f}, bound "
+        f"{k2['bound']:.3f}), K3 {k3['ms']:.3f} ms (plain "
+        f"{k3['plain_ms']:.3f}, bound {k3['bound']:.3f})")
+    return tot
+
+
+def _snapshot(model, buffers: bool = False):
+    named = model.named_buffers() if buffers else model.named_parameters()
+    return {n: t.detach().clone() for n, t in named}
+
+
+def phase_finetune(dev, card: str, steps: int = 3):
+    """The finetune step through its entry points, kernels on: R(2+1)D
+    depth 1, 16 x 112^2, bf16, batch B_FT, 101 classes, fused_conv=1,
+    task ft_all; one warm-up, ``steps`` timed steps, 5 + 5 K2/K3 launches
+    per step and no augment launch. Then one ft_fc step from the same
+    state: the backbone's parameters stay bitwise, the head and the
+    backbone's BN running statistics move. Returns the model and state."""
+    from cstp_tpu_torch.train import finetune as ft
+    from cstp_tpu_torch.train import optim
+    from cstp_tpu_torch.train.pretrain import TrainState
+
+    cfg = _ft_config()
+    model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                                device=dev)
+    step = ft.make_finetune_step(model, tx, cfg)
+    batch = _ft_batch(dev, seed=10)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    before = _snapshot(model)
+    state, m = step(state, gen, batch, cfg.learning_rate)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, gen, batch, cfg.learning_rate)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    counts = _launch_counts()
+    losses = torch.stack(losses).float().cpu()
+    moved = max((p.detach() - before[n]).abs().max().item()
+                for n, p in model.named_parameters())
+    log(f"[finetune] r21d depth 1, {T}x{S}^2 bf16, batch {B_FT}, "
+        f"{N_FT_CLASSES} classes, fused_conv=1, ft_all: {steps} steps, "
+        f"{dt * 1e3:.1f} ms/step, {B_FT / dt:.1f} clips/s ({card}); losses "
+        f"{[round(v, 4) for v in losses.tolist()]}; max |param change| "
+        f"{moved:.3e}; launches {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    want = {"conv21d_stats": FT_LAUNCHES * steps,
+            "conv21d_fwd": FT_LAUNCHES * steps, "conv21d_taps9_stats": 0,
+            "conv21d_taps9_fwd": 0, "augment": 0}
+    if counts != want:
+        raise SystemExit(f"finetune launch counts {counts}, expected {want}")
+    if not bool(torch.isfinite(losses).all()) or moved <= 0.0:
+        raise SystemExit("the finetune step gave non-finite losses or left "
+                         "the parameters unchanged")
+
+    cfg_fc = _ft_config(task="ft_fc")
+    tx_fc = ft.finetune_optimizer(cfg_fc, model)
+    state_fc = TrainState(state.step, model,
+                          tx_fc.init(optim.trainable(model)))
+    step_fc = ft.make_finetune_step(model, tx_fc, cfg_fc)
+    params0, stats0 = _snapshot(model), _snapshot(model, buffers=True)
+    _reset_launch_counts()
+    state_fc, m = step_fc(state_fc, gen, batch, cfg.learning_rate)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    params1, stats1 = _snapshot(model), _snapshot(model, buffers=True)
+    backbone_same = all(torch.equal(params1[n], params0[n]) for n in params0
+                        if n.startswith("online_net."))
+    head_moved = all(not torch.equal(params1[n], params0[n]) for n in params0
+                     if n.startswith("classify."))
+    stats_moved = all(not torch.equal(stats1[n], stats0[n]) for n in stats0
+                      if n.startswith("online_net."))
+    log(f"[finetune] one ft_fc step from the same state: loss "
+        f"{float(m['loss']):.4f}; backbone parameters bitwise unchanged: "
+        f"{backbone_same}; every classify parameter moved: {head_moved}; "
+        f"every backbone BN statistic moved: {stats_moved}; launches {counts}")
+    if not (backbone_same and head_moved and stats_moved
+            and math.isfinite(float(m["loss"]))
+            and counts["conv21d_stats"] == FT_LAUNCHES
+            and counts["conv21d_fwd"] == FT_LAUNCHES):
+        raise SystemExit("the ft_fc step trained the frozen backbone, left "
+                         "the head or the BN statistics still, or launched "
+                         "other kernels than the forward's")
+    return dict(step_ms=dt * 1e3, clips_per_s=B_FT / dt, model=model,
+                state=state_fc)
+
+
+def phase_finetune_parity(dev, timed_steps: int = 2):
+    """One finetune step from the same weights and the same pre-augmented
+    batch through fused_conv=1 (bf16), fused_conv=0 (bf16) and fused_conv=0
+    in float32, which arbitrates; PERF.md section 2's rule. Then each one's
+    step time on the same batch."""
+    from cstp_tpu_torch.augment.pipeline import finetune_train_augment_batch
+    from cstp_tpu_torch.train import finetune as ft
+
+    raw = _ft_batch(dev, seed=12)
+    clips = finetune_train_augment_batch(
+        torch.Generator(device=dev).manual_seed(13), raw["frames"],
+        sample_size=S)
+    batch = dict(clips=clips, labels=raw["labels"])
+    del raw
+    runs = {}
+    for name, cfg in (("kernel", _ft_config(1)), ("plain", _ft_config(0)),
+                      ("f32", _ft_config(0, "float32"))):
+        model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                                    device=dev)
+        p0 = _snapshot(model)
+        step = ft.make_preaugmented_finetune_step(model, tx, cfg)
+        state, m = step(state, batch, cfg.learning_rate)
+        update = torch.cat([(p.detach() - p0[n]).flatten().double()
+                            for n, p in model.named_parameters()])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            state, _ = step(state, batch, cfg.learning_rate)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / timed_steps * 1e3
+        runs[name] = ({k: float(v) for k, v in m.items()}, update, ms)
+        del model, state, tx, step, p0
+        torch.cuda.empty_cache()
+    mk, mp, mf = (runs[n][0] for n in ("kernel", "plain", "f32"))
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            runs[a][1], runs[b][1], dim=0))
+
+    cos_k, cos_p = cos("kernel", "f32"), cos("plain", "f32")
+    loss_err = abs(mk["loss"] - mp["loss"]) / max(abs(mp["loss"]), 1e-6)
+    acc_err = abs(mk["acc"] - mp["acc"])
+    # the tolerances of phase 4 (PERF.md section 2): loss within 2e-2
+    # relative, accuracy within 0.125, the kernel update's cosine to the
+    # float32 update within 0.05 of the plain bf16 update's
+    log(f"[ft-parity] kernel vs plain bf16 finetune step: loss "
+        f"{mk['loss']:.5f} vs {mp['loss']:.5f} (float32 {mf['loss']:.5f}); "
+        f"rel loss err {loss_err:.3e} (tol 2e-2); accuracy diff "
+        f"{acc_err:.4f} (tol 0.125); update cosine to the float32 update: "
+        f"kernel {cos_k:.5f}, plain {cos_p:.5f} (tol kernel >= plain - 0.05);"
+        f" kernel vs plain {cos('kernel', 'plain'):.5f}")
+    log(f"[ft-parity] finetune step ms ({timed_steps} steps after the first, "
+        f"pre-augmented batch): kernel {runs['kernel'][2]:.1f}, plain bf16 "
+        f"{runs['plain'][2]:.1f}, plain float32 {runs['f32'][2]:.1f}")
+    if not (loss_err <= 2e-2 and acc_err <= 0.125 and cos_k >= cos_p - 0.05):
+        raise SystemExit("the kernel finetune step and the plain one "
+                         "disagree")
+    return dict(loss_err=loss_err, cos_k=cos_k, cos_p=cos_p,
+                step_ms={n: r[2] for n, r in runs.items()})
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_eval(dev, model, state, n_frames: int = 300, pb_rate: int = 4):
+    """The eval and test entry points on the finetuned model, none of which
+    may launch a kernel: ``make_eval_step`` on a batch of B_FT with a tail
+    of masked rows; ``make_logits_step`` over the sliding windows of one
+    synthetic video of ``n_frames`` frames (unpadded: eager PyTorch has no
+    compiled program for ``pad_windows_to_bucket`` to serve); the features
+    step on the same windows and on a batch of B_FT clips, and
+    ``retrieval_recalls`` of half of those against the other half. Each is
+    timed (host clock, synchronised, one call after one warm-up)."""
+    from cstp_tpu_torch.train import finetune as ft
+
+    cfg = _ft_config()
+    eval_step = ft.make_eval_step(model, cfg)
+    logits_step = ft.make_logits_step(model, cfg)
+    feats_step = ft.make_features_step(model, cfg)
+    batch = _ft_batch(dev, seed=14)
+    n_real = B_FT * 7 // 8
+    batch["mask"] = (torch.arange(B_FT, device=dev) < n_real).float()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    video = torch.randint(0, 256, (n_frames, H0, W0, 3), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    idx = ft.sliding_window_indices(n_frames, T, pb_rate)
+    n_win = idx.shape[0]
+    windows = video[torch.from_numpy(idx).to(dev).long()]
+    eval_step(state, batch)                                   # warm-up
+    logits_step(state, windows)
+    feats_step(state, windows)
+    _reset_launch_counts()
+    out, ms_eval = _timed(lambda: eval_step(state, batch))
+    logits, ms_logits = _timed(lambda: logits_step(state, windows))
+    wfeat, ms_wfeat = _timed(lambda: feats_step(state, windows))
+    feats, ms_feat = _timed(lambda: feats_step(state, batch["frames"]))
+    labels = batch["labels"].cpu().numpy() % 8
+    f = feats.cpu().numpy()
+    half = B_FT // 2
+    recalls, ms_ret = _timed(lambda: ft.retrieval_recalls(
+        f[:half], labels[:half], f[half:], labels[half:], device=dev))
+    counts = _launch_counts()
+    video_pred = int(logits.mean(0).argmax())
+    norms = torch.linalg.vector_norm(torch.cat([wfeat, feats]), dim=-1)
+    log(f"[eval] eval step, batch {B_FT} ({n_real} unmasked): {ms_eval:.1f} "
+        f"ms, loss {float(out['loss']):.4f}, acc {float(out['acc']):.4f}, "
+        f"count {float(out['count']):.0f}")
+    log(f"[eval] test: {n_frames}-frame video, pb_rate {pb_rate}: {n_win} "
+        f"windows (unpadded), logits step {ms_logits:.1f} "
+        f"ms, video class {video_pred}; features step {ms_wfeat:.1f} ms "
+        f"({n_win} windows), {ms_feat:.1f} ms ({B_FT} clips); retrieval "
+        f"{half} x {half}: {ms_ret:.1f} ms, {recalls}; launches {counts}")
+    ok = (all(v == 0 for v in counts.values())
+          and out["logits"].shape == (B_FT, N_FT_CLASSES)
+          and float(out["count"]) == n_real
+          and bool(torch.isfinite(out["logits"]).all())
+          and logits.shape == (n_win, N_FT_CLASSES)
+          and bool(torch.isfinite(logits).all())
+          and wfeat.shape == (n_win, 512) and feats.shape == (B_FT, 512)
+          and bool(((norms - 1).abs() < 1e-3).all())
+          and all(0.0 <= v <= 1.0 for v in recalls.values()))
+    if not ok:
+        raise SystemExit("the eval/test phase launched a kernel or gave "
+                         "output of the wrong shape or non-finite values")
+    return dict(eval_ms=ms_eval, logits_ms=ms_logits, features_ms=ms_feat,
+                retrieval_ms=ms_ret)
+
+
+def phase_grad_accum(dev, card: str, steps: int = 2):
+    """The pretrain step with grad_accum=2 at per-view batch B_VIEW (two
+    microbatches of B_VIEW / 2), kernels on: 20/20/1 launches per step and
+    finite losses."""
+    import dataclasses
+
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    cfg = dataclasses.replace(_slice_config(fused=True), grad_accum=2)
+    cfg.finalize()
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    step = make_pretrain_step(model, tx, cfg)
+    batch = _slice_batch(dev, seed=16)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    state, m = step(state, gen, batch, cfg.learning_rate)     # warm-up
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, gen, batch, cfg.learning_rate)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    counts = _launch_counts()
+    losses = torch.stack(losses).float().cpu()
+    log(f"[grad-accum] pretrain step, per-view batch {B_VIEW}, grad_accum 2 "
+        f"(microbatches of {B_VIEW // 2}), kernels on: {dt * 1e3:.1f} "
+        f"ms/step ({card}); losses {[round(v, 4) for v in losses.tolist()]};"
+        f" launches {counts}")
+    want = {"conv21d_stats": 20 * steps, "conv21d_fwd": 20 * steps,
+            "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
+            "augment": steps}
+    if counts != want or not bool(torch.isfinite(losses).all()):
+        raise SystemExit(f"grad-accum launch counts {counts} (expected "
+                         f"{want}) or non-finite losses")
+    del model, state, tx, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=dt * 1e3)
+
+
+# mode -> (bench_step flags, expected launches per step)
+BENCH_STEP_RUNS = {
+    "pretrain": (["--fused-conv", "1", "--pallas-augment", "on"],
+                 {"conv21d_stats": 10, "conv21d_fwd": 10, "augment": 1}),
+    "ft": (["--fused-conv", "1"],
+           {"conv21d_stats": FT_LAUNCHES, "conv21d_fwd": FT_LAUNCHES}),
+    "eval": (["--fused-conv", "1"], {}),
+}
+
+
+def phase_bench_step(dev):
+    """The step benchmark entry (``cstp_tpu_torch.perf.bench_step``) once
+    per mode at bench.py's default shape (per-chip batch 64), kernels on,
+    2 timed steps after 1 warm-up; each run's launches per step must be the
+    mode's."""
+    from cstp_tpu_torch.perf import bench_step
+
+    out = {}
+    for mode, (flags, want) in BENCH_STEP_RUNS.items():
+        r = bench_step.main(["--mode", mode, "--steps", "2", "--warmup", "1",
+                             *flags])
+        torch.cuda.empty_cache()
+        got = {k: v for k, v in r["launches_per_step"].items() if v}
+        log(f"[bench-step] {mode}: {r['step_ms']:.1f} ms/step, peak "
+            f"{r['peak_mem_gib']:.1f} GiB, launches per step {got}")
+        if got != want or not math.isfinite(r["loss"]):
+            raise SystemExit(f"bench_step --mode {mode} launched {got} per "
+                             f"step (expected {want}) or lost its loss")
+        out[mode] = r
+    return out
+
 
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
@@ -825,6 +1228,14 @@ def main(argv=None) -> int:
         bench_counts = phase_bench(dev)
         for k in ("conv21d_taps9_stats", "conv21d_taps9_fwd"):
             counts[k] = bench_counts[k]
+        phase_conv21d_paths(dev)
+        ft = phase_finetune(dev, card)
+        phase_eval(dev, ft["model"], ft["state"])
+        del ft
+        torch.cuda.empty_cache()
+        phase_finetune_parity(dev)
+        phase_grad_accum(dev, card)
+        phase_bench_step(dev)
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the CSTP pretrain step (R(2+1)D, loss_com).
+"""PyTorch/CUDA port of CSTP (R(2+1)D): the pretrain step (loss_com), the
+finetune, eval and video-level test steps, checkpoints and meters.
 
 Public layouts follow the JAX package: NDHWC activations and
 ``(B, T, H0, W0, 3)`` uint8 frames. Entry points run on CUDA unless the

@@ -1,4 +1,15 @@
-"""The pretrain augmentation programs (``cstp_tpu/augment/pipeline.py``).
+"""The augmentation programs (``cstp_tpu/augment/pipeline.py``).
+
+Finetune and eval (plain PyTorch ops, as the JAX package computes them
+outside any kernel):
+
+* :func:`sample_finetune_aug_params` + :func:`apply_finetune_aug`
+  (:func:`finetune_train_augment_batch`): per clip a random-sized crop box,
+  a colour jitter switched on with p 0.3, tf normalisation;
+* :func:`eval_augment_batch`: one deterministic scale-and-centre box for
+  the batch.
+
+Pretrain:
 
 uint8 frames -> pair crop boxes and the spatial-overlap label
 (``pretext/boxes.py``) -> crop/resize, rot90, small rotation, jitter, gray,
@@ -13,17 +24,24 @@ parameters, so from one generator state they see the same draws:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from cstp_tpu_torch.augment import ops
 from cstp_tpu_torch.augment.params import (
+    JITTER_STRENGTH,
     ClipAugParams,
     concat_params,
     sample_clip_aug_params,
 )
-from cstp_tpu_torch.pretext.boxes import sample_pair_boxes
+from cstp_tpu_torch.pretext.boxes import (
+    sample_first_crop_box,
+    sample_pair_boxes,
+)
+
+FT_JITTER_PROB = 0.3
+EVAL_SHORT_SIDE = 128   # the eval transform's short side before the crop
 
 
 def apply_clip_aug(clip: torch.Tensor, p: ClipAugParams) -> torch.Tensor:
@@ -107,3 +125,58 @@ def pretrain_augment_batch(gen, frames1, frames2, rot1, rot2,
     v1, v2 = apply_pretrain_aug(frames1, frames2, rot1, rot2, sampled,
                                 sample_size, norm_method)
     return v1, v2, sampled[2]
+
+
+class FinetuneAugParams(NamedTuple):
+    box: torch.Tensor       # (B, 4) f32 (x, y, w, h) crop boxes in pixels
+    jit_on: torch.Tensor    # (B,) bool: colour jitter applied
+    factors: torch.Tensor   # (B, 4) f32 brightness/contrast/saturation/hue
+
+
+def sample_finetune_aug_params(gen: torch.Generator, batch: int, h0: int,
+                               w0: int, device) -> FinetuneAugParams:
+    """Per clip: the first crop box (``bottom_area=0.2``), the jitter-on
+    flag (p 0.3) and four jitter factors (``JITTER_STRENGTH``)."""
+    full = torch.ones(batch, device=device)
+    box = sample_first_crop_box(gen, full * float(w0), full * float(h0),
+                                bottom_area=0.2)
+    jit_on = torch.rand((batch,), generator=gen, device=device) < FT_JITTER_PROB
+    u = torch.rand((batch, 4), generator=gen, device=device)
+    b, c, s, h = JITTER_STRENGTH
+    lo = torch.tensor([1.0 - b, 1.0 - c, 1.0 - s, -h], device=device)
+    hi = torch.tensor([1.0 + b, 1.0 + c, 1.0 + s, h], device=device)
+    return FinetuneAugParams(box, jit_on, lo + (hi - lo) * u)
+
+
+def apply_finetune_aug(frames: torch.Tensor, p: FinetuneAugParams,
+                       sample_size: int = 112, norm_method: str = "tf"):
+    """Crop/resize each clip to its box, jitter where on, normalise:
+    ``(B, T, H0, W0, 3)`` uint8 -> ``(B, T, S, S, 3)`` float32."""
+    clip = ops.crop_resize_clip(frames.float(), p.box, sample_size)
+    jittered = ops.color_jitter_clip(clip, p.factors)
+    clip = torch.where(p.jit_on.view(-1, 1, 1, 1, 1), jittered, clip)
+    return ops.normalize_clip(clip, norm_method)
+
+
+def finetune_train_augment_batch(gen: torch.Generator, frames: torch.Tensor,
+                                 sample_size: int = 112,
+                                 norm_method: str = "tf") -> torch.Tensor:
+    """Sample, then apply: ``(B, T, H0, W0, 3)`` uint8 -> ``(B, T, S, S, 3)``
+    float32 in [-1, 1] ('tf')."""
+    b, _, h0, w0, _ = frames.shape
+    p = sample_finetune_aug_params(gen, b, h0, w0, frames.device)
+    return apply_finetune_aug(frames, p, sample_size, norm_method)
+
+
+def eval_augment_batch(frames: torch.Tensor, sample_size: int = 112,
+                       norm_method: str = "tf") -> torch.Tensor:
+    """Scale the short side to ``EVAL_SHORT_SIDE``, centre crop
+    ``sample_size``, normalise, as one box ``side = S / EVAL_SHORT_SIDE *
+    min(H0, W0)`` centred in the frame for the whole batch.
+    Deterministic."""
+    b, _, h0, w0, _ = frames.shape
+    side = sample_size / EVAL_SHORT_SIDE * min(h0, w0)
+    box = torch.tensor([(w0 - side) / 2.0, (h0 - side) / 2.0, side, side],
+                       dtype=torch.float32, device=frames.device)
+    clip = ops.crop_resize_clip(frames.float(), box.expand(b, 4), sample_size)
+    return ops.normalize_clip(clip, norm_method)

@@ -167,10 +167,14 @@ class Config:
         self.check_ported()
         return self
 
+    @property
+    def arch(self) -> str:
+        """The checkpoint's arch tag, ``{model_name}-{model_depth}``."""
+        return f"{self.model_name}-{self.model_depth}"
+
     def check_ported(self) -> None:
         """Refuse flag values whose code paths the port does not have."""
         unported = {
-            "grad_accum > 1": self.grad_accum > 1,
             "concat_views 0": not self.concat_views,
             "remat": bool(self.remat),
             "remat_policy": bool(self.remat_policy),
@@ -187,6 +191,10 @@ class Config:
             "dampening != 0": self.dampening != 0.0,
             "nesterov": bool(self.nesterov),
             "double_bias_lr": bool(self.double_bias_lr),
+            "legacy_pace": bool(self.legacy_pace),
+            "i3d_conv_head": bool(self.i3d_conv_head),
+            "tf_i3d_ckpt": bool(self.tf_i3d_ckpt),
+            "task resume": self.task == "resume",
         }
         bad = [k for k, v in unported.items() if v]
         if bad:

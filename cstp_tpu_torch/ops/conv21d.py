@@ -514,15 +514,20 @@ class FusedSTConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out, _d_gmean, _d_gvar):
-        inputs = [t.detach().requires_grad_(True)
-                  for t in ctx.saved_tensors]
+        # gradients only for the inputs that need one (a frozen finetune
+        # prefix leaves ws, wt, scale and bias without)
+        need = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
             x, ws, wt, scale, bias = inputs
             gm, gv = reference_stats(x, ws, ctx.bn_groups, ctx.dtype)
             out = reference_chain(x, ws, wt, scale, bias, gm, gv,
                                   ctx.bn_groups, ctx.eps, ctx.dtype)
-        grads = torch.autograd.grad(out, inputs, d_out.to(out.dtype),
-                                    allow_unused=True)
+        wanted = [t for t, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad(out, wanted, d_out.to(out.dtype),
+                                       allow_unused=True))
+        grads = [next(got) if n else None for n in need]
         grads = [None if g is None else g.to(t.dtype)
                  for g, t in zip(grads, ctx.saved_tensors)]
         return (*grads, None, None, None)

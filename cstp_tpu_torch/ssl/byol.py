@@ -1,4 +1,5 @@
-"""BYOL engine: online/target towers, EMA momentum update, pretext heads.
+"""BYOL engine: online/target towers, EMA momentum update, pretext heads,
+and the finetune/test model.
 
 The port of ``cstp_tpu/ssl/byol.py`` for the concatenated-views call
 pattern (``concat_views=1``): both views run through each tower as one 2B
@@ -6,6 +7,11 @@ batch, with the towers', predictor's, ``pb_cls``' and ``rotate_cls``' BN
 groups doubled so the statistics stay per view. The target tower runs
 under ``torch.no_grad()`` (the JAX package's ``stop_gradient``); it still
 runs in train mode, so its BN running statistics update, as in JAX.
+
+``CSTPClassify`` is the finetune/test model: the online backbone, then the
+``linear`` head (L2-normalise -> ``cls_bn`` -> float32 ``classify``) or the
+``mlp`` head (``model_name`` ``*_classify``: Linear-BN-ReLU-Linear on the
+raw feature).
 """
 
 from __future__ import annotations
@@ -17,7 +23,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from cstp_tpu_torch.models import backbone_spec, make_backbone
-from cstp_tpu_torch.models.layers import PretextHead, MLPHead, l2_normalize
+from cstp_tpu_torch.models.layers import (
+    BatchNorm,
+    Dense,
+    MLPHead,
+    PretextHead,
+    l2_normalize,
+)
 
 
 def byol_regression_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -27,9 +39,13 @@ def byol_regression_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return 2.0 - 2.0 * (x * y).sum(dim=-1)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross entropy with integer labels."""
-    return F.cross_entropy(logits.float(), labels.long())
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  reduce: bool = True) -> torch.Tensor:
+    """Softmax cross entropy with integer labels: the mean, or with
+    ``reduce=False`` the per-sample ``(B,)`` losses (the mask-weighted
+    eval sums)."""
+    return F.cross_entropy(logits.float(), labels.long(),
+                           reduction="mean" if reduce else "none")
 
 
 @torch.no_grad()
@@ -88,3 +104,49 @@ class CSTPPretrain(nn.Module):
         out = (self.overlap_spa(feat_cat, train),
                self.overlap_tem(feat_cat, train), pb1, pb2, rot1, rot2)
         return loss.mean(), out
+
+
+class CSTPClassify(nn.Module):
+    """Finetune/test model (the JAX package's ``CSTPClassify``).
+
+    ``head_style`` 'linear': L2-normalise -> ``cls_bn`` (running statistics
+    in eval; left out with ``use_cls_bn=False``) -> float32 ``classify``
+    (glorot kernel, torch-default bias). 'mlp': ``classify`` is
+    Linear-BN-ReLU-Linear on the raw feature. ``fused_conv`` reaches the
+    backbone's stride-1 (2+1)D sites, which fuse in train mode only.
+    """
+
+    def __init__(self, backbone: str = "r21d", depth: int = 1,
+                 num_classes: int = 101, use_cls_bn: bool = True,
+                 head_style: str = "linear", dtype=torch.bfloat16,
+                 bn_groups: int = 1, fused_conv: bool = False,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        spec = self.spec = backbone_spec(backbone, depth)
+        self.head_style = head_style
+        self.online_net = make_backbone(backbone, depth, dtype=dtype,
+                                        proj_flag=False, bn_groups=bn_groups,
+                                        fused_conv=fused_conv, gen=gen)
+        f = spec.feat_dim
+        if head_style == "mlp":
+            self.classify = MLPHead(f, f, num_classes, dtype, bn_groups, gen)
+        elif head_style == "linear":
+            self.cls_bn = BatchNorm(f, bn_groups, gen) if use_cls_bn else None
+            self.classify = Dense(f, num_classes, torch.float32, gen)
+        else:
+            raise NotImplementedError(
+                f"cstp_tpu_torch ports the 'linear' and 'mlp' finetune heads,"
+                f" not {head_style!r}")
+
+    def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The backbone's float32 feature vector (before the head)."""
+        return self.online_net(x, train).float()
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        feat = self.online_net(x, train)
+        if self.head_style == "mlp":
+            return self.classify(feat, train).float()
+        feat = l2_normalize(feat)
+        if self.cls_bn is not None:
+            feat = self.cls_bn(feat, train)
+        return self.classify(feat.float())

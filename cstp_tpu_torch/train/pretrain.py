@@ -8,7 +8,12 @@ the JAX package:
   path, as the JAX package resolves "auto");
 * **train**: EMA of the target tower (parameters only, before the forward
   pass), online and target forwards, the 7-term loss, backward, global-norm
-  clip 18 and the SGD update.
+  clip 18 and the SGD update. With ``grad_accum > 1`` the batch is split
+  into contiguous microbatches, each run forward and backward in turn
+  (only one microbatch's activations live at a time, each normalised by its
+  own batch statistics, the BN running statistics advancing once per
+  microbatch, in order); the gradients are summed, divided by the count,
+  and take one update.
 
 PyTorch state is mutable: a step updates ``state`` (parameters, BN running
 statistics, momentum trace) in place and returns it with the metrics. The
@@ -31,6 +36,7 @@ from cstp_tpu_torch.augment.pipeline import (
 from cstp_tpu_torch.config import Config
 from cstp_tpu_torch.ssl.byol import CSTPPretrain, cross_entropy, ema_update
 from cstp_tpu_torch.train import optim
+from cstp_tpu_torch.train.accum import accumulated_grads, microbatches
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -87,25 +93,20 @@ def create_pretrain_model(config: Config, seed: int = 0,
     return model.to(dev)
 
 
-def trainable(model: CSTPPretrain) -> Dict[str, torch.Tensor]:
-    """Every parameter but the target tower's (requires_grad=False in the
-    reference; frozen in the JAX optimizer)."""
-    return {n: p for n, p in model.named_parameters()
-            if not n.startswith("target_net.")}
-
-
 def create_pretrain_state(config: Config, seed: int = 0, device=None
                           ) -> Tuple[CSTPPretrain, TrainState, optim.SGD]:
+    """The model, its state and the SGD, which trains every parameter but
+    the target tower's (requires_grad=False in the reference; frozen in the
+    JAX optimizer)."""
     model = create_pretrain_model(config, seed, device)
-    for p in model.target_net.parameters():
-        p.requires_grad_(False)
+    optim.freeze(model, ("target_net",))
     tx = optim.make_optimizer(
         config.optimizer, momentum=config.momentum,
         weight_decay=config.weight_decay, dampening=config.dampening,
         nesterov=config.nesterov,
         clip_grad_norm=(config.clip_grad_value if config.clip_grad_norm
                         else None))
-    state = TrainState(0, model, tx.init(trainable(model)))
+    state = TrainState(0, model, tx.init(optim.trainable(model)))
     return model, state, tx
 
 
@@ -163,15 +164,15 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.SGD,
             norm_method=config.norm_method)
         return v1.to(dtype), v2.to(dtype), spa
 
+    accum = config.grad_accum
+
     def train(state: TrainState, views_labels, lr):
         m = state.model
         ema_update(m.target_net, m.online_net, momentum)
-        params = trainable(m)
-        total, metrics = _loss_and_metrics(m, views_labels, w)
-        grads = torch.autograd.grad(total, list(params.values()),
-                                    allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(params.items(), grads)}
+        params = optim.trainable(m)
+        grads, metrics = accumulated_grads(
+            lambda mb: _loss_and_metrics(m, mb, w),
+            microbatches(views_labels, accum), params)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
         optim.apply_lr(params, updates, lr)
         state.step += 1

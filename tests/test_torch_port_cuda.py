@@ -40,19 +40,20 @@ def _conv_inputs(dev, rng, n, t, hw, cin, m, cout):
     return x, ws, wt, scale, bias
 
 
-def _check_fused(tiling, x, ws, wt, scale, bias):
-    """One fused forward launches the tiling's pair once each (and no other
-    kernel) and matches the plain version. Tolerances as
-    tests/test_conv21d.py: the spatial conv's bf16 rounding can differ by an
-    ulp with the summation order."""
+def _check_fused(tiling, x, ws, wt, scale, bias, groups=2):
+    """One fused forward in ``groups`` BN groups launches the tiling's pair
+    once each (and no other kernel) and matches the plain version.
+    Tolerances as tests/test_conv21d.py: the spatial conv's bf16 rounding
+    can differ by an ulp with the summation order."""
     keys = {"clip": ("stats", "fwd"),
             "taps9": ("stats_taps9", "fwd_taps9")}[tiling]
     before = dict(C.launches)
-    out, gm, gv = C.fused_st_conv(x, ws, wt, scale, bias, 2, 1e-5, tiling)
+    out, gm, gv = C.fused_st_conv(x, ws, wt, scale, bias, groups, 1e-5,
+                                  tiling)
     assert {k: C.launches[k] - before[k] for k in C.launches} == {
         k: int(k in keys) for k in C.launches}
-    pm, pv = C.reference_stats(x, ws, 2)
-    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, 2)
+    pm, pv = C.reference_stats(x, ws, groups)
+    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, groups)
     torch.testing.assert_close(gm, pm, rtol=1e-2, atol=1e-3)
     torch.testing.assert_close(gv, pv, rtol=1e-2, atol=1e-3)
     torch.testing.assert_close(out.float(), pout.float(), rtol=0.1,
@@ -68,6 +69,32 @@ def test_conv21d_kernels_match_plain_version(dev, shape, tiling):
     two BN groups."""
     rng = np.random.default_rng(0)
     _check_fused(tiling, *_conv_inputs(dev, rng, *shape))
+
+
+@pytest.mark.parametrize("site", [(16, 56, 64, 144, 64),
+                                  (8, 28, 128, 288, 128),
+                                  (4, 14, 256, 576, 256),
+                                  (2, 7, 512, 1152, 512)])
+@pytest.mark.parametrize("n", [60, 64])
+def test_conv21d_kernels_in_one_bn_group_of_a_finetune_batch(dev, n, site):
+    """K2/K3 at the finetune step's four site shapes, in one BN group of 60
+    clips (the canonical UCF finetune batch) and of 64 (bench.py's)."""
+    rng = np.random.default_rng(8)
+    _check_fused("clip", *_conv_inputs(dev, rng, n, *site), groups=1)
+
+
+@pytest.mark.parametrize("site", [(16, 56, 64, 144, 64),
+                                  (8, 28, 128, 288, 128),
+                                  (4, 14, 256, 576, 256),
+                                  (2, 7, 512, 1152, 512)])
+@pytest.mark.parametrize("n", [16, 128])
+def test_conv21d_kernels_in_two_bn_groups_of_other_pretrain_batches(
+        dev, n, site):
+    """K2/K3 at the pretrain step's four site shapes, in two BN groups: of
+    8 clips (a grad_accum=2 microbatch at per-view batch 16) and of 64
+    (bench_step's pretrain mode, per-view batch 64)."""
+    rng = np.random.default_rng(10)
+    _check_fused("clip", *_conv_inputs(dev, rng, n, *site), groups=2)
 
 
 @pytest.mark.parametrize("shape", [(4, 1, 5, 32, 16, 16),
@@ -357,3 +384,43 @@ def test_augment_kernel_on_a_float32_pretrain_step(dev):
     state, metrics = step(state, gen, batch, cfg.learning_rate)
     assert A.launches == before + 1
     assert torch.isfinite(metrics["loss"]).item()
+
+
+def test_finetune_step_with_a_frozen_prefix_on_the_card(dev):
+    """One ft_begin_index=3 finetune step with fused sites on the card: 5 +
+    5 K2/K3 launches (the frozen stages still run their forward in train
+    mode), the frozen leaves (stem, cls_bn's affine parameters, conv2,
+    conv3) bitwise unchanged, every trainable leaf moved, the frozen
+    stages' BN running statistics moved, a finite loss."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.train import finetune as ft
+    from cstp_tpu_torch.train.optim import is_frozen
+
+    b, t, s = 8, 4, 32
+    cfg = Config(model_name="r21d", model_depth=1, sample_duration=t,
+                 sample_size=s, batch_size=b, compute_dtype="bfloat16",
+                 fused_conv=1, task="scratch", ft_begin_index=3).finalize()
+    model, state, tx = ft.create_finetune_state(cfg, 11, seed=0, device=dev)
+    frozen = ft.finetune_frozen_prefixes(cfg)
+    step = ft.make_finetune_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = dict(frames=torch.randint(0, 256, (b, t, 40, 48, 3),
+                                      generator=gen, device=dev,
+                                      dtype=torch.uint8),
+                 labels=torch.randint(0, 11, (b,), generator=gen,
+                                      device=dev))
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    s0 = {n: v.clone() for n, v in model.named_buffers()}
+    before = dict(C.launches)
+    state, metrics = step(state, gen, batch, cfg.learning_rate)
+    assert C.launches["stats"] - before["stats"] == 5
+    assert C.launches["fwd"] - before["fwd"] == 5
+    assert torch.isfinite(metrics["loss"]).item()
+    for n, p in model.named_parameters():
+        if is_frozen(n, frozen):
+            assert torch.equal(p, p0[n]), n
+        else:
+            assert not torch.equal(p, p0[n]), n
+    assert not torch.equal(model.online_net.conv2.block1.conv1.bn.mean,
+                           s0["online_net.conv2.block1.conv1.bn.mean"])
+    assert not torch.equal(model.cls_bn.var, s0["cls_bn.var"])

@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15, out.stdout
+    assert int(n) >= 29, out.stdout
     assert bad == "[]", bad
 
 
@@ -85,9 +85,12 @@ def test_entry_points_refuse_missing_cuda():
     than running on the CPU. ``device="cpu"`` is honoured."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
+    import numpy as np
+
     from cstp_tpu_torch import resolve_device
     from cstp_tpu_torch.config import Config
-    from cstp_tpu_torch.perf import bench_conv21d
+    from cstp_tpu_torch.perf import bench_conv21d, bench_step
+    from cstp_tpu_torch.train import finetune
     from cstp_tpu_torch.train.pretrain import create_pretrain_state
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -96,13 +99,26 @@ def test_entry_points_refuse_missing_cuda():
                  batch_size=2).finalize()
     with pytest.raises(RuntimeError, match="CUDA"):
         create_pretrain_state(cfg)
+    ft_cfg = Config(model_name="r21d", sample_duration=4, sample_size=32,
+                    batch_size=2, task="ft_all").finalize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.create_finetune_state(ft_cfg, 5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.create_classify_model(ft_cfg, 5)
+    feats = np.eye(4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.retrieval_recalls(feats, np.arange(4), feats, np.arange(4))
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_conv21d.main(["--b", "2", "--t", "2", "--hw", "4"])
+    for mode in ("pretrain", "ft", "eval"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_step.main(["--mode", mode, "--per-chip-bs", "2"])
     assert resolve_device("cpu").type == "cpu"
 
 
 @pytest.mark.parametrize("flag", [
-    dict(grad_accum=2, batch_size=4), dict(concat_views=0), dict(remat=True),
+    dict(legacy_pace=1), dict(task="resume"), dict(i3d_conv_head=1),
+    dict(tf_i3d_ckpt="i3d.ckpt"), dict(concat_views=0), dict(remat=True),
     dict(remat_policy="bnrelu"), dict(s2d_stem=True), dict(t_fold=1),
     dict(quant="int8"), dict(mid_round=128), dict(ntxent_weight=0.5),
     dict(shard_opt_state=1), dict(model_name="s3d"),
