@@ -58,7 +58,16 @@ Phases:
      launches a step, finite losses;
   11. the step benchmark entry (``cstp_tpu_torch.perf.bench_step``) once
      per mode (pretrain, ft, eval) at bench.py's shape, kernels on, 2 timed
-     steps, with each mode's launches per step checked.
+     steps, with each mode's launches per step checked;
+  12. cli: the recipe through the port's four CLIs (``main(argv)`` of
+     ``cstp_tpu_torch.cli.main_byol/main_ft/main_test/main_retrieval``) on
+     CSTPack files of synthetic frames it writes into a temporary
+     directory: pretrain at per-view 16 (2 epochs of 6 steps), a
+     ``--task resume``, finetune with validation, test, retrieval, a
+     pretrain epoch at per-view 64 and one from a frame directory of
+     JPEGs; the kernels' launches per loop step, finite CSV rows, the
+     checkpoints, the printed accuracy and non-decreasing R@k checked; the
+     loop's step and data-wait ms printed beside phases 3 and 11.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``), the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -583,8 +592,9 @@ def _reset_launch_counts():
     reset_launch_counts()
 
 
-def phase_slice(dev, card: str, steps: int = 3):
-    """The pretrain step through its entry points, kernels on."""
+def phase_slice(dev, card: str, steps: int = 3, profile: bool = True):
+    """The pretrain step through its entry points, kernels on; then one
+    step under the profiler (``profile``)."""
     from cstp_tpu_torch.train.pretrain import (
         create_pretrain_state,
         make_pretrain_step,
@@ -625,7 +635,8 @@ def phase_slice(dev, card: str, steps: int = 3):
     if not bool(torch.isfinite(losses).all()) or moved <= 0.0:
         raise SystemExit("the pretrain step gave non-finite losses or left "
                          "the online parameters unchanged")
-    profile_step(lambda: step(state, gen, batch, cfg.learning_rate))
+    if profile:
+        profile_step(lambda: step(state, gen, batch, cfg.learning_rate))
     return dict(counts=counts, step_ms=dt * 1e3, pairs_per_s=B_VIEW / dt)
 
 
@@ -1167,6 +1178,362 @@ def phase_bench_step(dev):
     return out
 
 
+# the cli phase: CSTPack files of raw 128x171 frames from the port's
+# SyntheticVideoDataset (seed 0), 64 frames a video
+CLI_FRAMES = 64
+CLI_STEPS = 6           # pretrain steps per epoch
+CLI_TRAIN = CLI_STEPS * BENCH_STEP_BS   # enough videos for per-view 64
+CLI_EVAL = 32           # val and test videos
+CLI_FT_STEPS = 4
+CLI_JPEG_STEPS = 3      # the frame-dir JPEG epoch, per-view B_VIEW
+
+
+def _cli_data(root: str):
+    """Train, val and test CSTPack files (``build_dataset`` finds val and
+    test by replacing "train" in the train file's path) and a frame
+    directory of JPEGs with its split list; returns their paths."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from cstp_tpu_torch.data.packed import PackedWriter
+    from cstp_tpu_torch.data.synthetic import SyntheticVideoDataset
+
+    ds = SyntheticVideoDataset(n_videos=CLI_TRAIN + 2 * CLI_EVAL,
+                               n_classes=N_FT_CLASSES, ingest_hw=(H0, W0),
+                               seed=0)
+
+    def frames(i):
+        return ds.read_frames(i, range(CLI_FRAMES))
+
+    paths = {k: os.path.join(root, f"{k}.cstp")
+             for k in ("train", "val", "test")}
+    spans = {"train": range(CLI_TRAIN),
+             "val": range(CLI_TRAIN, CLI_TRAIN + CLI_EVAL),
+             "test": range(CLI_TRAIN + CLI_EVAL, CLI_TRAIN + 2 * CLI_EVAL)}
+    with ThreadPoolExecutor(8) as pool:
+        for split, ids in spans.items():
+            w = PackedWriter(paths[split])
+            for lo in range(0, len(ids), 32):
+                chunk = ids[lo:lo + 32]
+                for i, f in zip(chunk, pool.map(frames, chunk)):
+                    w.add_video_raw(f"v{i:04d}", ds.video_meta(i)[1], f)
+            w.close()
+
+        jpeg_dir, ann = os.path.join(root, "frames"), os.path.join(root, "ann")
+        n_jpeg = CLI_JPEG_STEPS * B_VIEW
+        os.makedirs(ann)
+
+        def write_jpegs(i):
+            d = os.path.join(jpeg_dir, f"v{i:04d}")
+            os.makedirs(d)
+            for k, f in enumerate(frames(i)):
+                Image.fromarray(f).save(os.path.join(d, "%05d.jpg" % (k + 1)),
+                                        quality=90)
+
+        list(pool.map(write_jpegs, range(n_jpeg)))
+    with open(os.path.join(ann, "trainlist01_nframe.txt"), "w") as f:
+        for i in range(n_jpeg):
+            f.write(f"v{i:04d}.avi {ds.video_meta(i)[1]} {CLI_FRAMES}\n")
+    return paths["train"], jpeg_dir, ann
+
+
+def _cli_run(main, argv, want_per_step=None, steps=0):
+    """One CLI ``main(argv)`` with its printed lines echoed; checks the
+    kernels' launches over the run against ``want_per_step`` x ``steps``.
+    Returns ``(result, printed text)``."""
+    import contextlib
+    import io
+
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[cli]   {line}")
+    if want_per_step is not None:
+        want = {k: want_per_step.get(k, 0) * steps for k in counts}
+        if counts != want:
+            raise SystemExit(f"cli launches {counts}, expected {want}")
+    return out, text
+
+
+def _loop_times(out, batch: int):
+    """The loop's own clock (StepTimer), over the steps after the first of
+    each epoch: step ms, data-wait ms and pairs/s; and the epoch wall time
+    (up to the epoch's metrics on the host) per step."""
+    step = [s for t in out["timing"] for s in t["step_s"][1:]]
+    wait = [s for t in out["timing"] for s in t["wait_s"][1:]]
+    n = sum(t["steps"] for t in out["timing"])
+    wall = sum(t["epoch_s"] for t in out["timing"]) / n
+    step_ms = 1e3 * sum(step) / len(step)
+    wait_ms = 1e3 * sum(wait) / len(wait)
+    return dict(step_ms=step_ms, wait_ms=wait_ms, wall_ms=wall * 1e3,
+                pairs_per_s=batch / (step_ms / 1e3), steps=n)
+
+
+def _trace_busy(trace_dir: str):
+    """``(wall ms, device busy ms, device events)`` of the one trace under
+    ``trace_dir`` (``--profile_dir``): the span of all its events, and the
+    union of its kernel and memory-copy intervals."""
+    import glob
+    import os
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev_ev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not dev_ev:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, b in dev_ev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    return span / 1e3, busy / 1e3, len(dev_ev)
+
+
+def _loader_alone(train: str, dev):
+    """The pretrain loader without a step, per-view B_VIEW and
+    BENCH_STEP_BS: host ms per batch, and ms per batch landed on the card
+    through ``prefetch_to_device``, over CLI_STEPS - 1 batches after the
+    first."""
+    from cstp_tpu_torch.data.loader import PretrainLoader, prefetch_to_device
+    from cstp_tpu_torch.data.packed import PackedDataset
+
+    ds = PackedDataset(train)
+    out = {}
+    for bs in (B_VIEW, BENCH_STEP_BS):
+        res = []
+        for land in (False, True):
+            it = PretrainLoader(ds, bs, T, seed=1, num_workers=6).epoch(1)
+            if land:
+                it = prefetch_to_device(it, dev)
+            next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CLI_STEPS - 1):
+                next(it)
+            torch.cuda.synchronize()
+            res.append((time.perf_counter() - t0) * 1e3 / (CLI_STEPS - 1))
+            it.close()
+        out[bs] = tuple(res)
+    ds.close()
+    return out
+
+
+def _check_rows(path):
+    import csv
+
+    rows = list(csv.reader(open(path), delimiter="\t"))
+    bad = [r for r in rows[1:] if not all(math.isfinite(float(c))
+                                          for c in r)]
+    if len(rows) < 2 or bad:
+        raise SystemExit(f"{path}: no rows or non-finite rows {bad}")
+    return len(rows) - 1
+
+
+def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
+    """The recipe through the port's four CLIs (``main(argv)``, in
+    process), on CSTPack files it writes: pretrain (per-view B_VIEW, 2
+    epochs of CLI_STEPS), ``--task resume`` from save_1, finetune
+    (``ft_all``, batch B_FT) from save_2 with validation, test on its
+    ``save_1_max``, retrieval from save_2, a pretrain epoch at per-view
+    BENCH_STEP_BS (bench.py's) and one from a frame directory of JPEGs.
+    R(2+1)D depth 1 at full width, 16x112^2, bf16, ``--fused_conv 1``.
+    Launches per loop step must be phase 3's (10/10/1) and the finetune
+    step's (5/5/0); CSV rows finite, checkpoints present, an accuracy
+    printed, R@k non-decreasing. Prints the loop's step and data-wait ms
+    beside phase 3's step and phase 11's bench step."""
+    import os
+    import re
+    import tempfile
+
+    from cstp_tpu_torch.cli import main_byol, main_ft, main_retrieval
+    from cstp_tpu_torch.cli import main_test
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cstp_cli_") as root:
+        t0 = time.perf_counter()
+        train, jpeg_dir, ann = _cli_data(root)
+        log(f"[cli] data: {CLI_TRAIN} + {CLI_EVAL} + {CLI_EVAL} videos x "
+            f"{CLI_FRAMES} raw {H0}x{W0} frames in CSTPack "
+            f"({os.path.getsize(train) / 1e9:.2f} GB train file), "
+            f"{CLI_JPEG_STEPS * B_VIEW} JPEG frame dirs, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        res = os.path.join(root, "results")
+        common = ["--model_name", "r21d_byol", "--model_depth", "1",
+                  "--sample_duration", str(T), "--sample_size", str(S),
+                  "--compute_dtype", "bfloat16", "--fused_conv", "1",
+                  "--log_every", "0", "--n_workers", "6",
+                  "--dataset", "UCF101", "--n_classes", str(N_FT_CLASSES),
+                  "--n_finetune_classes", str(N_FT_CLASSES),
+                  "--result_path", res]
+        packed = common + ["--data_backend", "packed", "--lmdb_path", train]
+        pre = ["--task", "loss_com", "--pallas_augment", "on",
+               "--learning_rate", "0.03"]
+        per_pre = {"conv21d_stats": 10, "conv21d_fwd": 10, "augment": 1}
+        per_ft = {"conv21d_stats": FT_LAUNCHES, "conv21d_fwd": FT_LAUNCHES}
+        run_dir = os.path.join(res, "UCF101", "loss_com")
+        times = {}
+
+        out, _ = _cli_run(main_byol.main, packed + pre + [
+            "--batch_size", str(B_VIEW), "--n_epochs", "2",
+            "--steps_per_epoch", str(CLI_STEPS), "--ckpt_every_epochs", "1"],
+            per_pre, 2 * CLI_STEPS)
+        times["pretrain"] = _loop_times(out, B_VIEW)
+        losses = [h["loss"] for h in out["history"]]
+        del out
+        torch.cuda.empty_cache()
+
+        out, _ = _cli_run(main_byol.main, packed + pre + [
+            "--batch_size", str(B_VIEW), "--n_epochs", "2",
+            "--steps_per_epoch", "2", "--ckpt_every_epochs", "1",
+            "--task", "resume", "--resume_md_path",
+            os.path.join(run_dir, "save_1")], per_pre, 4)
+        if out["state"].step != CLI_STEPS + 4:
+            raise SystemExit(f"resume from save_1 ran from step "
+                             f"{out['state'].step - 4}, not {CLI_STEPS}")
+        del out
+        torch.cuda.empty_cache()
+        n_rows = _check_rows(os.path.join(
+            run_dir, f"UCF101_train_clip{T}modelr21d_byol1.log"))
+
+        save_2 = os.path.join(run_dir, "save_2")
+        out, text = _cli_run(main_ft.main, packed + [
+            "--task", "ft_all", "--pretrained_path", save_2,
+            "--batch_size", str(B_FT), "--n_epochs", "1",
+            "--steps_per_epoch", str(CLI_FT_STEPS), "--learning_rate",
+            "0.02"], per_ft, CLI_FT_STEPS)
+        times["finetune"] = _loop_times(out, B_FT)
+        del out
+        torch.cuda.empty_cache()
+        ft_dir = os.path.join(res, "UCF101", "ft_all")
+        for f in (f"train_UCF101_clip{T}modelr21d_byol1.log",
+                  f"val_UCF101_clip{T}modelr21d_byol1.log"):
+            _check_rows(os.path.join(ft_dir, f))
+        if not os.path.isdir(os.path.join(ft_dir, "save_1_max")):
+            raise SystemExit("the finetune run kept no save_1_max")
+
+        t0 = time.perf_counter()
+        out, text = _cli_run(main_test.main, packed + [
+            "--task", "test", "--t_ft_task", "ft_all"], {}, 1)
+        times["test_s"] = time.perf_counter() - t0
+        acc = re.search(r"^Video accuracy =  ([\d.]+)$", text, re.M)
+        if not acc or not 0.0 <= float(acc[1]) <= 1.0:
+            raise SystemExit("main_test printed no video accuracy")
+
+        t0 = time.perf_counter()
+        out, text = _cli_run(main_retrieval.main, packed + [
+            "--task", "retrieval", "--pretrained_path", save_2,
+            "--retrieval_clips", "2"], {}, 1)
+        times["retrieval_s"] = time.perf_counter() - t0
+        recalls = [out[f"R@{k}"] for k in (1, 5, 10, 20, 50)]
+        if recalls != sorted(recalls) or out["n_gallery"] != CLI_TRAIN:
+            raise SystemExit(f"retrieval R@k {recalls} decrease, or "
+                             f"gallery {out['n_gallery']} != {CLI_TRAIN}")
+
+        out, _ = _cli_run(main_byol.main, packed + pre + [
+            "--batch_size", str(BENCH_STEP_BS), "--n_epochs", "1",
+            "--steps_per_epoch", str(CLI_STEPS), "--ckpt_every_epochs",
+            "100", "--result_path", os.path.join(root, "results64")],
+            per_pre, CLI_STEPS)
+        times["pretrain64"] = _loop_times(out, BENCH_STEP_BS)
+        losses64 = [h["loss"] for h in out["history"]]
+        del out
+        torch.cuda.empty_cache()
+
+        # the same loop with each host batch echoed CLI_STEPS times: one
+        # batch read and copied an epoch, so any difference from the run
+        # above is the loader's host work
+        out, _ = _cli_run(main_byol.main, packed + pre + [
+            "--batch_size", str(B_VIEW), "--n_epochs", "1",
+            "--steps_per_epoch", str(CLI_STEPS), "--data_echo",
+            str(CLI_STEPS), "--ckpt_every_epochs", "100", "--result_path",
+            os.path.join(root, "results_echo")], per_pre, CLI_STEPS)
+        times["echo"] = _loop_times(out, B_VIEW)
+        del out
+        torch.cuda.empty_cache()
+        # the loop under its own --profile_dir: the card's busy share of
+        # steps 3-5, beside phase 3's profiled step
+        trace_dir = os.path.join(root, "trace")
+        _cli_run(main_byol.main, packed + pre + [
+            "--batch_size", str(B_VIEW), "--n_epochs", "1",
+            "--steps_per_epoch", str(CLI_STEPS), "--profile_dir", trace_dir,
+            "--profile_steps", "3", "--ckpt_every_epochs", "100",
+            "--result_path", os.path.join(root, "results_trace")],
+            per_pre, CLI_STEPS)
+        times["traced"] = _trace_busy(trace_dir)
+        torch.cuda.empty_cache()
+        # phase 3's bare step again, after the loops: the host's drift
+        # between phase 3 and here, against the loops' excess
+        times["bare_after"] = phase_slice(dev, card, profile=False)["step_ms"]
+        torch.cuda.empty_cache()
+        times["loader"] = _loader_alone(train, dev)
+
+        jpeg = common + ["--data_backend", "framedir", "--frame_dir",
+                         jpeg_dir, "--annotation_path", ann]
+        out, _ = _cli_run(main_byol.main, jpeg + pre + [
+            "--batch_size", str(B_VIEW), "--n_epochs", "1",
+            "--steps_per_epoch", str(CLI_JPEG_STEPS), "--ckpt_every_epochs",
+            "100", "--result_path", os.path.join(root, "results_jpeg")],
+            per_pre, CLI_JPEG_STEPS)
+        times["jpeg"] = _loop_times(out, B_VIEW)
+        losses_jpeg = [h["loss"] for h in out["history"]]
+        del out
+        torch.cuda.empty_cache()
+
+    if not all(math.isfinite(v) for v in losses + losses64 + losses_jpeg):
+        raise SystemExit("a cli pretrain run gave a non-finite loss")
+    for name, batch, ref, ref_name in (
+            ("pretrain", B_VIEW, slice_ms, "phase 3's bare step"),
+            ("pretrain64", BENCH_STEP_BS, bench_ms,
+             "phase 11's bench_step pretrain"),
+            ("jpeg", B_VIEW, slice_ms, "phase 3's bare step"),
+            ("echo", B_VIEW, slice_ms, "phase 3's bare step"),
+            ("finetune", B_FT, None, None)):
+        t = times[name]
+        beside = (f"; {ref_name} {ref:.1f} ms, loop / bare "
+                  f"{t['step_ms'] / ref:.3f}" if ref else "")
+        log(f"[cli] {name} (batch {batch}, {t['steps']} steps): loop step "
+            f"{t['step_ms']:.1f} ms, data wait {t['wait_ms']:.2f} ms per "
+            f"step (StepTimer, steps after the first), epoch wall "
+            f"{t['wall_ms']:.1f} ms per step, {t['pairs_per_s']:.1f} "
+            f"{'clips' if name == 'finetune' else 'pairs'}/s{beside} "
+            f"({card})")
+    if times["traced"] is None:
+        log("[cli] the loop's trace holds no device events: not measured")
+    else:
+        wall, busy, n_ev = times["traced"]
+        log(f"[cli] the loop under --profile_dir (per-view {B_VIEW}, packed, "
+            f"steps 3-5 traced): {wall / 3:.1f} ms wall per step, device "
+            f"busy {busy / 3:.1f} ms per step ({busy / wall:.1%}), {n_ev} "
+            f"device events (profiling slows the host; compare with "
+            f"phase 3's \"[profile] one step\" line)")
+    log(f"[cli] phase 3's bare step again after the loops: "
+        f"{times['bare_after']:.1f} ms (phase 3: {slice_ms:.1f} ms); echo "
+        f"loop / this bare step {times['echo']['step_ms'] / times['bare_after']:.3f}")
+    for bs, (host_ms, landed_ms) in times["loader"].items():
+        log(f"[cli] loader alone, per-view {bs}: {host_ms:.1f} ms per host "
+            f"batch ({2 * bs * T} frames of {H0}x{W0}, 6 threads), "
+            f"{landed_ms:.1f} ms per batch landed on the card through "
+            f"prefetch_to_device ({card})")
+    log(f"[cli] pretrain CSV {n_rows} finite rows (2 epochs + 2 resumed); "
+        f"test {times['test_s']:.1f} s for {CLI_EVAL} videos, accuracy "
+        f"{float(acc[1]):.4f}; retrieval {times['retrieval_s']:.1f} s, R@k "
+        f"{recalls}; phase {time.perf_counter() - t_phase:.1f} s")
+    return times
+
+
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
@@ -1223,7 +1590,8 @@ def main(argv=None) -> int:
     phase_hashes(dev)
     counts = None
     if not args.kernels_only:
-        counts = dict(phase_slice(dev, card)["counts"])
+        sl = phase_slice(dev, card)
+        counts = dict(sl["counts"])
         phase_parity(dev)
         bench_counts = phase_bench(dev)
         for k in ("conv21d_taps9_stats", "conv21d_taps9_fwd"):
@@ -1235,7 +1603,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_finetune_parity(dev)
         phase_grad_accum(dev, card)
-        phase_bench_step(dev)
+        bench = phase_bench_step(dev)
+        phase_cli(dev, card, sl["step_ms"], bench["pretrain"]["step_ms"])
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
-"""Config for the PyTorch port: the same fields, defaults and ``finalize()``
-checks as the JAX package's ``Config``, kept as the port's own copy.
+"""Config for the PyTorch port: the same fields, defaults, ``finalize()``
+checks and command-line flags (``parse_opts``) as the JAX package's
+``Config``, kept as the port's own copy.
 
 Flags whose code paths the port does not have yet raise
-``NotImplementedError`` from ``finalize()`` instead of being ignored.
+``NotImplementedError`` from ``finalize()`` instead of being ignored. Flags
+that only the TPU reads (``--tpu_vmem_limit_kib``) are accepted and unused.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import warnings
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclass
@@ -111,8 +117,32 @@ class Config:
     quant: str = ""
     quant_scope: str = "all"
 
+    # bare names that select the reference's legacy contrastive variants
+    _LEGACY_BARE_NAMES = ("r21d", "c3d", "r3d", "s3d")
+
     _TRAIN_TASKS = ("loss_com", "r_byol", "ft_fc", "ft_all", "scratch",
                     "resume")
+
+    def warn_if_legacy_model_name(self) -> None:
+        """Warn when a bare legacy name is used: in the reference, bare
+        'r21d'/'c3d'/'s3d'/'r3d' select the legacy pace contrastive
+        variants, which are not rebuilt; the ``*_byol`` family model is
+        built instead. Called from ``parse_opts`` only."""
+        if self.model_name in self._LEGACY_BARE_NAMES:
+            warnings.warn(
+                f"--model_name {self.model_name!r}: in the reference this "
+                "bare name selects the LEGACY pace contrastive variant "
+                f"(models/pace/{'s3d_g' if self.model_name == 's3d' else self.model_name}.py), which this framework "
+                "deliberately does not rebuild by default (see PARITY.md "
+                f"'Known deviations'). Building the {self.model_name}_byol-"
+                "family model instead; its 10x-scaled BYOL loss is "
+                "expressible as --loss_weight 10 1 1 1 1. The reference's "
+                "live bare-'r21d' finetune behavior (CE over a 512-d "
+                "Projector output, models/model.py:41-43) is available with "
+                "--legacy_pace 1 in the JAX package; cstp_tpu_torch does not "
+                "port it yet.",
+                stacklevel=2,
+            )
 
     def finalize(self) -> "Config":
         """Validate and derive fields; returns self for chaining."""
@@ -172,6 +202,27 @@ class Config:
         """The checkpoint's arch tag, ``{model_name}-{model_depth}``."""
         return f"{self.model_name}-{self.model_depth}"
 
+    @property
+    def clip_stride(self) -> int:
+        """Finetune/test frame stride: ``pb_rate``; for slowfast models the
+        fast pathway's stride ``tau // alpha``."""
+        if self.model_name.startswith("slowfast"):
+            return max(1, self.tau // self.alpha)
+        return self.pb_rate
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        d = json.loads(s)
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in known}
+        for k in ("loss_weight", "mesh_shape", "mesh_axes"):
+            if k in d and isinstance(d[k], list):
+                d[k] = tuple(d[k])
+        return cls(**d).finalize()
+
     def check_ported(self) -> None:
         """Refuse flag values whose code paths the port does not have."""
         unported = {
@@ -194,7 +245,6 @@ class Config:
             "legacy_pace": bool(self.legacy_pace),
             "i3d_conv_head": bool(self.i3d_conv_head),
             "tf_i3d_ckpt": bool(self.tf_i3d_ckpt),
-            "task resume": self.task == "resume",
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -214,3 +264,92 @@ def base_model_name(arch: str) -> str:
         if arch.endswith(suffix):
             return arch[: -len(suffix)]
     return arch
+
+
+def _add_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX package's flag surface: the reference's ``opts.py`` names,
+    the same defaults."""
+    c = Config()
+    for name, typ in (
+            ("frame_dir", str), ("annotation_path", str), ("dataset", str),
+            ("split", str), ("modality", str), ("input_channels", int),
+            ("n_classes", int), ("n_finetune_classes", int),
+            ("model_name", str), ("model_depth", int),
+            ("resnet_shortcut", str), ("ft_begin_index", int),
+            ("sample_size", int), ("sample_duration", int),
+            ("batch_size", int), ("n_workers", int),
+            ("pretrained_path", str), ("test_md_path", str),
+            ("resume_md_path", str), ("learning_rate", float),
+            ("momentum", float), ("dampening", float),
+            ("weight_decay", float)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    for name in ("nesterov", "double_bias_lr", "remat"):
+        parser.add_argument(f"--{name}", action="store_true")
+    parser.add_argument("--remat_policy", default=c.remat_policy,
+                        choices=["", "bnrelu"])
+    for name, typ in (
+            ("concat_views", int), ("optimizer", str), ("lr_patience", int),
+            ("n_epochs", int), ("result_path", str), ("manual_seed", int),
+            ("task", str), ("temperature", float), ("lr_decay", float),
+            ("sync_bn", int), ("clip_grad_norm", int), ("pb_rate", int)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    parser.add_argument("--tau", default=c.tau, type=int,
+                        help="slowfast: slow-path temporal stride")
+    parser.add_argument("--alpha", default=c.alpha, type=int,
+                        help="slowfast: fast/slow frame-rate ratio")
+    for name, typ in (
+            ("transform_mode", str), ("input_size", int),
+            ("output_feat", int), ("norm_method", str)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    parser.add_argument("--loss_weight", default=list(c.loss_weight),
+                        nargs="+", type=float)
+    for name, typ in (
+            ("t_ft_task", str), ("sc_type", str), ("lmdb_path", str),
+            ("steps_per_epoch", int)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    parser.add_argument("--mesh_shape", default=list(c.mesh_shape),
+                        nargs="+", type=int)
+    for name, typ in (
+            ("compute_dtype", str), ("byol_momentum", float),
+            ("data_backend", str), ("synthetic_len", int),
+            ("synthetic_learnable", int), ("fused_conv", int),
+            ("mid_round", int), ("t_fold", int)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    parser.add_argument("--quant", default=c.quant,
+                        choices=["", "int8", "int8_fixed", "int8_static",
+                                 "int8_calib", "int8_store", "int8_store_fz"])
+    parser.add_argument("--quant_scope", default=c.quant_scope,
+                        choices=["all", "target"])
+    for name, typ in (
+            ("legacy_pace", int), ("i3d_conv_head", int),
+            ("ckpt_every_epochs", int), ("log_every", int),
+            ("profile_dir", str), ("tb_dir", str), ("profile_steps", int),
+            ("ntxent_weight", float)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    parser.add_argument("--s2d_stem", action="store_true")
+    parser.add_argument("--pallas_augment", default=c.pallas_augment,
+                        choices=["auto", "on", "off"])
+    for name, typ in (
+            ("tpu_vmem_limit_kib", int), ("ema_ref_batch", int),
+            ("shard_opt_state", int), ("shard_spatial", int),
+            ("tf_i3d_ckpt", str), ("data_echo", int), ("grad_accum", int)):
+        parser.add_argument(f"--{name}", default=getattr(c, name), type=typ)
+    parser.add_argument("--auto_resume", action="store_true")
+    parser.add_argument("--graceful_preempt", default=c.graceful_preempt,
+                        type=int)
+    parser.add_argument("--retrieval_clips", default=c.retrieval_clips,
+                        type=int)
+
+
+def parse_opts(argv: Optional[List[str]] = None) -> Config:
+    """The command line -> a finalized ``Config`` (the reference's
+    ``parse_opts()``)."""
+    parser = argparse.ArgumentParser(description="cstp_tpu_torch")
+    _add_args(parser)
+    d = vars(parser.parse_args(argv))
+    d["loss_weight"] = tuple(d["loss_weight"])
+    d["mesh_shape"] = tuple(d["mesh_shape"])
+    known = {f.name for f in dataclasses.fields(Config)}
+    cfg = Config(**{k: v for k, v in d.items() if k in known}).finalize()
+    cfg.warn_if_legacy_model_name()
+    return cfg

@@ -1,4 +1,5 @@
-"""The SGD update and the finetune learning-rate schedule.
+"""The SGD update and the learning-rate schedules (pretrain: cosine with
+warmup and restarts; finetune: reduce on plateau).
 
 The port of ``make_optimizer``'s SGD chain (``cstp_tpu/train/optim.py``,
 torch ``optim.SGD(momentum, weight_decay)`` with ``clip_grad_norm_(18)`` in
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -94,6 +95,36 @@ def apply_lr(params: Dict[str, torch.Tensor],
     """``p -= lr * u`` in place (torch's ``p -= lr * buf``)."""
     for n, u in updates.items():
         params[n].sub_(lr * u)
+
+
+def cosine_warmup_restarts(max_lr: float, first_cycle_steps: int,
+                           warmup_steps: float, min_lr: float = 1e-5,
+                           gamma: float = 0.5, cycle_mult: float = 1.0
+                           ) -> Callable[[int], float]:
+    """The reference's ``CosineAnnealingWarmupRestarts`` with
+    ``cycle_mult=1`` as a pure function of the 0-based epoch index (epoch
+    e, 1-based, trains at ``lr(e - 1)``): linear warmup from ``min_lr``
+    over ``warmup_steps`` epochs, cosine decay to ``min_lr``, and restarts
+    whose peak decays by ``gamma`` per cycle. Being pure, it needs no state
+    in a checkpoint beyond the epoch."""
+    if cycle_mult != 1.0:
+        raise ValueError("only cycle_mult=1 is supported (the reference's "
+                         "only setting)")
+    if not warmup_steps < first_cycle_steps:
+        raise ValueError(f"warmup_steps {warmup_steps} must be below "
+                         f"first_cycle_steps {first_cycle_steps}")
+
+    def lr_fn(step: int) -> float:
+        cycle = step // first_cycle_steps
+        s = step % first_cycle_steps
+        cur_max = max_lr * (gamma ** cycle)
+        if s < warmup_steps:
+            return (cur_max - min_lr) * s / warmup_steps + min_lr
+        return min_lr + (cur_max - min_lr) * (
+            1.0 + math.cos(math.pi * (s - warmup_steps)
+                           / (first_cycle_steps - warmup_steps))) / 2.0
+
+    return lr_fn
 
 
 @dataclasses.dataclass

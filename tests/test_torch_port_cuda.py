@@ -424,3 +424,54 @@ def test_finetune_step_with_a_frozen_prefix_on_the_card(dev):
     assert not torch.equal(model.online_net.conv2.block1.conv1.bn.mean,
                            s0["online_net.conv2.block1.conv1.bn.mean"])
     assert not torch.equal(model.cls_bn.var, s0["cls_bn.var"])
+
+
+def test_prefetched_batches_are_the_host_batches(dev):
+    """prefetch_to_device on the card: each batch lands through the pinned
+    ring and the side stream equal to its host arrays, in order, on the
+    card; an echoed batch (the same host object) reuses the landed
+    tensors."""
+    from cstp_tpu_torch.data.loader import PretrainLoader, prefetch_to_device
+    from cstp_tpu_torch.data.synthetic import SyntheticVideoDataset
+
+    ds = SyntheticVideoDataset(n_videos=12, n_classes=5, ingest_hw=(40, 53))
+    host = list(PretrainLoader(ds, 3, 8, seed=1, num_workers=2,
+                               echo=2).epoch(1))
+    got = list(prefetch_to_device(iter(host), dev, depth=2))
+    assert len(got) == len(host) == 8
+    for g, h in zip(got, host):
+        for k in h:
+            assert g[k].device.type == "cuda"
+            np.testing.assert_array_equal(g[k].cpu().numpy(), h[k])
+    for a, b in zip(got[::2], got[1::2]):
+        assert a is b and all(a[k] is b[k] for k in a)
+
+
+def test_a_two_step_pretrain_loop_with_the_kernels(dev, tmp_path):
+    """run_pretrain on the card with K2/K3 (fused_conv=1) and K5
+    (pallas_augment="on") at a small size: 2 steps, 10 + 10 + 1 launches a
+    step, a finite CSV row and the checkpoint."""
+    import csv
+    import os
+
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.train.loops import run_pretrain
+
+    cfg = Config(model_name="r21d_byol", model_depth=1, sample_duration=4,
+                 sample_size=32, batch_size=4, compute_dtype="bfloat16",
+                 fused_conv=1, pallas_augment="on", data_backend="synthetic",
+                 synthetic_len=8, n_epochs=1, ckpt_every_epochs=1,
+                 learning_rate=0.03, result_path=str(tmp_path),
+                 n_workers=2, log_every=0).finalize()
+    before, aug = dict(C.launches), A.launches
+    out = run_pretrain(cfg)
+    assert C.launches["stats"] - before["stats"] == 20
+    assert C.launches["fwd"] - before["fwd"] == 20
+    assert A.launches - aug == 2
+    log_dir = tmp_path / "UCF101" / "loss_com"
+    assert (log_dir / "save_1").is_dir()
+    logs = [f for f in os.listdir(log_dir) if f.endswith(".log")]
+    rows = list(csv.reader(open(log_dir / logs[0]), delimiter="\t"))
+    assert len(rows) == 2
+    assert all(np.isfinite(float(c)) for c in rows[1])
+    assert out["timing"][0]["steps"] == 2

@@ -1,6 +1,6 @@
 """The port stands alone: ``cstp_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package ``cstp_tpu``, and no entry point
-moves to the CPU unless asked.
+(steps, loops, CLIs) moves to the CPU unless asked.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py).
@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 29, out.stdout
+    assert int(n) >= 48, out.stdout
     assert bad == "[]", bad
 
 
@@ -116,8 +116,36 @@ def test_entry_points_refuse_missing_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("entry", ["run_pretrain", "run_finetune",
+                                   "run_test", "run_retrieval", "main_byol",
+                                   "main_ft", "main_test", "main_retrieval"])
+def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
+    """The loops and the CLIs run on CUDA unless ``device="cpu"`` is
+    passed: without a card they raise before reading any data."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    import importlib
+
+    from cstp_tpu_torch.config import parse_opts
+    from cstp_tpu_torch.train import loops
+
+    task = {"run_pretrain": "loss_com", "run_finetune": "ft_all",
+            "run_test": "test", "run_retrieval": "retrieval",
+            "main_byol": "loss_com", "main_ft": "ft_all",
+            "main_test": "test", "main_retrieval": "retrieval"}[entry]
+    argv = ["--model_name", "r21d_byol", "--sample_duration", "4",
+            "--sample_size", "32", "--batch_size", "2", "--task", task,
+            "--data_backend", "synthetic", "--result_path", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry.startswith("run_"):
+            getattr(loops, entry)(parse_opts(argv))
+        else:
+            importlib.import_module(f"cstp_tpu_torch.cli.{entry}").main(argv)
+    assert not any(tmp_path.iterdir())
+
+
 @pytest.mark.parametrize("flag", [
-    dict(legacy_pace=1), dict(task="resume"), dict(i3d_conv_head=1),
+    dict(legacy_pace=1), dict(double_bias_lr=True), dict(i3d_conv_head=1),
     dict(tf_i3d_ckpt="i3d.ckpt"), dict(concat_views=0), dict(remat=True),
     dict(remat_policy="bnrelu"), dict(s2d_stem=True), dict(t_fold=1),
     dict(quant="int8"), dict(mid_round=128), dict(ntxent_weight=0.5),
