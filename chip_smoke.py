@@ -67,7 +67,21 @@ Phases:
      pretrain epoch at per-view 64 and one from a frame directory of
      JPEGs; the kernels' launches per loop step, finite CSV rows, the
      checkpoints, the printed accuracy and non-decreasing R@k checked; the
-     loop's step and data-wait ms printed beside phases 3 and 11.
+     loop's step and data-wait ms printed beside phases 3 and 11;
+  13. flags: the step flags at per-view batch 16, kernels on: K2/K3 at the
+     per-view calls' shape (16 clips, one BN group); one step each of
+     ``--concat_views 0`` (20/20/1 launches), ``--remat`` (15/15/1),
+     ``--remat_policy bnrelu`` (15/15/1: the fused sites recompute),
+     ``--remat`` with ``--concat_views 0`` (30/30/1) and ``--fused_conv 2``
+     (5/5/1), each then timed over 2 steps, with its peak memory; the remat
+     steps held against the step without remat by phase 4's rule with
+     bitwise the same BN running statistics; the per-view calls, AdamW with
+     ``--double_bias_lr`` and SGD with dampening and nesterov held against
+     their plain bf16 steps by phase 4's rule; then ``bench_step --mode
+     pretrain`` at per-view 64 with ``--remat`` (plain; must fit),
+     ``--remat-policy bnrelu`` (plain), ``--remat`` with the kernels, and
+     ``--fused-conv 2``: step ms, pairs/s, peak GiB (a run that runs out of
+     memory, other than the first, is reported).
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``), the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -77,6 +91,7 @@ line. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -556,14 +571,14 @@ def phase_hashes(dev):
     return res
 
 
-def _slice_config(fused: bool):
+def _slice_config(fused: bool, **over):
     from cstp_tpu_torch.config import Config
 
+    kw = dict(fused_conv=int(fused), pallas_augment="on" if fused else "off")
+    kw.update(over)
     return Config(model_name="r21d", model_depth=1, sample_duration=T,
                   sample_size=S, batch_size=B_VIEW, compute_dtype="bfloat16",
-                  fused_conv=int(fused),
-                  pallas_augment="on" if fused else "off",
-                  task="loss_com").finalize()
+                  task="loss_com", **kw).finalize()
 
 
 def _slice_batch(dev, seed: int):
@@ -676,82 +691,108 @@ def profile_step(run, top: int = 12):
         log(f"[profile]   {us / 1e3:9.2f} ms  {name[:110]}")
 
 
-def _slice_config_plain_f32():
+def _slice_config_plain_f32(**over):
     from cstp_tpu_torch.config import Config
 
     return Config(model_name="r21d", model_depth=1, sample_duration=T,
                   sample_size=S, batch_size=B_VIEW, compute_dtype="float32",
                   fused_conv=0, pallas_augment="off",
-                  task="loss_com").finalize()
+                  task="loss_com", **over).finalize()
 
 
-def phase_parity(dev, timed_steps: int = 2):
-    """One step from the same weights, generator seed and batch through
-    three configurations: the kernels (bf16, fused_conv=1,
-    pallas_augment=on), the plain bf16 configuration (fused_conv=0,
-    pallas_augment=off) and the plain configuration in float32, which
-    arbitrates. Then the step time of each."""
+def _one_step_run(dev, cfg, batch, timed_steps: int = 2):
+    """One step of ``cfg`` from seed-0 weights and a generator seeded 5 on
+    ``batch``: its metrics, the update of the trainable parameters (float64,
+    flat), the BN running statistics after it, the launches it made and
+    the peak of allocated memory over it; then ``timed_steps`` steps on,
+    their mean ms."""
     from cstp_tpu_torch.train import optim
     from cstp_tpu_torch.train.pretrain import (
         create_pretrain_state,
         make_pretrain_step,
     )
 
-    batch = _slice_batch(dev, seed=4)
-    runs = {}
-    for name, cfg in (("kernel", _slice_config(True)),
-                      ("plain", _slice_config(False)),
-                      ("f32", _slice_config_plain_f32())):
-        model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
-        p0 = {n: p.detach().clone()
-              for n, p in optim.trainable(model).items()}
-        step = make_pretrain_step(model, tx, cfg)
-        gen = torch.Generator(device=dev).manual_seed(5)
-        state, m = step(state, gen, batch, cfg.learning_rate)
-        update = torch.cat([(p.detach() - p0[n]).flatten().double()
-                            for n, p in optim.trainable(model).items()])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(timed_steps):
-            state, _ = step(state, gen, batch, cfg.learning_rate)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / timed_steps * 1e3
-        runs[name] = ({k: float(v) for k, v in m.items()}, update, ms)
-        del model, state, tx, step, p0
-        torch.cuda.empty_cache()
-    mk, mp, mf = (runs[n][0] for n in ("kernel", "plain", "f32"))
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    p0 = {n: p.detach().clone() for n, p in optim.trainable(model).items()}
+    step = make_pretrain_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    state, m = step(state, gen, batch, cfg.learning_rate)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    update = torch.cat([(p.detach() - p0[n]).flatten().double()
+                        for n, p in optim.trainable(model).items()])
+    stats = _snapshot(model, buffers=True)
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        state, _ = step(state, gen, batch, cfg.learning_rate)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed_steps * 1e3
+    del model, state, tx, step, p0
+    torch.cuda.empty_cache()
+    return dict(metrics={k: float(v) for k, v in m.items()}, update=update,
+                stats=stats, counts=counts, ms=ms, peak_gib=peak_gib)
 
-    def cos(a, b):
-        return float(torch.nn.functional.cosine_similarity(
-            runs[a][1], runs[b][1], dim=0))
 
-    cos_k, cos_p, cos_kp = cos("kernel", "f32"), cos("plain", "f32"), \
-        cos("kernel", "plain")
-    # Tolerances. Losses: both bf16 paths round the same values in another
-    # summation order, so loss terms agree to a few bf16 ulps (2e-2
-    # relative) and an accuracy may flip by two of 16 predictions. The
-    # update: the gradient of this network is ill conditioned (BatchNorm
-    # backward of pooled features cancels to a small residual), so bf16
-    # rounding alone turns its direction; the kernel path must stay as
-    # close to the float32 update as the plain bf16 path does (cosine
-    # within 0.05 of it).
+def _cos(a, b):
+    return float(torch.nn.functional.cosine_similarity(
+        a["update"], b["update"], dim=0))
+
+
+def _agree(run, ref, f32):
+    """Phase 4's rule for ``run`` against ``ref`` (a bf16 step of the same
+    weights, generator and batch), with the float32 step ``f32`` as
+    arbiter: ``(loss_err, acc_err, cos_run, cos_ref, ok)``.
+
+    Tolerances. Losses: both bf16 paths round the same values in another
+    summation order, so loss terms agree to a few bf16 ulps (2e-2 relative)
+    and an accuracy may flip by two of 16 predictions. The update: the
+    gradient of this network is ill conditioned (BatchNorm backward of
+    pooled features cancels to a small residual), so bf16 rounding alone
+    turns its direction; ``run`` must stay as close to the float32 update
+    as ``ref`` does (cosine within 0.05 of it)."""
+    mk, mp = run["metrics"], ref["metrics"]
     loss_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-6)
                    for k in mk if k.startswith("loss"))
     acc_err = max(abs(mk[k] - mp[k]) for k in mk if k.startswith("acc"))
-    log(f"[parity] kernel vs plain bf16 step: loss {mk['loss']:.5f} vs "
+    cos_run, cos_ref = _cos(run, f32), _cos(ref, f32)
+    ok = loss_err <= 2e-2 and acc_err <= 0.125 and cos_run >= cos_ref - 0.05
+    return loss_err, acc_err, cos_run, cos_ref, ok
+
+
+def phase_parity(dev, timed_steps: int = 2, over=None, tag: str = "parity"):
+    """One step from the same weights, generator seed and batch through
+    three configurations: the kernels (bf16, fused_conv=1,
+    pallas_augment=on), the plain bf16 configuration (fused_conv=0,
+    pallas_augment=off) and the plain configuration in float32, which
+    arbitrates (``_agree``). Then the step time of each. ``over``: config
+    flags set in all three (phase 13's per-view calls and optimizers)."""
+    over = over or {}
+    batch = _slice_batch(dev, seed=4)
+    runs = {name: _one_step_run(dev, cfg, batch, timed_steps)
+            for name, cfg in (("kernel", _slice_config(True, **over)),
+                              ("plain", _slice_config(False, **over)),
+                              ("f32", _slice_config_plain_f32(**over)))}
+    mk, mp, mf = (runs[n]["metrics"] for n in ("kernel", "plain", "f32"))
+    loss_err, acc_err, cos_k, cos_p, ok = _agree(
+        runs["kernel"], runs["plain"], runs["f32"])
+    log(f"[{tag}] kernel vs plain bf16 step: loss {mk['loss']:.5f} vs "
         f"{mp['loss']:.5f} (float32 {mf['loss']:.5f}); max rel loss-term err "
         f"{loss_err:.3e} (tol 2e-2); max accuracy diff {acc_err:.4f} "
         f"(tol 0.125); update cosine to the float32 update: kernel "
         f"{cos_k:.5f}, plain {cos_p:.5f} (tol kernel >= plain - 0.05); "
-        f"kernel vs plain {cos_kp:.5f}")
-    log(f"[parity] step ms ({timed_steps} steps after the first): kernel "
-        f"{runs['kernel'][2]:.1f}, plain bf16 {runs['plain'][2]:.1f}, "
-        f"plain float32 {runs['f32'][2]:.1f}")
-    if not (loss_err <= 2e-2 and acc_err <= 0.125
-            and cos_k >= cos_p - 0.05):
-        raise SystemExit("the kernel step and the plain step disagree")
+        f"kernel vs plain {_cos(runs['kernel'], runs['plain']):.5f}")
+    log(f"[{tag}] step ms ({timed_steps} steps after the first): kernel "
+        f"{runs['kernel']['ms']:.1f}, plain bf16 {runs['plain']['ms']:.1f}, "
+        f"plain float32 {runs['f32']['ms']:.1f}")
+    if not ok:
+        raise SystemExit(f"[{tag}] the kernel step and the plain step "
+                         "disagree")
     return dict(loss_err=loss_err, acc_err=acc_err, cos_k=cos_k,
-                cos_p=cos_p, step_ms={n: r[2] for n, r in runs.items()})
+                cos_p=cos_p, step_ms={n: r["ms"] for n, r in runs.items()})
 
 
 def phase_bench(dev):
@@ -830,16 +871,16 @@ PATH_SHAPES = [("finetune", B_FT, 1),
                ("bench_step pretrain", 2 * BENCH_STEP_BS, G)]
 
 
-def phase_conv21d_paths(dev):
+def phase_conv21d_paths(dev, shapes=PATH_SHAPES):
     """K2/K3 against the plain chain at the four sites for every shape of
-    PATH_SHAPES, with phase 2's tolerances and K2's bitwise repeat. The
-    finetune shape's times (kernel and plain) are summed over the finetune
-    step's launches."""
+    ``shapes`` (path, clips, BN groups), with phase 2's tolerances and K2's
+    bitwise repeat. The finetune shape's times (kernel and plain) are
+    summed over the finetune step's launches."""
     from cstp_tpu_torch.ops import conv21d as C
 
     gen = torch.Generator(device=dev).manual_seed(9)
     tot = {p: dict(ms=0.0, plain_ms=0.0, bound=0.0) for p in ("stats", "fwd")}
-    for path, n, groups in PATH_SHAPES:
+    for path, n, groups in shapes:
         for site, t, hw, cin, m, cout, calls in SITES:
             def rnd(*shape, std=1.0):
                 return torch.randn(shape, generator=gen, device=dev) * std
@@ -877,6 +918,8 @@ def phase_conv21d_paths(dev):
             del x
             torch.cuda.empty_cache()
     k2, k3 = tot["stats"], tot["fwd"]
+    if all(path != "finetune" for path, _, _ in shapes):
+        return tot
     log(f"[path-conv21d] per finetune step ({FT_LAUNCHES} launches each):"
         f" K2 {k2['ms']:.3f} ms (plain {k2['plain_ms']:.3f}, bound "
         f"{k2['bound']:.3f}), K3 {k3['ms']:.3f} ms (plain "
@@ -1534,6 +1577,125 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
     return times
 
 
+# ------------------------------------------------------------ step flags
+
+def _per_step(c2, c3, c5):
+    return {"conv21d_stats": c2, "conv21d_fwd": c3, "conv21d_taps9_stats": 0,
+            "conv21d_taps9_fwd": 0, "augment": c5}
+
+
+# phase 13's runs at per-view B_VIEW: name -> (config flags over the kernel
+# slice's, K2/K3/K5 launches per step). A fused site recomputes under
+# remat (also under "bnrelu": its output is not an op the policy can name),
+# in the online tower only, which runs with autograd: 5 sites per tower
+# call.
+FLAG_RUNS = {
+    "per-view calls (concat_views 0)": (dict(concat_views=0),
+                                        _per_step(20, 20, 1)),
+    "remat": (dict(remat=True), _per_step(15, 15, 1)),
+    "remat_policy bnrelu": (dict(remat_policy="bnrelu"),
+                            _per_step(15, 15, 1)),
+    "remat, concat_views 0": (dict(remat=True, concat_views=0),
+                              _per_step(30, 30, 1)),
+    "fused_conv 2 (target tower only)": (dict(fused_conv=2),
+                                         _per_step(5, 5, 1)),
+}
+# bench_step at bench.py's per-view 64: (flags, launches per step, whether
+# it must fit the card); a run that need not fit may run out of memory
+FLAG_BENCH_RUNS = [
+    (["--fused-conv", "0", "--remat"], {}, True),
+    (["--fused-conv", "0", "--remat-policy", "bnrelu"], {}, False),
+    (["--fused-conv", "1", "--pallas-augment", "on", "--remat"],
+     {"conv21d_stats": 15, "conv21d_fwd": 15, "augment": 1}, False),
+    (["--fused-conv", "2", "--pallas-augment", "on"],
+     {"conv21d_stats": 5, "conv21d_fwd": 5, "augment": 1}, False),
+]
+
+
+def phase_flags(dev, card: str, slice_ms: float):
+    """The step flags at R(2+1)D depth 1, 16 x 112^2, bf16. At per-view
+    B_VIEW, kernels on: K2/K3 against the plain chain at the per-view
+    calls' shape (N = B_VIEW, one BN group); one step of each FLAG_RUNS
+    configuration from the same weights, generator and batch, its launches
+    checked, then 2 timed steps; the remat steps held against the step
+    without remat by phase 4's rule (a float32 plain step arbitrates) with
+    bitwise the same BN running statistics; the per-view calls, AdamW with
+    --double_bias_lr, and SGD with dampening 0.1 and nesterov each held
+    against their plain bf16 step by phase 4's rule. Then bench_step
+    --mode pretrain at per-view 64 (1 warm-up, 2 timed steps) under
+    FLAG_BENCH_RUNS: step ms, pairs/s, peak GiB and launches per step."""
+    from cstp_tpu_torch.perf import bench_step
+
+    t_phase = time.perf_counter()
+    phase_conv21d_paths(dev, [("concat_views=0 tower call", B_VIEW, 1)])
+    batch = _slice_batch(dev, seed=4)
+    base = _one_step_run(dev, _slice_config(True), batch)
+    f32 = _one_step_run(dev, _slice_config_plain_f32(), batch)
+    if base["counts"] != _per_step(10, 10, 1):
+        raise SystemExit(f"[flags] base step launched {base['counts']}")
+    runs = {}
+    for name, (over, want) in FLAG_RUNS.items():
+        r = runs[name] = _one_step_run(dev, _slice_config(True, **over),
+                                       batch)
+        loss, loss0 = r["metrics"]["loss"], base["metrics"]["loss"]
+        log(f"[flags] {name}, per-view {B_VIEW}, kernels on: loss "
+            f"{loss:.5f} (no flag {loss0:.5f}); {r['ms']:.1f} ms/step, "
+            f"{B_VIEW / r['ms'] * 1e3:.1f} pairs/s, peak "
+            f"{r['peak_gib']:.2f} GiB (no flag {base['peak_gib']:.2f}) "
+            f"(2 steps; phase 3's concat_views 1 step {slice_ms:.1f},"
+            f" this phase's {base['ms']:.1f}; {card}); launches "
+            f"{r['counts']}")
+        if r["counts"] != want or not math.isfinite(r["metrics"]["loss"]):
+            raise SystemExit(f"[flags] {name}: launches {r['counts']} "
+                             f"(expected {want}) or a non-finite loss")
+    for name in ("remat", "remat_policy bnrelu"):
+        r = runs[name]
+        loss_err, acc_err, cos_r, cos_b, ok = _agree(r, base, f32)
+        same = all(torch.equal(r["stats"][n], v)
+                   for n, v in base["stats"].items())
+        log(f"[flags] {name} vs the step without it: max rel loss-term err "
+            f"{loss_err:.3e} (tol 2e-2), max accuracy diff {acc_err:.4f} "
+            f"(tol 0.125), update cosine to float32 {cos_r:.5f} vs "
+            f"{cos_b:.5f} (tol >= - 0.05), to the no-remat update "
+            f"{_cos(r, base):.5f}; BN running statistics bitwise equal: "
+            f"{same}")
+        if not (ok and same):
+            raise SystemExit(f"[flags] the {name} step disagrees with the "
+                             "step without it")
+    del runs, base, f32, batch
+    torch.cuda.empty_cache()
+    for over, tag in ((dict(concat_views=0), "flags per-view parity"),
+                      (dict(optimizer="adamw", double_bias_lr=True),
+                       "flags adamw double_bias_lr parity"),
+                      (dict(dampening=0.1, nesterov=True),
+                       "flags sgd dampening nesterov parity")):
+        phase_parity(dev, over=over, tag=tag)
+    for flags, want, must_fit in FLAG_BENCH_RUNS:
+        try:
+            r = bench_step.main(["--mode", "pretrain", "--steps", "2",
+                                 "--warmup", "1", *flags])
+        except torch.cuda.OutOfMemoryError as e:
+            if must_fit:
+                raise
+            log(f"[flags] bench_step pretrain {' '.join(flags)}: out of "
+                f"memory at per-view {BENCH_STEP_BS}: "
+                f"{str(e).splitlines()[0]}")
+            r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if r is None:
+            continue
+        got = {k: v for k, v in r["launches_per_step"].items() if v}
+        log(f"[flags] bench_step pretrain {' '.join(flags)}, per-view "
+            f"{BENCH_STEP_BS}: {r['step_ms']:.1f} ms/step, "
+            f"{r['pairs_per_s']:.1f} pairs/s, peak {r['peak_mem_gib']:.2f} "
+            f"GiB, launches per step {got}")
+        if got != want or not math.isfinite(r["loss"]):
+            raise SystemExit(f"bench_step {flags} launched {got} per step "
+                             f"(expected {want}) or lost its loss")
+    log(f"[flags] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
@@ -1605,6 +1767,7 @@ def main(argv=None) -> int:
         phase_grad_accum(dev, card)
         bench = phase_bench_step(dev)
         phase_cli(dev, card, sl["step_ms"], bench["pretrain"]["step_ms"])
+        phase_flags(dev, card, sl["step_ms"])
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

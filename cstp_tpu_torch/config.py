@@ -226,9 +226,6 @@ class Config:
     def check_ported(self) -> None:
         """Refuse flag values whose code paths the port does not have."""
         unported = {
-            "concat_views 0": not self.concat_views,
-            "remat": bool(self.remat),
-            "remat_policy": bool(self.remat_policy),
             "s2d_stem": bool(self.s2d_stem),
             "t_fold": bool(self.t_fold),
             "quant": bool(self.quant),
@@ -238,10 +235,6 @@ class Config:
             "shard_spatial": bool(self.shard_spatial),
             f"model_name {self.model_name}":
                 base_model_name(self.model_name) != "r21d",
-            f"optimizer {self.optimizer}": self.optimizer != "sgd",
-            "dampening != 0": self.dampening != 0.0,
-            "nesterov": bool(self.nesterov),
-            "double_bias_lr": bool(self.double_bias_lr),
             "legacy_pace": bool(self.legacy_pace),
             "i3d_conv_head": bool(self.i3d_conv_head),
             "tf_i3d_ckpt": bool(self.tf_i3d_ckpt),
@@ -256,6 +249,9 @@ class Config:
                              f"{self.fused_conv}")
         if self.pallas_augment not in ("auto", "on", "off"):
             raise ValueError(f"--pallas_augment {self.pallas_augment!r}")
+        if self.remat_policy not in ("", "bnrelu"):
+            raise ValueError(f"--remat_policy must be '' or 'bnrelu', got "
+                             f"{self.remat_policy!r}")
 
 
 def base_model_name(arch: str) -> str:

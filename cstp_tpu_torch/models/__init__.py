@@ -42,10 +42,17 @@ def backbone_spec(arch: str, depth: int = 1) -> BackboneSpec:
 def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
                   proj_flag: bool = False, bn_groups: int = 1,
                   fused_conv: bool = False,
-                  gen: Optional[torch.Generator] = None):
-    """The R(2+1)D module for ``arch`` ('r21d', 'r21d_byol', ...)."""
-    from cstp_tpu_torch.models.r21d import LAYER_SIZES, R2Plus1DNet
+                  gen: Optional[torch.Generator] = None,
+                  remat: bool = False, remat_policy: str = ""):
+    """The R(2+1)D module for ``arch`` ('r21d', 'r21d_byol', ...);
+    ``remat`` / ``remat_policy`` are ``--remat`` / ``--remat_policy``."""
+    from cstp_tpu_torch.models.r21d import (
+        LAYER_SIZES,
+        R2Plus1DNet,
+        remat_mode,
+    )
 
     _check_r21d(arch)
     return R2Plus1DNet(LAYER_SIZES.get(depth, (1, 1, 1, 1)), proj_flag, dtype,
-                       bn_groups, fused_conv, gen)
+                       bn_groups, fused_conv, gen,
+                       remat_mode(remat, remat_policy))

@@ -14,6 +14,7 @@ glorot-uniform conv and dense kernels, glorot-uniform BatchNorm scales
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -115,6 +116,22 @@ class BatchNorm(nn.Module):
         var_b = gvar.repeat_interleave(b // g, 0).reshape(shape)
         y = (xf - mean_b) * torch.rsqrt(var_b + BN_EPS)
         return (y * self.scale + self.bias).to(out_dtype)
+
+
+@contextlib.contextmanager
+def running_stats_kept(module: nn.Module):
+    """Every buffer of ``module`` (the BatchNorm running statistics) back to
+    its value on entry when the block exits, also on an exception. The
+    recompute of a checkpointed region runs inside it: the region's forward
+    already advanced the running statistics once, as the JAX package's
+    functional remat does."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
 
 
 # ---------------------------------------------------------------- convs

@@ -5,16 +5,35 @@ The port of ``cstp_tpu/models/r21d.py`` (reference ``R2Plus1DNet``,
 convolutions, ``layer_sizes`` blocks per stage, global average pool to a
 512-d feature. NDHWC activations, ``dtype`` compute, f32 parameters and BN.
 ``bn_groups`` and ``fused_conv`` reach every block.
+
+``remat`` recomputes the residual stages ``conv2`` .. ``conv5`` (not the
+stem) in the backward pass instead of keeping their activations, as the JAX
+package's ``nn.remat``: "full" recomputes everything, "bnrelu" keeps every
+convolution's output and recomputes the BatchNorm/ReLU tensors between them
+(``save_anything_except_these_names("bnrelu")``). A fused (2+1)D site is one
+``autograd.Function`` whose kernels write through ctypes, so no policy can
+name its output: under "bnrelu" it recomputes like the rest, launching its
+kernels again.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from cstp_tpu_torch.models.layers import BatchNorm, MLPHead, SpatioTemporalConv
+from cstp_tpu_torch.models.layers import (
+    BatchNorm,
+    MLPHead,
+    SpatioTemporalConv,
+    running_stats_kept,
+)
 
 LAYER_SIZES = {1: (1, 1, 1, 1), 10: (1, 1, 1, 1), 18: (2, 2, 2, 2),
                34: (3, 4, 6, 3)}
@@ -77,6 +96,39 @@ class SpatioTemporalResLayer(nn.Module):
         return x
 
 
+REMAT_MODES = ("", "full", "bnrelu")
+
+
+def remat_mode(remat: bool, remat_policy: str) -> str:
+    """The JAX package's precedence: ``--remat`` (full) over
+    ``--remat_policy``."""
+    return "full" if remat else remat_policy
+
+
+def checkpointed(layer: nn.Module, x: torch.Tensor, train: bool,
+                 mode: str) -> torch.Tensor:
+    """``layer(x, train)`` under non-reentrant checkpointing (the steps take
+    gradients with ``torch.autograd.grad``, which reentrant checkpointing
+    does not support). The recompute restores the layer's BN running
+    statistics, so they advance once per forward, as without remat."""
+
+    @contextlib.contextmanager
+    def recomputing(inner):
+        with running_stats_kept(layer), inner:
+            yield
+
+    def contexts():
+        if mode == "bnrelu":
+            fwd, inner = create_selective_checkpoint_contexts(
+                [torch.ops.aten.convolution.default])
+        else:
+            fwd, inner = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, recomputing(inner)
+
+    return checkpoint(lambda y: layer(y, train), x, use_reentrant=False,
+                      context_fn=contexts)
+
+
 class R2Plus1DNet(nn.Module):
     """Returns the 512-d pooled feature; with ``proj_flag`` also the 512-d
     BYOL projection (reference ``r21d_byol.py:184-229``)."""
@@ -84,10 +136,13 @@ class R2Plus1DNet(nn.Module):
     def __init__(self, layer_sizes: Tuple[int, int, int, int] = (1, 1, 1, 1),
                  proj_flag: bool = False, dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, remat: str = ""):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
         self.dtype = dtype
         self.proj_flag = proj_flag
+        self.remat = remat
         self.conv1 = SpatioTemporalConv(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3),
                                         dtype=dtype, bn_groups=bn_groups,
                                         gen=gen)
@@ -106,8 +161,13 @@ class R2Plus1DNet(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True):
         x = self.conv1(x.to(self.dtype), train)
         x = torch.relu(self.bn1(x, train)).to(self.dtype)
+        # a forward without autograd (the target tower, eval) keeps nothing
+        remat = self.remat if torch.is_grad_enabled() else ""
         for layer in (self.conv2, self.conv3, self.conv4, self.conv5):
-            x = layer(x, train)
+            if remat:
+                x = checkpointed(layer, x, train, remat)
+            else:
+                x = layer(x, train)
         feat = x.float().mean(dim=(1, 2, 3))
         if self.proj_flag:
             return feat, self.project(feat, train)

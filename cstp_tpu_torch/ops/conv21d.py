@@ -517,8 +517,10 @@ class FusedSTConv(torch.autograd.Function):
         # gradients only for the inputs that need one (a frozen finetune
         # prefix leaves ws, wt, scale and bias without)
         need = ctx.needs_input_grad[:5]
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, need)]
+        # saved_tensors read once: under non-reentrant checkpointing (remat)
+        # a second read raises
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         with torch.enable_grad():
             x, ws, wt, scale, bias = inputs
             gm, gv = reference_stats(x, ws, ctx.bn_groups, ctx.dtype)
@@ -529,7 +531,7 @@ class FusedSTConv(torch.autograd.Function):
                                        allow_unused=True))
         grads = [next(got) if n else None for n in need]
         grads = [None if g is None else g.to(t.dtype)
-                 for g, t in zip(grads, ctx.saved_tensors)]
+                 for g, t in zip(grads, saved)]
         return (*grads, None, None, None)
 
 

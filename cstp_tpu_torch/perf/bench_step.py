@@ -5,12 +5,16 @@ default shape.
     python -m cstp_tpu_torch.perf.bench_step [--mode pretrain|ft|eval]
         [--per-chip-bs 64] [--steps 10] [--warmup 3] [--depth 1]
         [--fused-conv 0|1|2] [--pallas-augment auto|on|off]
-        [--grad-accum 1] [--device cuda|cpu]
+        [--grad-accum 1] [--remat] [--remat-policy ''|bnrelu]
+        [--concat-views 1|0] [--device cuda|cpu]
 
 Defaults are ``bench.py``'s: per-chip batch 64 (per view in ``pretrain``),
 R(2+1)D depth 1, 16 frames of 112², uint8 source frames of 128×171, bf16,
 10 timed steps after 3 warm-up steps, ``fused_conv`` 0 and
-``pallas_augment`` "auto" (off). The modes:
+``pallas_augment`` "auto" (off), no remat, ``concat_views`` 1. ``--remat``,
+``--remat-policy`` and ``--concat-views`` are bench.py's flags of the same
+names and reach the pretrain model (the finetune model takes no remat, as
+in the JAX package). The modes:
 
 * ``pretrain``: ``train/pretrain.py make_pretrain_step`` (augment + BYOL
   towers + heads + SGD), ``task="loss_com"``;
@@ -55,7 +59,9 @@ def _config(args):
                   batch_size=args.per_chip_bs, compute_dtype="bfloat16",
                   task=task, fused_conv=args.fused_conv,
                   pallas_augment=args.pallas_augment,
-                  grad_accum=args.grad_accum).finalize()
+                  grad_accum=args.grad_accum, remat=args.remat,
+                  remat_policy=args.remat_policy,
+                  concat_views=args.concat_views).finalize()
 
 
 def _batches(mode, b, t, n_classes, dev, seed: int = 0):
@@ -127,6 +133,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--pallas-augment", default="auto",
                     choices=["auto", "on", "off"])
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--remat", action="store_true",
+                    help="remat residual stages (fits larger --per-chip-bs)")
+    ap.add_argument("--remat-policy", default="", choices=["", "bnrelu"],
+                    help="selective remat: recompute only BN/ReLU in bwd")
+    ap.add_argument("--concat-views", type=int, default=1, choices=[0, 1])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -149,7 +160,9 @@ def main(argv=None) -> dict:
     rate = "pairs_per_s" if args.mode == "pretrain" else "clips_per_s"
     out = {
         "mode": args.mode, "per_chip_bs": args.per_chip_bs,
-        "grad_accum": args.grad_accum, "depth": args.depth,
+        "grad_accum": args.grad_accum, "remat": args.remat,
+        "remat_policy": args.remat_policy,
+        "concat_views": args.concat_views, "depth": args.depth,
         "clip": [T, S, S], "frames": [H0, W0],
         "dtype": cfg.compute_dtype, "fused_conv": args.fused_conv,
         "pallas_augment": args.pallas_augment, "steps": args.steps,

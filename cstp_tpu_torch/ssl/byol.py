@@ -1,12 +1,15 @@
 """BYOL engine: online/target towers, EMA momentum update, pretext heads,
 and the finetune/test model.
 
-The port of ``cstp_tpu/ssl/byol.py`` for the concatenated-views call
-pattern (``concat_views=1``): both views run through each tower as one 2B
-batch, with the towers', predictor's, ``pb_cls``' and ``rotate_cls``' BN
-groups doubled so the statistics stay per view. The target tower runs
-under ``torch.no_grad()`` (the JAX package's ``stop_gradient``); it still
-runs in train mode, so its BN running statistics update, as in JAX.
+The port of ``cstp_tpu/ssl/byol.py``. Two call patterns, both per-view in
+their statistics: ``concat_views=1`` runs both views through each tower as
+one 2B batch, with the towers', predictor's, ``pb_cls``' and
+``rotate_cls``' BN groups doubled; ``concat_views=0`` is the reference's
+own pattern, one call per view (online x1, online x2, predictor x1,
+predictor x2, target x1, target x2, then the heads per view), so the
+running statistics advance once per call, in that order. The target tower
+runs under ``torch.no_grad()`` (the JAX package's ``stop_gradient``); it
+still runs in train mode, so its BN running statistics update, as in JAX.
 
 ``CSTPClassify`` is the finetune/test model: the online backbone, then the
 ``linear`` head (L2-normalise -> ``cls_bn`` -> float32 ``classify``) or the
@@ -60,22 +63,27 @@ class CSTPPretrain(nn.Module):
     """Pretraining model: BYOL towers + 4 pretext heads.
 
     ``fused_conv``: 1 = fused (2+1)D blocks in both towers, 2 = in the
-    target tower only, 0 = none.
+    target tower only, 0 = none. ``concat_views``: 1 = one 2B call per
+    tower, 0 = one call per view. ``remat`` / ``remat_policy``: the
+    towers' ``--remat`` / ``--remat_policy`` (``models/r21d.py``).
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
                  dtype=torch.bfloat16, bn_groups: int = 1, fused_conv: int = 0,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None,
+                 concat_views: bool = True, remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
-        g2 = 2 * bn_groups
+        self.concat_views = bool(concat_views)
+        g2 = 2 * bn_groups if self.concat_views else bn_groups
         use_proj = spec.proj_dim is not None
-        self.online_net = make_backbone(backbone, depth, dtype=dtype,
-                                        proj_flag=use_proj, bn_groups=g2,
-                                        fused_conv=fused_conv == 1, gen=gen)
-        self.target_net = make_backbone(backbone, depth, dtype=dtype,
-                                        proj_flag=use_proj, bn_groups=g2,
-                                        fused_conv=fused_conv >= 1, gen=gen)
+        tower = dict(dtype=dtype, proj_flag=use_proj, bn_groups=g2, gen=gen,
+                     remat=remat, remat_policy=remat_policy)
+        self.online_net = make_backbone(backbone, depth,
+                                        fused_conv=fused_conv == 1, **tower)
+        self.target_net = make_backbone(backbone, depth,
+                                        fused_conv=fused_conv >= 1, **tower)
         self.predictor = MLPHead(spec.proj_dim, spec.pred_hidden,
                                  spec.pred_dim, dtype, g2, gen)
         f, style = spec.feat_dim, spec.head_style
@@ -89,18 +97,32 @@ class CSTPPretrain(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = True):
         """``o_type='loss_com'`` forward: returns ``(byol_loss_mean,
         (pred_spa, pred_tem, pb1, pb2, rot1, rot2))``."""
-        x12 = torch.cat([x1, x2], dim=0)
-        feats, embs = self.online_net(x12, train)
-        pred1, pred2 = self.predictor(embs, train).chunk(2, dim=0)
-        feat1, feat2 = feats.chunk(2, dim=0)
-        with torch.no_grad():
-            _, tembs = self.target_net(x12, train)
-        temb1, temb2 = tembs.chunk(2, dim=0)
+        if self.concat_views:
+            x12 = torch.cat([x1, x2], dim=0)
+            feats, embs = self.online_net(x12, train)
+            pred1, pred2 = self.predictor(embs, train).chunk(2, dim=0)
+            feat1, feat2 = feats.chunk(2, dim=0)
+            with torch.no_grad():
+                _, tembs = self.target_net(x12, train)
+            temb1, temb2 = tembs.chunk(2, dim=0)
+        else:
+            feat1, emb1 = self.online_net(x1, train)
+            feat2, emb2 = self.online_net(x2, train)
+            pred1 = self.predictor(emb1, train)
+            pred2 = self.predictor(emb2, train)
+            with torch.no_grad():
+                _, temb1 = self.target_net(x1, train)
+                _, temb2 = self.target_net(x2, train)
         loss = (byol_regression_loss(pred1, temb2)
                 + byol_regression_loss(pred2, temb1))
         feat_cat = torch.cat([feat1, feat2], dim=-1)
-        pb1, pb2 = self.pb_cls(feats, train).chunk(2, dim=0)
-        rot1, rot2 = self.rotate_cls(feats, train).chunk(2, dim=0)
+        if self.concat_views:
+            pb1, pb2 = self.pb_cls(feats, train).chunk(2, dim=0)
+            rot1, rot2 = self.rotate_cls(feats, train).chunk(2, dim=0)
+        else:
+            pb1, pb2 = self.pb_cls(feat1, train), self.pb_cls(feat2, train)
+            rot1 = self.rotate_cls(feat1, train)
+            rot2 = self.rotate_cls(feat2, train)
         out = (self.overlap_spa(feat_cat, train),
                self.overlap_tem(feat_cat, train), pb1, pb2, rot1, rot2)
         return loss.mean(), out

@@ -2,12 +2,13 @@
 
 The port of ``cstp_tpu/train/finetune.py``: model and state creation with
 the frozen backbone prefixes of ``ft_fc`` / ``ft_begin_index``, the
-finetune step (augment inside, ``grad_accum`` microbatches, SGD without a
-clip), the eval step (mask-weighted sums), the window logits and feature
-steps of the sliding-window test and retrieval, and their host helpers.
+finetune step (augment inside, ``grad_accum`` microbatches, the
+configured optimizer without a clip), the eval step (mask-weighted sums),
+the window logits and feature steps of the sliding-window test and
+retrieval, and their host helpers.
 
 As in ``train/pretrain.py``, a training step updates ``state`` (parameters,
-BN running statistics, momentum trace) in place. Frozen parameters are
+BN running statistics, optimizer state) in place. Frozen parameters are
 handed neither to autograd nor to the optimizer: they keep their values
 bitwise, as the JAX package's ``set_to_zero`` partition does, and their BN
 running statistics still move in train mode.
@@ -37,6 +38,7 @@ from cstp_tpu_torch.train.pretrain import (
     TrainState,
     bn_groups_from_config,
     compute_dtype,
+    double_bias_lr,
 )
 
 
@@ -78,10 +80,11 @@ def finetune_frozen_prefixes(config: Config) -> Tuple[str, ...]:
     return tuple(frozen)
 
 
-def finetune_optimizer(config: Config, model: CSTPClassify) -> optim.SGD:
-    """The finetune SGD (no gradient clip); freezes the parameters under
-    ``finetune_frozen_prefixes(config)`` in ``model`` and unfreezes the
-    others."""
+def finetune_optimizer(config: Config, model: CSTPClassify
+                       ) -> optim.Optimizer:
+    """The finetune optimizer (no gradient clip); freezes the parameters
+    under ``finetune_frozen_prefixes(config)`` in ``model`` and unfreezes
+    the others."""
     optim.freeze(model, finetune_frozen_prefixes(config))
     return optim.make_optimizer(
         config.optimizer, momentum=config.momentum,
@@ -91,16 +94,18 @@ def finetune_optimizer(config: Config, model: CSTPClassify) -> optim.SGD:
 
 def create_finetune_state(config: Config, num_classes: int, seed: int = 0,
                           device=None
-                          ) -> Tuple[CSTPClassify, TrainState, optim.SGD]:
+                          ) -> Tuple[CSTPClassify, TrainState,
+                                     optim.Optimizer]:
     model = create_classify_model(config, num_classes, seed, device)
     tx = finetune_optimizer(config, model)
     return model, TrainState(0, model, tx.init(optim.trainable(model))), tx
 
 
-def _build_finetune_train(model: CSTPClassify, tx: optim.SGD,
+def _build_finetune_train(model: CSTPClassify, tx: optim.Optimizer,
                           config: Config):
     config.check_ported()
     accum = config.grad_accum
+    lr_mult = double_bias_lr(config)
 
     def loss_fn(m, mb):
         x, y = mb
@@ -117,14 +122,15 @@ def _build_finetune_train(model: CSTPClassify, tx: optim.SGD,
             lambda mb: loss_fn(m, mb), microbatches((x, labels), accum),
             params)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
-        optim.apply_lr(params, updates, lr)
+        optim.apply_lr(params, updates, lr, lr_mult(params))
         state.step += 1
         return state, metrics
 
     return train
 
 
-def make_finetune_step(model: CSTPClassify, tx: optim.SGD, config: Config):
+def make_finetune_step(model: CSTPClassify, tx: optim.Optimizer,
+                       config: Config):
     """Returns ``step(state, generator, batch, lr) -> (state, metrics)``:
     the finetune augment (``batch["frames"]`` ``(B, T, H0, W0, 3)`` uint8,
     drawn from ``generator``), then the train program on
@@ -142,8 +148,8 @@ def make_finetune_step(model: CSTPClassify, tx: optim.SGD, config: Config):
     return step
 
 
-def make_preaugmented_finetune_step(model: CSTPClassify, tx: optim.SGD,
-                                    config: Config):
+def make_preaugmented_finetune_step(model: CSTPClassify,
+                                    tx: optim.Optimizer, config: Config):
     """Step on already-augmented clips: ``step(state, batch, lr)`` with
     ``batch`` keys ``clips`` (``(B, T, S, S, 3)``) and ``labels``."""
     train = _build_finetune_train(model, tx, config)

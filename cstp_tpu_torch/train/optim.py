@@ -1,32 +1,46 @@
-"""The SGD update and the learning-rate schedules (pretrain: cosine with
-warmup and restarts; finetune: reduce on plateau).
+"""The optimizers' update rules and the learning-rate schedules
+(pretrain: cosine with warmup and restarts; finetune: reduce on plateau).
 
-The port of ``make_optimizer``'s SGD chain (``cstp_tpu/train/optim.py``,
-torch ``optim.SGD(momentum, weight_decay)`` with ``clip_grad_norm_(18)`` in
-front), in its order:
+The port of ``make_optimizer`` (``cstp_tpu/train/optim.py``), in its
+chain order:
 
 1. global-norm clip over the trainable parameters only (skipped with
    ``clip_grad_norm=None``, as the finetune step runs);
-2. ``g + weight_decay * p`` (decayed weights);
-3. momentum trace ``buf = g + momentum * buf`` (dampening 0, the first step
-   seeds ``buf = g``).
+2. ``sgd``: ``g + weight_decay * p``, then the momentum trace ``buf = g +
+   momentum * buf`` (torch ``optim.SGD``; the first step seeds ``buf =
+   g``); with ``dampening`` ``buf = momentum * buf + (1 - dampening) * g``
+   after an undamped first step; with ``nesterov`` the update is ``g +
+   momentum * buf``;
+3. ``adam``: L2 decay into the gradient, then bias-corrected Adam moments
+   (betas 0.9 / 0.999, eps 1e-8); ``adamw``: Adam (betas 0.9 / 0.99) first,
+   then ``+ weight_decay * p`` (decoupled).
 
-The learning rate is applied outside, ``p -= lr * buf``, by
-:func:`apply_lr`. Frozen parameters (the target tower in pretraining, the
-frozen prefixes of a finetune run: the JAX package's ``param_labels`` with
+The learning rate is applied outside, ``p -= lr * update``, by
+:func:`apply_lr`, optionally scaled per parameter
+(:func:`bias_double_lr_multipliers`, ``--double_bias_lr``). Frozen
+parameters (the target tower in pretraining, the frozen prefixes of a
+finetune run: the JAX package's ``param_labels`` with
 ``optax.set_to_zero``) have ``requires_grad`` off (:func:`freeze`) and are
 not handed to the optimizer (:func:`trainable`): they get no gradient, no
-update, no weight decay and no momentum trace, and stay out of the norm.
+update, no weight decay and no optimizer state, and stay out of the norm.
+
+State layouts: plain SGD ``{"trace"}``, dampened SGD ``{"trace",
+"count"}``, Adam ``{"mu", "nu", "count"}``; each a ``{name: tensor}`` map
+over the trainable parameters, ``count`` a Python int (the updates taken).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Protocol,
+                    Sequence, Tuple)
 
+import numpy as np
 import torch
 from torch import nn
+
+Tensors = Dict[str, torch.Tensor]
 
 
 def is_frozen(name: str, frozen_prefixes: Sequence[str]) -> bool:
@@ -44,57 +58,163 @@ def freeze(model: nn.Module, frozen_prefixes: Sequence[str]) -> None:
         p.requires_grad_(not is_frozen(n, frozen_prefixes))
 
 
-def trainable(model: nn.Module) -> Dict[str, torch.Tensor]:
+def trainable(model: nn.Module) -> Tensors:
     """The parameters the optimizer updates: those ``freeze`` left on."""
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
+class Optimizer(Protocol):
+    """An lr-less update rule over ``{name: tensor}`` maps."""
+
+    def init(self, params: Tensors) -> Dict: ...
+
+    def update(self, grads: Tensors, state: Dict,
+               params: Tensors) -> Tuple[Tensors, Dict]: ...
+
+
+def _clipped(grads: Tensors, max_norm: Optional[float]) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm``: scale every gradient by ``max_norm /
+    norm`` when the global norm reaches ``max_norm``."""
+    g = list(grads.values())
+    if not max_norm:
+        return g
+    norm = torch.sqrt(sum(x.float().square().sum() for x in g))
+    clip = norm >= max_norm
+    return [torch.where(clip, (x / norm) * max_norm, x) for x in g]
+
+
+def _decayed(g: List[torch.Tensor], params: Tensors, names: List[str],
+             weight_decay: float) -> List[torch.Tensor]:
+    """optax ``add_decayed_weights``: ``g + weight_decay * p``."""
+    if not weight_decay:
+        return g
+    return [x + weight_decay * params[n] for x, n in zip(g, names)]
+
+
 class SGD:
-    """Lr-less SGD update rule; state is ``{"trace": {name: buf}}`` over
-    the trainable parameters."""
+    """torch ``optim.SGD`` without its learning rate: weight decay,
+    momentum, dampening (``trace_with_dampening``) and nesterov."""
 
     def __init__(self, momentum: float = 0.9, weight_decay: float = 1e-4,
-                 clip_grad_norm: Optional[float] = 18.0):
+                 clip_grad_norm: Optional[float] = 18.0,
+                 dampening: float = 0.0, nesterov: bool = False):
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.clip_grad_norm = clip_grad_norm
+        self.dampening = dampening
+        self.nesterov = nesterov
 
-    def init(self, params: Dict[str, torch.Tensor]) -> Dict:
-        return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
+    def init(self, params: Tensors) -> Dict:
+        state = {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
+        if self.dampening:
+            state["count"] = 0
+        return state
 
     @torch.no_grad()
-    def update(self, grads: Dict[str, torch.Tensor], state: Dict,
-               params: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
-        names: List[str] = list(grads)
-        g = [grads[n] for n in names]
-        if self.clip_grad_norm:
-            norm = torch.sqrt(sum(x.float().square().sum() for x in g))
-            clip = norm >= self.clip_grad_norm
-            g = [torch.where(clip, (x / norm) * self.clip_grad_norm, x)
-                 for x in g]
-        if self.weight_decay:
-            g = [x + self.weight_decay * params[n] for x, n in zip(g, names)]
-        trace = {n: x + self.momentum * state["trace"][n]
-                 for x, n in zip(g, names)}
-        return trace, {"trace": trace}
+    def update(self, grads: Tensors, state: Dict,
+               params: Tensors) -> Tuple[Tensors, Dict]:
+        names = list(grads)
+        g = _decayed(_clipped(grads, self.clip_grad_norm), params, names,
+                     self.weight_decay)
+        m, old = self.momentum, state["trace"]
+        if self.dampening:
+            # the first step seeds the trace undamped, as torch does
+            keep = 1.0 - (self.dampening if state["count"] > 0 else 0.0)
+            trace = {n: m * old[n] + keep * x for x, n in zip(g, names)}
+            new_state = {"trace": trace, "count": state["count"] + 1}
+        else:
+            trace = {n: x + m * old[n] for x, n in zip(g, names)}
+            new_state = {"trace": trace}
+        if self.nesterov:
+            return ({n: x + m * trace[n] for x, n in zip(g, names)},
+                    new_state)
+        return trace, new_state
+
+
+def _bias_correction(decay: float, count: int) -> torch.Tensor:
+    """``1 - decay ** count`` in float32 with the power rounded once, as
+    optax's jitted ``decay ** count`` gives it (``torch.pow`` multiplies
+    out an integer power, and ``1 - b2 ** count`` magnifies its extra
+    rounding a thousandfold). A 0-d CPU tensor combines with tensors on any
+    device."""
+    power = np.float32(float(np.float32(decay)) ** count)
+    return torch.tensor(np.float32(1.0) - power)
+
+
+class Adam:
+    """optax ``scale_by_adam`` (bias-corrected, eps 1e-8, eps_root 0) with
+    float32 moments. ``decoupled=False`` (``adam``) adds the L2 decay to the
+    gradient before the moments; ``decoupled=True`` (``adamw``) adds
+    ``weight_decay * p`` to the Adam step."""
+
+    def __init__(self, b1: float, b2: float, weight_decay: float = 0.0,
+                 decoupled: bool = False,
+                 clip_grad_norm: Optional[float] = 18.0, eps: float = 1e-8):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.decoupled = decoupled
+        self.clip_grad_norm = clip_grad_norm
+
+    def init(self, params: Tensors) -> Dict:
+        def zeros():
+            return {n: torch.zeros_like(p, dtype=torch.float32)
+                    for n, p in params.items()}
+        return {"mu": zeros(), "nu": zeros(), "count": 0}
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: Dict,
+               params: Tensors) -> Tuple[Tensors, Dict]:
+        names = list(grads)
+        g = _clipped(grads, self.clip_grad_norm)
+        if not self.decoupled:
+            g = _decayed(g, params, names, self.weight_decay)
+        b1, b2 = self.b1, self.b2
+        mu = {n: (1.0 - b1) * x + b1 * state["mu"][n]
+              for x, n in zip(g, names)}
+        nu = {n: (1.0 - b2) * x.square() + b2 * state["nu"][n]
+              for x, n in zip(g, names)}
+        count = state["count"] + 1
+        c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
+        out = [(mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.eps)
+               for n in names]
+        if self.decoupled:
+            out = _decayed(out, params, names, self.weight_decay)
+        return dict(zip(names, out)), {"mu": mu, "nu": nu, "count": count}
 
 
 def make_optimizer(name: str, *, momentum: float = 0.9,
                    weight_decay: float = 1e-4, dampening: float = 0.0,
                    nesterov: bool = False,
-                   clip_grad_norm: Optional[float] = 18.0) -> SGD:
-    if name != "sgd" or dampening or nesterov:
-        raise NotImplementedError(
-            "cstp_tpu_torch ports plain SGD (dampening 0, no nesterov) only")
-    return SGD(momentum, weight_decay, clip_grad_norm)
+                   clip_grad_norm: Optional[float] = 18.0) -> Optimizer:
+    """The lr-less update rule ``name`` ("sgd", "adam" or "adamw"); the
+    train step applies ``-lr``."""
+    if name == "sgd":
+        return SGD(momentum, weight_decay, clip_grad_norm, dampening,
+                   nesterov)
+    if name == "adam":
+        # torch-default betas (the reference passes none)
+        return Adam(0.9, 0.999, weight_decay, False, clip_grad_norm)
+    if name == "adamw":
+        # the reference's explicit betas (0.9, 0.99)
+        return Adam(0.9, 0.99, weight_decay, True, clip_grad_norm)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def bias_double_lr_multipliers(params: Tensors) -> Dict[str, float]:
+    """``--double_bias_lr``: 2x the learning rate for every parameter whose
+    last name part is ``bias`` (BatchNorm biases included), 1x for the
+    others (the reference's ``get_1x_lr_params`` / ``get_2x_lr_params``)."""
+    return {n: 2.0 if n.rsplit(".", 1)[-1] == "bias" else 1.0
+            for n in params}
 
 
 @torch.no_grad()
-def apply_lr(params: Dict[str, torch.Tensor],
-             updates: Dict[str, torch.Tensor], lr) -> None:
-    """``p -= lr * u`` in place (torch's ``p -= lr * buf``)."""
+def apply_lr(params: Tensors, updates: Tensors, lr,
+             lr_mult: Optional[Dict[str, float]] = None) -> None:
+    """``p -= lr * u`` in place (torch's ``p -= lr * buf``), with
+    ``lr * lr_mult[name]`` where ``lr_mult`` is given."""
     for n, u in updates.items():
-        params[n].sub_(lr * u)
+        params[n].sub_((lr if lr_mult is None else lr * lr_mult[n]) * u)
 
 
 def cosine_warmup_restarts(max_lr: float, first_cycle_steps: int,

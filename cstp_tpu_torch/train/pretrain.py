@@ -8,15 +8,16 @@ the JAX package:
   path, as the JAX package resolves "auto");
 * **train**: EMA of the target tower (parameters only, before the forward
   pass), online and target forwards, the 7-term loss, backward, global-norm
-  clip 18 and the SGD update. With ``grad_accum > 1`` the batch is split
-  into contiguous microbatches, each run forward and backward in turn
-  (only one microbatch's activations live at a time, each normalised by its
-  own batch statistics, the BN running statistics advancing once per
-  microbatch, in order); the gradients are summed, divided by the count,
-  and take one update.
+  clip 18 and the optimizer's update (SGD, Adam or AdamW; with
+  ``--double_bias_lr`` biases at twice the learning rate). With
+  ``grad_accum > 1`` the batch is split into contiguous microbatches,
+  each run forward and backward in turn (only one microbatch's activations
+  live at a time, each normalised by its own batch statistics, the BN
+  running statistics advancing once per microbatch, in order); the
+  gradients are summed, divided by the count, and take one update.
 
 PyTorch state is mutable: a step updates ``state`` (parameters, BN running
-statistics, momentum trace) in place and returns it with the metrics. The
+statistics, optimizer state) in place and returns it with the metrics. The
 port runs as one process on one device; data-parallel meshes are not
 ported.
 """
@@ -45,7 +46,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class TrainState:
     step: int
     model: CSTPPretrain        # parameters and BN running statistics
-    opt_state: Dict            # {"trace": {trainable name: momentum buffer}}
+    opt_state: Dict            # the optimizer's state (train/optim.py)
 
 
 def compute_dtype(config: Config) -> torch.dtype:
@@ -89,15 +90,19 @@ def create_pretrain_model(config: Config, seed: int = 0,
     gen = torch.Generator().manual_seed(seed)
     model = CSTPPretrain(config.model_name, config.model_depth,
                          compute_dtype(config), bn_groups_from_config(config),
-                         int(config.fused_conv), gen)
+                         int(config.fused_conv), gen,
+                         concat_views=bool(config.concat_views),
+                         remat=config.remat,
+                         remat_policy=config.remat_policy)
     return model.to(dev)
 
 
 def create_pretrain_state(config: Config, seed: int = 0, device=None
-                          ) -> Tuple[CSTPPretrain, TrainState, optim.SGD]:
-    """The model, its state and the SGD, which trains every parameter but
-    the target tower's (requires_grad=False in the reference; frozen in the
-    JAX optimizer)."""
+                          ) -> Tuple[CSTPPretrain, TrainState,
+                                     optim.Optimizer]:
+    """The model, its state and the configured optimizer, which trains
+    every parameter but the target tower's (requires_grad=False in the
+    reference; frozen in the JAX optimizer)."""
     model = create_pretrain_model(config, seed, device)
     optim.freeze(model, ("target_net",))
     tx = optim.make_optimizer(
@@ -108,6 +113,13 @@ def create_pretrain_state(config: Config, seed: int = 0, device=None
                         else None))
     state = TrainState(0, model, tx.init(optim.trainable(model)))
     return model, state, tx
+
+
+def double_bias_lr(config: Config):
+    """``params -> lr multipliers`` (``--double_bias_lr``) or ``None``."""
+    if config.double_bias_lr:
+        return optim.bias_double_lr_multipliers
+    return lambda params: None
 
 
 def _loss_and_metrics(model: CSTPPretrain, views_labels, w):
@@ -144,7 +156,7 @@ def _loss_and_metrics(model: CSTPPretrain, views_labels, w):
     return total, metrics
 
 
-def _build_pretrain_programs(model: CSTPPretrain, tx: optim.SGD,
+def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
                              config: Config):
     config.check_ported()
     w = (config.loss_weight if config.task != "r_byol"
@@ -165,6 +177,7 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.SGD,
         return v1.to(dtype), v2.to(dtype), spa
 
     accum = config.grad_accum
+    lr_mult = double_bias_lr(config)
 
     def train(state: TrainState, views_labels, lr):
         m = state.model
@@ -174,20 +187,22 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.SGD,
             lambda mb: _loss_and_metrics(m, mb, w),
             microbatches(views_labels, accum), params)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
-        optim.apply_lr(params, updates, lr)
+        optim.apply_lr(params, updates, lr, lr_mult(params))
         state.step += 1
         return state, metrics
 
     return augment, train
 
 
-def split_pretrain_step(model: CSTPPretrain, tx: optim.SGD, config: Config):
+def split_pretrain_step(model: CSTPPretrain, tx: optim.Optimizer,
+                        config: Config):
     """The two programs behind :func:`make_pretrain_step`:
     ``(augment, train)``."""
     return _build_pretrain_programs(model, tx, config)
 
 
-def make_pretrain_step(model: CSTPPretrain, tx: optim.SGD, config: Config):
+def make_pretrain_step(model: CSTPPretrain, tx: optim.Optimizer,
+                       config: Config):
     """Returns ``step(state, generator, batch, lr) -> (state, metrics)``.
 
     ``batch``: ``frames1``/``frames2`` ``(B, T, H0, W0, 3)`` uint8,
@@ -207,7 +222,7 @@ def make_pretrain_step(model: CSTPPretrain, tx: optim.SGD, config: Config):
     return step
 
 
-def make_preaugmented_step(model: CSTPPretrain, tx: optim.SGD,
+def make_preaugmented_step(model: CSTPPretrain, tx: optim.Optimizer,
                            config: Config):
     """Step on already-augmented views: ``step(state, batch, lr)`` with
     ``batch`` keys ``view1``, ``view2``, ``spa``, ``tem``, ``pb``, ``rot1``,

@@ -16,6 +16,8 @@ _TINY = ["--device", "cpu", "--per-chip-bs", "4", "--steps", "1",
 
 @pytest.mark.parametrize("mode, extra", [
     ("pretrain", []), ("pretrain", ["--grad-accum", "2", "--fused-conv", "1"]),
+    ("pretrain", ["--remat", "--concat-views", "0"]),
+    ("pretrain", ["--remat-policy", "bnrelu", "--fused-conv", "1"]),
     ("ft", ["--fused-conv", "1"]), ("eval", [])])
 def test_entry_runs_each_mode(capsys, monkeypatch, mode, extra):
     monkeypatch.setattr(bench_step, "T", 4)     # clips of 4 x 32^2
@@ -31,3 +33,6 @@ def test_entry_runs_each_mode(capsys, monkeypatch, mode, extra):
     # CPU tensors take the plain versions: no kernel is launched
     assert not any(res["launches_per_step"].values())
     assert res["loss"] == res["loss"]        # finite, not NaN
+    assert res["remat"] == ("--remat" in extra)
+    assert res["remat_policy"] == ("bnrelu" if "bnrelu" in extra else "")
+    assert res["concat_views"] == (0 if "--concat-views" in extra else 1)

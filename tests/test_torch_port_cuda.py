@@ -475,3 +475,91 @@ def test_a_two_step_pretrain_loop_with_the_kernels(dev, tmp_path):
     assert len(rows) == 2
     assert all(np.isfinite(float(c)) for c in rows[1])
     assert out["timing"][0]["steps"] == 2
+
+
+def _flag_config(**over):
+    from cstp_tpu_torch.config import Config
+
+    kw = dict(model_name="r21d", model_depth=1, sample_duration=4,
+              sample_size=32, batch_size=8, compute_dtype="bfloat16",
+              fused_conv=1, pallas_augment="on", task="loss_com")
+    kw.update(over)
+    return Config(**kw).finalize()
+
+
+def _flag_step(dev, cfg):
+    """One pretrain step of ``cfg`` from seed-0 weights on a seeded batch:
+    (metrics, BN buffers after it, K2/K3/K5 launches)."""
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    b, t = cfg.batch_size, cfg.sample_duration
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def labels(k):
+        return torch.randint(0, k, (b,), generator=gen, device=dev)
+
+    batch = dict(frames1=torch.randint(0, 256, (b, t, 40, 53, 3),
+                                       generator=gen, device=dev,
+                                       dtype=torch.uint8),
+                 frames2=torch.randint(0, 256, (b, t, 40, 53, 3),
+                                       generator=gen, device=dev,
+                                       dtype=torch.uint8),
+                 rot1=labels(4), rot2=labels(4), tem=labels(5), pb=labels(5))
+    before, aug = dict(C.launches), A.launches
+    state, m = make_pretrain_step(model, tx, cfg)(state, gen, batch,
+                                                  cfg.learning_rate)
+    torch.cuda.synchronize()
+    counts = (C.launches["stats"] - before["stats"],
+              C.launches["fwd"] - before["fwd"], A.launches - aug)
+    return ({k: float(v) for k, v in m.items()},
+            {n: v.clone() for n, v in model.named_buffers()}, counts)
+
+
+def test_per_view_calls_with_kernels_match_the_plain_path(dev):
+    """--concat_views 0 with K2/K3/K5: 4 tower calls x 5 fused sites, one
+    BN group of the per-view batch each, and one K5 launch; the loss terms
+    within 2e-2 of the plain bf16 step's from the same weights, generator
+    and frames (phase 4's rule in chip_smoke.py)."""
+    mk, _, counts = _flag_step(dev, _flag_config(concat_views=0))
+    mp, _, plain = _flag_step(dev, _flag_config(
+        concat_views=0, fused_conv=0, pallas_augment="off"))
+    assert counts == (20, 20, 1) and plain == (0, 0, 0)
+    for k in mk:
+        assert np.isfinite(mk[k]), k
+        if k.startswith("loss"):
+            assert abs(mk[k] - mp[k]) <= 2e-2 * abs(mp[k]), k
+
+
+@pytest.mark.parametrize("over, launches", [
+    (dict(remat=True), 15), (dict(remat_policy="bnrelu"), 15),
+    (dict(remat=True, concat_views=0), 30), (dict(fused_conv=2), 5)],
+    ids=["remat", "bnrelu", "remat-concat_views0", "fused_conv2"])
+def test_remat_and_fused_conv2_launch_counts(dev, over, launches):
+    """The fused sites of the online tower recompute under remat (5 per
+    tower call; under "bnrelu" too, since no policy can name the fused
+    site's output); fused_conv=2 fuses the target tower only."""
+    m, _, counts = _flag_step(dev, _flag_config(**over))
+    assert counts == (launches, launches, 1)
+    assert np.isfinite(m["loss"])
+
+
+@pytest.mark.parametrize("over", [dict(remat=True),
+                                  dict(remat_policy="bnrelu")],
+                         ids=["remat", "bnrelu"])
+def test_remat_leaves_the_running_statistics_as_without_it(dev, over):
+    """The recompute in the backward pass restores the BN running
+    statistics: after one step they are bitwise those of the step without
+    remat (they come from the forward alone, which is the same); the loss
+    terms agree within 2e-2."""
+    m0, stats0, _ = _flag_step(dev, _flag_config())
+    m1, stats1, _ = _flag_step(dev, _flag_config(**over))
+    assert stats1.keys() == stats0.keys()
+    for n, v in stats0.items():
+        assert torch.equal(stats1[n], v), n
+    for k in m0:
+        if k.startswith("loss"):
+            assert abs(m1[k] - m0[k]) <= 2e-2 * abs(m0[k]), k

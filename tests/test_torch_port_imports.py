@@ -145,9 +145,8 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(legacy_pace=1), dict(double_bias_lr=True), dict(i3d_conv_head=1),
-    dict(tf_i3d_ckpt="i3d.ckpt"), dict(concat_views=0), dict(remat=True),
-    dict(remat_policy="bnrelu"), dict(s2d_stem=True), dict(t_fold=1),
+    dict(legacy_pace=1), dict(i3d_conv_head=1),
+    dict(tf_i3d_ckpt="i3d.ckpt"), dict(s2d_stem=True), dict(t_fold=1),
     dict(quant="int8"), dict(mid_round=128), dict(ntxent_weight=0.5),
     dict(shard_opt_state=1), dict(model_name="s3d"),
 ])
@@ -155,4 +154,39 @@ def test_config_refuses_unported_flags(flag):
     from cstp_tpu_torch.config import Config
 
     with pytest.raises(NotImplementedError):
+        Config(**flag).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(concat_views=0), dict(remat=True), dict(remat_policy="bnrelu"),
+    dict(optimizer="adam"), dict(optimizer="adamw"), dict(dampening=0.1),
+    dict(nesterov=True), dict(double_bias_lr=True),
+])
+def test_config_takes_the_ported_step_flags(flag):
+    """Each ported step flag builds a config and reaches the pretrain model
+    and its optimizer."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.train.pretrain import create_pretrain_state
+
+    cfg = Config(model_name="r21d", sample_duration=4, sample_size=32,
+                 batch_size=2, **flag).finalize()
+    for k, v in flag.items():
+        assert getattr(cfg, k) == v
+    model, state, tx = create_pretrain_state(cfg, device="cpu")
+    assert model.concat_views == bool(cfg.concat_views)
+    want = "full" if cfg.remat else cfg.remat_policy
+    assert model.online_net.remat == model.target_net.remat == want
+    assert set(state.opt_state) == (
+        {"mu", "nu", "count"} if cfg.optimizer != "sgd"
+        else {"trace", "count"} if cfg.dampening else {"trace"})
+
+
+@pytest.mark.parametrize("flag, error", [
+    (dict(optimizer="lamb"), AssertionError),
+    (dict(remat_policy="dots"), ValueError),
+])
+def test_config_rejects_bad_optimizer_and_remat_policy(flag, error):
+    from cstp_tpu_torch.config import Config
+
+    with pytest.raises(error):
         Config(**flag).finalize()
