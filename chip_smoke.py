@@ -81,7 +81,19 @@ Phases:
      pretrain`` at per-view 64 with ``--remat`` (plain; must fit),
      ``--remat-policy bnrelu`` (plain), ``--remat`` with the kernels, and
      ``--fused-conv 2``: step ms, pairs/s, peak GiB (a run that runs out of
-     memory, other than the first, is reported).
+     memory, other than the first, is reported);
+  14. families: the C3D and 3D-ResNet backbones at full width, 16 x 112^2,
+     bf16: at per-view 16, one pretrain step each of c3d, r3d-18 with
+     shortcut B and with shortcut A with K5 (``pallas_augment`` on,
+     ``fused_conv`` 1, which these families ignore: 0/0/1 launches)
+     against the plain bf16 step (0/0/0) by phase 4's rule, each timed
+     over 2 steps with its peak memory; for c3d and r3d-18 a finetune and
+     an eval step at batch 16 (no launch), and a pretrain state exported
+     to a reference ``.pth`` (``python -m cstp_tpu_torch.models.torch_import
+     --export``) that ``main_ft`` (2 steps) and ``main_retrieval`` load with
+     bitwise its ``online_net`` tensors; then ``bench_step`` at per-view 64
+     (pretrain with K5, and ft) for c3d and r3d-18: step ms, throughput,
+     peak GiB (an out-of-memory is reported with the size asked).
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``), the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -574,16 +586,18 @@ def phase_hashes(dev):
 def _slice_config(fused: bool, **over):
     from cstp_tpu_torch.config import Config
 
-    kw = dict(fused_conv=int(fused), pallas_augment="on" if fused else "off")
+    kw = dict(model_name="r21d", model_depth=1, fused_conv=int(fused),
+              pallas_augment="on" if fused else "off")
     kw.update(over)
-    return Config(model_name="r21d", model_depth=1, sample_duration=T,
-                  sample_size=S, batch_size=B_VIEW, compute_dtype="bfloat16",
-                  task="loss_com", **kw).finalize()
+    return Config(sample_duration=T, sample_size=S, batch_size=B_VIEW,
+                  compute_dtype="bfloat16", task="loss_com", **kw).finalize()
 
 
-def _slice_batch(dev, seed: int):
+def _slice_batch(dev, seed: int, n_pb: int = 5):
     """uint8 frame pairs and pretext labels, as the data loader gives them
-    (bench.py's synthetic batch: 16 x 128 x 171 frames)."""
+    (bench.py's synthetic batch: 16 x 128 x 171 frames); playback labels
+    below ``n_pb`` (the loader's are 0..3: C3D's and r3d's heads have 4
+    classes, R(2+1)D's 5)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def labels(k):
@@ -592,7 +606,7 @@ def _slice_batch(dev, seed: int):
     frames = [torch.randint(0, 256, (B_VIEW, T, H0, W0, 3), generator=gen,
                             device=dev, dtype=torch.uint8) for _ in range(2)]
     return dict(frames1=frames[0], frames2=frames[1], rot1=labels(4),
-                rot2=labels(4), tem=labels(5), pb=labels(5))
+                rot2=labels(4), tem=labels(5), pb=labels(n_pb))
 
 
 def _launch_counts():
@@ -694,10 +708,11 @@ def profile_step(run, top: int = 12):
 def _slice_config_plain_f32(**over):
     from cstp_tpu_torch.config import Config
 
-    return Config(model_name="r21d", model_depth=1, sample_duration=T,
-                  sample_size=S, batch_size=B_VIEW, compute_dtype="float32",
-                  fused_conv=0, pallas_augment="off",
-                  task="loss_com", **over).finalize()
+    kw = dict(model_name="r21d", model_depth=1)
+    kw.update(over)
+    return Config(sample_duration=T, sample_size=S, batch_size=B_VIEW,
+                  compute_dtype="float32", fused_conv=0, pallas_augment="off",
+                  task="loss_com", **kw).finalize()
 
 
 def _one_step_run(dev, cfg, batch, timed_steps: int = 2):
@@ -1696,6 +1711,234 @@ def phase_flags(dev, card: str, slice_ms: float):
     log(f"[flags] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ families
+
+# phase 14's pretrain runs: tag -> (model_name, depth, --resnet_shortcut)
+FAMILY_RUNS = {
+    "c3d": ("c3d_byol", 1, "B"),
+    "r3d-18 B": ("r3d_byol", 18, "B"),
+    "r3d-18 A": ("r3d_byol", 18, "A"),
+}
+FAMILY_FT = ("c3d", "r3d-18 B")     # the finetune, eval and importer runs
+FAMILY_BATCH = 16                   # the finetune and eval batch
+# bench_step at bench.py's per-view 64: (mode, --model, --depth, flags,
+# launches per step); C3D's pretrain step needs --grad-accum 2 to fit
+FAMILY_BENCH_RUNS = [
+    ("pretrain", "c3d", "1", ["--pallas-augment", "on"], {"augment": 1}),
+    ("pretrain", "c3d", "1", ["--pallas-augment", "on", "--grad-accum", "2"],
+     {"augment": 1}),
+    ("pretrain", "r3d", "18", ["--pallas-augment", "on"], {"augment": 1}),
+    ("ft", "c3d", "1", [], {}),
+    ("ft", "r3d", "18", [], {}),
+]
+
+
+def _family_kw(tag: str):
+    name, depth, shortcut = FAMILY_RUNS[tag]
+    return dict(model_name=name, model_depth=depth, resnet_shortcut=shortcut)
+
+
+def _family_finetune(dev, card: str, tag: str, steps: int = 2):
+    """One warm-up and ``steps`` timed ft_all steps, then one warm-up and
+    ``steps`` timed eval steps, at batch FAMILY_BATCH: no kernel launched
+    (K2/K3 are R(2+1)D's, K5 the pretrain augment), finite losses, the
+    parameters moved."""
+    from cstp_tpu_torch.train import finetune as ft
+
+    cfg = _ft_config(fused=1, batch_size=FAMILY_BATCH, **_family_kw(tag))
+    model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                                device=dev)
+    step = ft.make_finetune_step(model, tx, cfg)
+    eval_step = ft.make_eval_step(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = {k: v[:FAMILY_BATCH] for k, v in _ft_batch(dev, 13).items()}
+    before = _snapshot(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    state, m = step(state, gen, batch, cfg.learning_rate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [m["loss"]]
+    for _ in range(steps):
+        state, m = step(state, gen, batch, cfg.learning_rate)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ft_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    e = eval_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        e = eval_step(state, batch)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = _launch_counts()
+    losses = torch.stack(losses + [e["loss"]]).float().cpu()
+    moved = max((p.detach() - before[n]).abs().max().item()
+                for n, p in model.named_parameters())
+    log(f"[families] {tag} finetune, batch {FAMILY_BATCH}, {T}x{S}^2 bf16, "
+        f"ft_all: {ft_ms:.1f} ms/step, {FAMILY_BATCH / ft_ms * 1e3:.1f} "
+        f"clips/s, peak {peak:.2f} GiB; eval step {eval_ms:.1f} ms "
+        f"({steps} steps each after one; {card}); losses (train, eval) "
+        f"{[round(v, 4) for v in losses.tolist()]}; max |param change| "
+        f"{moved:.3e}; launches {counts}")
+    if any(counts.values()) or not bool(torch.isfinite(losses).all()) \
+            or moved <= 0.0:
+        raise SystemExit(f"[families] {tag} finetune/eval launched "
+                         f"{counts}, gave non-finite losses or left the "
+                         "parameters unchanged")
+    del model, state, tx
+    torch.cuda.empty_cache()
+
+
+def _family_importer(dev, root: str, tag: str):
+    """A pretrain state (one kernel step from seed 0) saved as a port
+    checkpoint and exported with ``python -m
+    cstp_tpu_torch.models.torch_import --export``; then ``main_ft
+    --pretrained_path <file>.pth`` for 2 steps on synthetic videos, whose
+    model right after the load must hold the state's ``online_net.*``
+    tensors bitwise, and ``main_retrieval`` from the same file."""
+    import os
+
+    from cstp_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from cstp_tpu_torch.cli import main_ft, main_retrieval
+    from cstp_tpu_torch.models import torch_import
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    name, depth, shortcut = FAMILY_RUNS[tag]
+    cfg = _slice_config(True, **_family_kw(tag))
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    state, _ = make_pretrain_step(model, tx, cfg)(
+        state, gen, _slice_batch(dev, seed=15, n_pb=4), cfg.learning_rate)
+    online = {n: t.detach().cpu().clone()
+              for n, t in model.state_dict().items()
+              if n.startswith("online_net.")}
+    ckpt = os.path.join(root, f"{name}_save_1")
+    pth = ckpt + ".pth"
+    ckpt_lib.save_checkpoint(ckpt, ckpt_lib.state_tree(state),
+                             meta={"arch": cfg.arch, "epoch": 1})
+    del model, state, tx
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, "-m", "cstp_tpu_torch.models.torch_import",
+                    "--export", ckpt, pth, "--arch", name], check=True)
+    loaded, load_into = [], torch_import.load_into
+
+    def recording_load_into(m, tree):
+        load_into(m, tree)
+        loaded.append({n: t.detach().cpu().clone()
+                       for n, t in m.state_dict().items()})
+
+    common = ["--model_name", name, "--model_depth", str(depth),
+              "--resnet_shortcut", shortcut, "--pretrained_path", pth,
+              "--sample_duration", str(T), "--sample_size", str(S),
+              "--compute_dtype", "bfloat16", "--data_backend", "synthetic",
+              "--synthetic_len", str(2 * FAMILY_BATCH),
+              "--batch_size", str(FAMILY_BATCH), "--n_classes",
+              str(N_FT_CLASSES), "--n_finetune_classes", str(N_FT_CLASSES),
+              "--log_every", "0", "--n_workers", "4",
+              "--result_path", os.path.join(root, "results")]
+    torch_import.load_into = recording_load_into
+    try:
+        out, _ = _cli_run(main_ft.main, common + [
+            "--task", "ft_all", "--n_epochs", "1", "--steps_per_epoch", "2"],
+            {}, 1)
+        ret, _ = _cli_run(main_retrieval.main, common + [
+            "--task", "retrieval", "--retrieval_clips", "2"], {}, 1)
+    finally:
+        torch_import.load_into = load_into
+    same = len(loaded) == 2 and all(
+        all(torch.equal(sd[n], v) for n, v in online.items()) for sd in loaded)
+    losses = [h["train_loss"] for h in out["history"]]
+    recalls = [ret[k] for k in ("R@1", "R@5", "R@10", "R@20", "R@50")]
+    log(f"[families] {tag} importer: exported {len(online)} online_net "
+        f"tensors to {os.path.basename(pth)} "
+        f"({os.path.getsize(pth) / 2**20:.1f} MiB); main_ft and main_retrieval loaded them bitwise: {same}; "
+        f"finetune losses {losses}; R@k {recalls}")
+    if not same or not all(math.isfinite(v) for v in losses) \
+            or recalls != sorted(recalls):
+        raise SystemExit(f"[families] {tag}: the .pth did not load bitwise, "
+                         "or the finetune or retrieval run failed its checks")
+
+
+def phase_families(dev, card: str, slice_ms: float):
+    """The C3D and 3D-ResNet families at full width, 16 x 112^2, bf16. At
+    per-view B_VIEW, for each FAMILY_RUNS entry: one pretrain step from the
+    same weights, generator and batch with K5 (``pallas_augment`` on, and
+    ``fused_conv`` 1, which these families ignore; launches 0/0/1), the
+    plain bf16 step (K5's plain version; 0/0/0) and the plain float32 step,
+    held by phase 4's rule, each then timed over 2 steps with its peak
+    memory. For c3d and r3d-18: a finetune and an eval step at batch
+    FAMILY_BATCH (no launch), and the reference-.pth round trip through
+    ``torch_import --export``, ``main_ft`` and ``main_retrieval``. Then
+    bench_step at per-view 64 (FAMILY_BENCH_RUNS): step ms, throughput and
+    peak GiB; an out-of-memory is reported with the size asked."""
+    import tempfile
+
+    from cstp_tpu_torch.perf import bench_step
+
+    t_phase = time.perf_counter()
+    batch = _slice_batch(dev, seed=4, n_pb=4)
+    for tag in FAMILY_RUNS:
+        kw = _family_kw(tag)
+        runs = {k: _one_step_run(dev, cfg, batch) for k, cfg in (
+            ("kernel", _slice_config(True, **kw)),
+            ("plain", _slice_config(False, **kw)),
+            ("f32", _slice_config_plain_f32(**kw)))}
+        k, p, f = (runs[n] for n in ("kernel", "plain", "f32"))
+        loss_err, acc_err, cos_k, cos_p, ok = _agree(k, p, f)
+        log(f"[families] {tag} pretrain, per-view {B_VIEW}, {T}x{S}^2: "
+            f"K5 step {k['ms']:.1f} ms ({B_VIEW / k['ms'] * 1e3:.1f} pairs/s,"
+            f" peak {k['peak_gib']:.2f} GiB), plain bf16 {p['ms']:.1f} ms, "
+            f"plain float32 {f['ms']:.1f} ms (2 steps after one; phase 3's "
+            f"r21d step {slice_ms:.1f} ms; {card}); loss "
+            f"{k['metrics']['loss']:.5f} vs plain {p['metrics']['loss']:.5f}, max rel loss-term err "
+            f"{loss_err:.3e} (tol 2e-2), max accuracy diff {acc_err:.4f} "
+            f"(tol 0.125), update cosine to float32: K5 {cos_k:.5f}, plain "
+            f"{cos_p:.5f} (tol K5 >= plain - 0.05); launches {k['counts']}, "
+            f"plain {p['counts']}")
+        if k["counts"] != _per_step(0, 0, 1) or any(p["counts"].values()):
+            raise SystemExit(f"[families] {tag}: launches {k['counts']} "
+                             f"(expected 0/0/1), plain {p['counts']}")
+        if not ok:
+            raise SystemExit(f"[families] {tag}: the K5 step and the plain "
+                             "step disagree")
+        del runs, k, p, f
+        torch.cuda.empty_cache()
+    for tag in FAMILY_FT:
+        _family_finetune(dev, card, tag)
+    with tempfile.TemporaryDirectory(prefix="cstp_families_") as root:
+        for tag in FAMILY_FT:
+            _family_importer(dev, root, tag)
+    for mode, model, depth, flags, want in FAMILY_BENCH_RUNS:
+        args = ["--mode", mode, "--model", model, "--depth", depth,
+                "--steps", "2", "--warmup", "1", *flags]
+        try:
+            r = bench_step.main(args)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[families] bench_step {' '.join(args)}: out of memory at "
+                f"per-view {BENCH_STEP_BS}: {str(e).splitlines()[0]}")
+            r = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if r is None:
+            continue
+        got = {k: v for k, v in r["launches_per_step"].items() if v}
+        rate = "pairs_per_s" if mode == "pretrain" else "clips_per_s"
+        log(f"[families] bench_step {' '.join(args)}, per-chip "
+            f"{BENCH_STEP_BS}: {r['step_ms']:.1f} ms/step, {r[rate]:.1f} "
+            f"{rate.replace('_per_s', '')}/s, peak "
+            f"{r['peak_mem_gib']:.2f} GiB, launches per step {got}")
+        if got != want or not math.isfinite(r["loss"]):
+            raise SystemExit(f"bench_step {args} launched {got} per step "
+                             f"(expected {want}) or lost its loss")
+    log(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
@@ -1768,6 +2011,7 @@ def main(argv=None) -> int:
         bench = phase_bench_step(dev)
         phase_cli(dev, card, sl["step_ms"], bench["pretrain"]["step_ms"])
         phase_flags(dev, card, sl["step_ms"])
+        phase_families(dev, card, sl["step_ms"])
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,15 @@ def _merge_by_name(target, restored):
     return restored
 
 
+def check_arch(path: str, meta: Dict[str, Any], config: Config) -> None:
+    """Refuse a checkpoint whose arch tag and ``config.arch`` contain
+    neither the other (the JAX package's check; a tagless one passes)."""
+    arch = str(meta.get("arch", config.arch))
+    if config.arch not in arch and arch not in config.arch:
+        raise ValueError(f"checkpoint {path} holds arch {arch!r}, the config "
+                         f"asks for {config.arch!r}")
+
+
 def load_pretrained(state, path: str, config: Config):
     """Load a checkpoint's tensors into ``state.model`` by name: a pretrain
     checkpoint gives a finetune state its ``online_net.*`` parameters and BN
@@ -100,10 +109,7 @@ def load_pretrained(state, path: str, config: Config):
     whose arch tag and ``config.arch`` contain neither the other (the JAX
     package's check). Returns ``state``."""
     tree, meta = restore_checkpoint(path)
-    arch = str(meta.get("arch", config.arch))
-    if config.arch not in arch and arch not in config.arch:
-        raise ValueError(f"checkpoint {path} holds arch {arch!r}, the config "
-                         f"asks for {config.arch!r}")
+    check_arch(path, meta, config)
     own = state.model.state_dict()
     state.model.load_state_dict(_merge_by_name(own, tree["model"]))
     return state

@@ -234,7 +234,7 @@ class Config:
             "shard_opt_state": bool(self.shard_opt_state),
             "shard_spatial": bool(self.shard_spatial),
             f"model_name {self.model_name}":
-                base_model_name(self.model_name) != "r21d",
+                base_model_name(self.model_name) not in PORTED_FAMILIES,
             "legacy_pace": bool(self.legacy_pace),
             "i3d_conv_head": bool(self.i3d_conv_head),
             "tf_i3d_ckpt": bool(self.tf_i3d_ckpt),
@@ -252,6 +252,10 @@ class Config:
         if self.remat_policy not in ("", "bnrelu"):
             raise ValueError(f"--remat_policy must be '' or 'bnrelu', got "
                              f"{self.remat_policy!r}")
+
+
+# backbone families the port builds (models/__init__.py)
+PORTED_FAMILIES = ("r21d", "c3d", "r3d")
 
 
 def base_model_name(arch: str) -> str:

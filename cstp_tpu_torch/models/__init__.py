@@ -1,6 +1,16 @@
-"""Backbone registry of the port (``cstp_tpu/models/__init__.py``).
+"""Backbone registry of the port (``cstp_tpu/models/__init__.py``) for the
+ported families:
 
-Only R(2+1)D is ported; any other family raises ``NotImplementedError``.
+| backbone | feat            | projector   | predictor    | pretext heads   |
+|----------|-----------------|-------------|--------------|-----------------|
+| r21d     | 512             | 512 (h4096) | 512 (h4096)  | MLP, 5/5/5/5    |
+| c3d      | 512             | -           | 512 (h4096)  | Linear, 5/5/4/4 |
+| r3d      | 512 * expansion | -           | feat (h4096) | Linear, 5/5/4/4 |
+
+Any other family raises ``NotImplementedError``. ``fused_conv``, ``remat``
+and ``remat_policy`` reach R(2+1)D only and ``shortcut`` the 3D ResNet
+only; the other families accept them and do nothing, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -10,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from cstp_tpu_torch.config import base_model_name
+from cstp_tpu_torch.config import PORTED_FAMILIES, base_model_name
 
 
 @dataclass(frozen=True)
@@ -28,31 +38,54 @@ class BackboneSpec:
     l2_feat: bool = False
 
 
-def _check_r21d(arch: str) -> None:
-    if base_model_name(arch) != "r21d":
+def _family(arch: str) -> str:
+    base = base_model_name(arch)
+    if base not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"cstp_tpu_torch ports the r21d backbone only, not {arch!r}")
+            f"cstp_tpu_torch ports the {', '.join(PORTED_FAMILIES)} "
+            f"backbones, not {arch!r}")
+    return base
 
 
 def backbone_spec(arch: str, depth: int = 1) -> BackboneSpec:
-    _check_r21d(arch)
-    return BackboneSpec(512, 512, 4096, 512, 4096, "mlp")
+    base = _family(arch)
+    if base == "r21d":
+        return BackboneSpec(512, 512, 4096, 512, 4096, "mlp")
+    f = 512
+    if base == "r3d":   # an unknown depth: expansion 1 (JAX's fallback)
+        from cstp_tpu_torch.models.r3d import R3D_LAYERS
+
+        f *= R3D_LAYERS.get(depth, (None, None, 1))[2]
+    return BackboneSpec(f, None, 0, f, 4096, "linear", n_pb=4, n_rot=4)
 
 
 def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
                   proj_flag: bool = False, bn_groups: int = 1,
                   fused_conv: bool = False,
                   gen: Optional[torch.Generator] = None,
-                  remat: bool = False, remat_policy: str = ""):
-    """The R(2+1)D module for ``arch`` ('r21d', 'r21d_byol', ...);
-    ``remat`` / ``remat_policy`` are ``--remat`` / ``--remat_policy``."""
+                  remat: bool = False, remat_policy: str = "",
+                  shortcut: str = "B"):
+    """The backbone module for ``arch`` ('r21d_byol', 'c3d', 'r3d_classify',
+    ...); ``remat`` / ``remat_policy`` are ``--remat`` / ``--remat_policy``
+    and ``shortcut`` is ``--resnet_shortcut``. An r3d depth without a
+    layout builds r3d-18 (the JAX package's fallback: ``--model_depth``
+    defaults to 1)."""
+    base = _family(arch)
+    if base == "c3d":
+        from cstp_tpu_torch.models.c3d import C3D
+
+        return C3D(dtype, bn_groups, gen)
+    if base == "r3d":
+        from cstp_tpu_torch.models.r3d import R3D_LAYERS, ResNet3D
+
+        block, layers, _ = R3D_LAYERS.get(depth, R3D_LAYERS[18])
+        return ResNet3D(block, layers, shortcut, dtype, bn_groups, gen)
     from cstp_tpu_torch.models.r21d import (
         LAYER_SIZES,
         R2Plus1DNet,
         remat_mode,
     )
 
-    _check_r21d(arch)
     return R2Plus1DNet(LAYER_SIZES.get(depth, (1, 1, 1, 1)), proj_flag, dtype,
                        bn_groups, fused_conv, gen,
                        remat_mode(remat, remat_policy))

@@ -118,17 +118,31 @@ def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
     return out
 
 
+def export_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """A port ``state_dict`` as ``{'params', 'batch_stats'}``, Flax-layout
+    nested dicts of numpy arrays. The BatchNorm modules are those holding
+    both running statistics (``mean`` and ``var`` buffers), the port's only
+    buffers."""
+    def split(n):
+        return tuple(n.rsplit(".", 1)) if "." in n else ("", n)
+
+    owners = ({o for o, leaf in map(split, sd) if leaf == "mean"}
+              & {o for o, leaf in map(split, sd) if leaf == "var"})
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for n, t in sd.items():
+        owner, leaf = split(n)
+        col = ("batch_stats" if owner in owners and leaf in _BN_STATS
+               else "params")
+        tree[col][jax_path(n, owners)] = to_jax_layout(
+            t.detach().float().cpu().numpy())
+    return {k: _nest(v) for k, v in tree.items()}
+
+
 def export_jax_variables(module: nn.Module):
     """``(params, batch_stats)`` of ``module`` as Flax-layout nested dicts
     of numpy arrays."""
-    owners = _bn_owners(module)
-
-    def conv(named):
-        return _nest({jax_path(n, owners):
-                      to_jax_layout(t.detach().float().cpu().numpy())
-                      for n, t in named})
-
-    return conv(module.named_parameters()), conv(module.named_buffers())
+    tree = export_state_dict(module.state_dict())
+    return tree["params"], tree["batch_stats"]
 
 
 def export_named(module: nn.Module, tensors: Mapping[str, torch.Tensor]):

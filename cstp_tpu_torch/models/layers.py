@@ -141,13 +141,16 @@ def _triple(v) -> Tuple[int, int, int]:
 
 
 class Conv3d(nn.Module):
-    """Bias-free 3D conv on NDHWC with symmetric padding, computed in
-    ``dtype``. The NDHWC tensor is handed to ``F.conv3d`` as its
-    ``channels_last_3d`` NCDHW view, so no copy is made."""
+    """3D conv on NDHWC with symmetric padding, computed in ``dtype``. The
+    NDHWC tensor is handed to ``F.conv3d`` as its ``channels_last_3d``
+    NCDHW view, so no copy is made. ``use_bias`` adds a float32 bias,
+    initialised to zeros, to the ``dtype`` output (the JAX package's
+    ``out + bias.astype(dtype)``)."""
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
         super().__init__()
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
@@ -155,12 +158,25 @@ class Conv3d(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(glorot_init(
             torch.empty(features, in_ch, *self.kernel), gen))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
                      self.weight.to(self.dtype), stride=self.stride,
-                     padding=self.padding)
-        return y.permute(0, 2, 3, 4, 1)
+                     padding=self.padding).permute(0, 2, 3, 4, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+def max_pool_3d(x: torch.Tensor, kernel, stride,
+                padding=(0, 0, 0)) -> torch.Tensor:
+    """``torch.nn.MaxPool3d`` on NDHWC: symmetric padding that never wins
+    (``-inf``), through the ``channels_last_3d`` NCDHW view."""
+    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), _triple(kernel),
+                     _triple(stride), _triple(padding))
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def r21d_intermediate_channels(in_channels: int, out_channels: int,

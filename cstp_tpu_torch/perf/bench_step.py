@@ -3,15 +3,18 @@
 default shape.
 
     python -m cstp_tpu_torch.perf.bench_step [--mode pretrain|ft|eval]
-        [--per-chip-bs 64] [--steps 10] [--warmup 3] [--depth 1]
+        [--per-chip-bs 64] [--steps 10] [--warmup 3] [--model r21d]
+        [--depth 1]
         [--fused-conv 0|1|2] [--pallas-augment auto|on|off]
         [--grad-accum 1] [--remat] [--remat-policy ''|bnrelu]
         [--concat-views 1|0] [--device cuda|cpu]
 
 Defaults are ``bench.py``'s: per-chip batch 64 (per view in ``pretrain``),
-R(2+1)D depth 1, 16 frames of 112², uint8 source frames of 128×171, bf16,
-10 timed steps after 3 warm-up steps, ``fused_conv`` 0 and
-``pallas_augment`` "auto" (off), no remat, ``concat_views`` 1. ``--remat``,
+``--model`` r21d (the backbone family: r21d, c3d or r3d; the families the
+port does not build are refused) at ``--depth`` 1, 16 frames of 112²,
+uint8 source frames of 128×171, bf16, 10 timed steps after 3 warm-up steps,
+``fused_conv`` 0 and ``pallas_augment`` "auto" (off), no remat,
+``concat_views`` 1. ``--remat``,
 ``--remat-policy`` and ``--concat-views`` are bench.py's flags of the same
 names and reach the pretrain model (the finetune model takes no remat, as
 in the JAX package). The modes:
@@ -54,7 +57,7 @@ def _config(args):
     from cstp_tpu_torch.config import Config
 
     task = {"pretrain": "loss_com", "ft": "ft_all", "eval": "test"}[args.mode]
-    return Config(model_name="r21d", model_depth=args.depth,
+    return Config(model_name=args.model, model_depth=args.depth,
                   sample_duration=T, sample_size=S,
                   batch_size=args.per_chip_bs, compute_dtype="bfloat16",
                   task=task, fused_conv=args.fused_conv,
@@ -128,6 +131,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--per-chip-bs", type=int, default=64)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--model", default="r21d",
+                    help="backbone family (r21d|c3d|r3d)")
     ap.add_argument("--depth", type=int, default=1)
     ap.add_argument("--fused-conv", type=int, default=0, choices=[0, 1, 2])
     ap.add_argument("--pallas-augment", default="auto",
@@ -162,7 +167,8 @@ def main(argv=None) -> dict:
         "mode": args.mode, "per_chip_bs": args.per_chip_bs,
         "grad_accum": args.grad_accum, "remat": args.remat,
         "remat_policy": args.remat_policy,
-        "concat_views": args.concat_views, "depth": args.depth,
+        "concat_views": args.concat_views, "model": args.model,
+        "depth": args.depth,
         "clip": [T, S, S], "frames": [H0, W0],
         "dtype": cfg.compute_dtype, "fused_conv": args.fused_conv,
         "pallas_augment": args.pallas_augment, "steps": args.steps,

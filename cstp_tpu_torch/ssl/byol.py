@@ -51,6 +51,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            reduction="mean" if reduce else "none")
 
 
+def feat_and_proj(out, spec):
+    """A backbone's output as ``(feature, BYOL embedding)``: a family without
+    a projector (c3d, r3d) regresses its feature itself (the JAX package's
+    ``_feat_and_proj``)."""
+    if isinstance(out, tuple):
+        feat, proj = out
+    else:
+        feat = proj = out
+    if spec.l2_feat:
+        feat = l2_normalize(feat)
+        proj = feat if not isinstance(out, tuple) else proj
+    return feat, proj
+
+
 @torch.no_grad()
 def ema_update(target: nn.Module, online: nn.Module, momentum: float) -> None:
     """target <- m * target + (1 - m) * online, over parameters only (BN
@@ -66,25 +80,30 @@ class CSTPPretrain(nn.Module):
     target tower only, 0 = none. ``concat_views``: 1 = one 2B call per
     tower, 0 = one call per view. ``remat`` / ``remat_policy``: the
     towers' ``--remat`` / ``--remat_policy`` (``models/r21d.py``).
+    ``shortcut``: ``--resnet_shortcut`` of the 3D ResNet. The predictor
+    takes the projection, or the feature where the family has no
+    projector.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
                  dtype=torch.bfloat16, bn_groups: int = 1, fused_conv: int = 0,
                  gen: Optional[torch.Generator] = None,
                  concat_views: bool = True, remat: bool = False,
-                 remat_policy: str = ""):
+                 remat_policy: str = "", shortcut: str = "B"):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.concat_views = bool(concat_views)
         g2 = 2 * bn_groups if self.concat_views else bn_groups
         use_proj = spec.proj_dim is not None
         tower = dict(dtype=dtype, proj_flag=use_proj, bn_groups=g2, gen=gen,
-                     remat=remat, remat_policy=remat_policy)
+                     remat=remat, remat_policy=remat_policy,
+                     shortcut=shortcut)
         self.online_net = make_backbone(backbone, depth,
                                         fused_conv=fused_conv == 1, **tower)
         self.target_net = make_backbone(backbone, depth,
                                         fused_conv=fused_conv >= 1, **tower)
-        self.predictor = MLPHead(spec.proj_dim, spec.pred_hidden,
+        self.predictor = MLPHead(spec.proj_dim or spec.feat_dim,
+                                 spec.pred_hidden,
                                  spec.pred_dim, dtype, g2, gen)
         f, style = spec.feat_dim, spec.head_style
         self.overlap_spa = PretextHead(style, 2 * f, 2 * f, spec.n_spa, dtype,
@@ -97,22 +116,23 @@ class CSTPPretrain(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = True):
         """``o_type='loss_com'`` forward: returns ``(byol_loss_mean,
         (pred_spa, pred_tem, pb1, pb2, rot1, rot2))``."""
+        spec = self.spec
         if self.concat_views:
             x12 = torch.cat([x1, x2], dim=0)
-            feats, embs = self.online_net(x12, train)
+            feats, embs = feat_and_proj(self.online_net(x12, train), spec)
             pred1, pred2 = self.predictor(embs, train).chunk(2, dim=0)
             feat1, feat2 = feats.chunk(2, dim=0)
             with torch.no_grad():
-                _, tembs = self.target_net(x12, train)
+                _, tembs = feat_and_proj(self.target_net(x12, train), spec)
             temb1, temb2 = tembs.chunk(2, dim=0)
         else:
-            feat1, emb1 = self.online_net(x1, train)
-            feat2, emb2 = self.online_net(x2, train)
+            feat1, emb1 = feat_and_proj(self.online_net(x1, train), spec)
+            feat2, emb2 = feat_and_proj(self.online_net(x2, train), spec)
             pred1 = self.predictor(emb1, train)
             pred2 = self.predictor(emb2, train)
             with torch.no_grad():
-                _, temb1 = self.target_net(x1, train)
-                _, temb2 = self.target_net(x2, train)
+                _, temb1 = feat_and_proj(self.target_net(x1, train), spec)
+                _, temb2 = feat_and_proj(self.target_net(x2, train), spec)
         loss = (byol_regression_loss(pred1, temb2)
                 + byol_regression_loss(pred2, temb1))
         feat_cat = torch.cat([feat1, feat2], dim=-1)
@@ -135,20 +155,22 @@ class CSTPClassify(nn.Module):
     in eval; left out with ``use_cls_bn=False``) -> float32 ``classify``
     (glorot kernel, torch-default bias). 'mlp': ``classify`` is
     Linear-BN-ReLU-Linear on the raw feature. ``fused_conv`` reaches the
-    backbone's stride-1 (2+1)D sites, which fuse in train mode only.
+    backbone's stride-1 (2+1)D sites, which fuse in train mode only;
+    ``shortcut`` is the 3D ResNet's ``--resnet_shortcut``.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
                  num_classes: int = 101, use_cls_bn: bool = True,
                  head_style: str = "linear", dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, shortcut: str = "B"):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.head_style = head_style
         self.online_net = make_backbone(backbone, depth, dtype=dtype,
                                         proj_flag=False, bn_groups=bn_groups,
-                                        fused_conv=fused_conv, gen=gen)
+                                        fused_conv=fused_conv, gen=gen,
+                                        shortcut=shortcut)
         f = spec.feat_dim
         if head_style == "mlp":
             self.classify = MLPHead(f, f, num_classes, dtype, bn_groups, gen)

@@ -56,7 +56,8 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
                          use_cls_bn=config.cls_bn, head_style=head,
                          dtype=compute_dtype(config),
                          bn_groups=bn_groups_from_config(config),
-                         fused_conv=bool(config.fused_conv), gen=gen)
+                         fused_conv=bool(config.fused_conv), gen=gen,
+                         shortcut=config.resnet_shortcut)
     return model.to(dev)
 
 

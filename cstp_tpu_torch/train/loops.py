@@ -33,6 +33,7 @@ from cstp_tpu_torch.data.loader import (
     PretrainLoader,
     prefetch_to_device,
 )
+from cstp_tpu_torch.models import torch_import
 from cstp_tpu_torch.train import optim
 from cstp_tpu_torch.train.finetune import (
     RETRIEVAL_TOPK,
@@ -74,10 +75,6 @@ REFERENCE_DATASET_ALIASES = {
     "KINFTOnlineDecord": ("video", "Kin400"),
     "KINFTOnline": ("video", "Kin400"),
 }
-
-_REFERENCE_PTH = ("a reference torch .pth file as --pretrained_path needs "
-                  "models/torch_import.py, which cstp_tpu_torch does not "
-                  "port yet (ROADMAP queue 1 item 16)")
 
 
 def resolve_dataset_alias(config: Config) -> Config:
@@ -172,6 +169,18 @@ def _restore_state(state, tree, dev) -> None:
 def _load_model_by_name(state, tree) -> None:
     own = state.model.state_dict()
     state.model.load_state_dict(ckpt_lib._merge_by_name(own, tree["model"]))
+
+
+def _load_reference_pth(state, config: Config, check_arch: bool) -> None:
+    """A reference ``save_{E}.pth`` in ``--pretrained_path``, translated and
+    laid over ``state.model`` by name. ``check_arch``: hold the blob's arch
+    tag to ``config.arch`` (the JAX package's finetune check; its retrieval
+    makes none)."""
+    tree, meta = torch_import.load_torch_checkpoint(config.pretrained_path,
+                                                    config.model_name)
+    if check_arch:
+        ckpt_lib.check_arch(config.pretrained_path, meta, config)
+    torch_import.load_into(state.model, tree)
 
 
 def _fetch(metrics):
@@ -387,11 +396,13 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
     model, state, tx = create_finetune_state(
         config, num_classes, seed=config.manual_seed, device=dev)
 
-    # pretrained backbone, loaded by name (the head keeps its init)
+    # pretrained backbone, loaded by name (the head keeps its init); a
+    # file is a reference torch save_{E}.pth (models/torch_import.py)
     if config.task in ("ft_fc", "ft_all") and config.pretrained_path:
         if os.path.isfile(config.pretrained_path):
-            raise NotImplementedError(_REFERENCE_PTH)
-        ckpt_lib.load_pretrained(state, config.pretrained_path, config)
+            _load_reference_pth(state, config, check_arch=True)
+        else:
+            ckpt_lib.load_pretrained(state, config.pretrained_path, config)
 
     plateau = optim.ReduceLROnPlateau(lr=config.learning_rate,
                                       patience=config.lr_patience)
@@ -632,8 +643,8 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
     videos query the train-split gallery by cosine similarity of backbone
     features; R@{1,5,10,20,50}.
 
-    Weights: ``--pretrained_path`` (a pretrain checkpoint, loaded by name),
-    else ``--test_md_path``, else the one ``*_max`` finetune checkpoint of
+    Weights: ``--pretrained_path`` (a pretrain checkpoint or a reference
+    ``.pth`` file, loaded by name), else ``--test_md_path``, else the one ``*_max`` finetune checkpoint of
     ``--t_ft_task`` (default ft_all)."""
     dev = resolve_device(device)
     data_shard_count(config)
@@ -641,10 +652,11 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
     model, state, _ = create_finetune_state(
         config, num_classes, seed=config.manual_seed, device=dev)
 
-    if config.pretrained_path:
-        if os.path.isfile(config.pretrained_path):
-            raise NotImplementedError(_REFERENCE_PTH)
+    if config.pretrained_path and os.path.isfile(config.pretrained_path):
+        _load_reference_pth(state, config, check_arch=False)
+    elif config.pretrained_path:
         tree, _ = ckpt_lib.restore_checkpoint(config.pretrained_path)
+        _load_model_by_name(state, tree)
     else:
         md_path = config.test_md_path or ckpt_lib.find_best_checkpoint(
             os.path.join(config.result_path, config.dataset,
@@ -654,7 +666,7 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
             raise ValueError(f"checkpoint {md_path} holds arch "
                              f"{meta.get('arch')!r}, the config asks for "
                              f"{config.arch!r}")
-    _load_model_by_name(state, tree)
+        _load_model_by_name(state, tree)
 
     feats_fn = make_features_step(model, config)
     gallery_ds = build_dataset(config, "train")

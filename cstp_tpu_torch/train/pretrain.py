@@ -93,7 +93,8 @@ def create_pretrain_model(config: Config, seed: int = 0,
                          int(config.fused_conv), gen,
                          concat_views=bool(config.concat_views),
                          remat=config.remat,
-                         remat_policy=config.remat_policy)
+                         remat_policy=config.remat_policy,
+                         shortcut=config.resnet_shortcut)
     return model.to(dev)
 
 

@@ -36,3 +36,24 @@ def test_entry_runs_each_mode(capsys, monkeypatch, mode, extra):
     assert res["remat"] == ("--remat" in extra)
     assert res["remat_policy"] == ("bnrelu" if "bnrelu" in extra else "")
     assert res["concat_views"] == (0 if "--concat-views" in extra else 1)
+
+
+@pytest.mark.parametrize("mode", ["pretrain", "ft"])
+@pytest.mark.parametrize("model, depth", [("c3d", "1"), ("r3d", "18")])
+def test_entry_runs_each_family(capsys, monkeypatch, model, depth, mode):
+    """``--model`` builds the family (8 frames: C3D pools time three
+    times) and is reported in the JSON line; no kernel but K5 is on these
+    families' path, and the CPU launches none."""
+    monkeypatch.setattr(bench_step, "T", 8)
+    monkeypatch.setattr(bench_step, "S", 32)
+    res = bench_step.main([*_TINY, "--mode", mode, "--model", model,
+                           "--depth", depth, "--pallas-augment", "on"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
+    assert res["model"] == model and res["depth"] == int(depth)
+    assert res["clip"] == [8, 32, 32] and res["loss"] == res["loss"]
+    assert not any(res["launches_per_step"].values())
+
+
+def test_entry_refuses_an_unported_family():
+    with pytest.raises(NotImplementedError, match="s3d"):
+        bench_step.main([*_TINY, "--model", "s3d"])

@@ -487,9 +487,10 @@ def _flag_config(**over):
     return Config(**kw).finalize()
 
 
-def _flag_step(dev, cfg):
-    """One pretrain step of ``cfg`` from seed-0 weights on a seeded batch:
-    (metrics, BN buffers after it, K2/K3/K5 launches)."""
+def _flag_step(dev, cfg, n_pb=5):
+    """One pretrain step of ``cfg`` from seed-0 weights on a seeded batch
+    (playback labels below ``n_pb``): (metrics, BN buffers after it,
+    K2/K3/K5 launches)."""
     from cstp_tpu_torch.train.pretrain import (
         create_pretrain_state,
         make_pretrain_step,
@@ -508,7 +509,8 @@ def _flag_step(dev, cfg):
                  frames2=torch.randint(0, 256, (b, t, 40, 53, 3),
                                        generator=gen, device=dev,
                                        dtype=torch.uint8),
-                 rot1=labels(4), rot2=labels(4), tem=labels(5), pb=labels(5))
+                 rot1=labels(4), rot2=labels(4), tem=labels(5),
+                 pb=labels(n_pb))
     before, aug = dict(C.launches), A.launches
     state, m = make_pretrain_step(model, tx, cfg)(state, gen, batch,
                                                   cfg.learning_rate)
@@ -563,3 +565,57 @@ def test_remat_leaves_the_running_statistics_as_without_it(dev, over):
     for k in m0:
         if k.startswith("loss"):
             assert abs(m1[k] - m0[k]) <= 2e-2 * abs(m0[k]), k
+
+
+@pytest.mark.parametrize("model_name, depth, shortcut", [
+    ("c3d_byol", 1, "B"), ("r3d_byol", 18, "B"), ("r3d_byol", 18, "A")],
+    ids=["c3d", "r3d18-B", "r3d18-A"])
+def test_family_pretrain_steps_with_k5_match_the_plain_path(
+        dev, model_name, depth, shortcut):
+    """C3D and r3d-18 pretrain steps with K5 (``pallas_augment`` on, and
+    ``fused_conv`` 1, which these families ignore) launch 0/0/1; the plain
+    step 0/0/0; loss terms within 2e-2 of the plain bf16 step's from the
+    same weights, generator and frames (phase 4's rule in
+    chip_smoke.py). 8 frames: C3D pools time three times; playback labels
+    below 4, the loader's range (these families' heads have 4 classes)."""
+    over = dict(model_name=model_name, model_depth=depth,
+                resnet_shortcut=shortcut, sample_duration=8)
+    mk, _, counts = _flag_step(dev, _flag_config(**over), n_pb=4)
+    mp, _, plain = _flag_step(dev, _flag_config(
+        fused_conv=0, pallas_augment="off", **over), n_pb=4)
+    assert counts == (0, 0, 1) and plain == (0, 0, 0)
+    for k in mk:
+        assert np.isfinite(mk[k]), k
+        if k.startswith("loss"):
+            assert abs(mk[k] - mp[k]) <= 2e-2 * abs(mp[k]), k
+
+
+@pytest.mark.parametrize("model_name, depth", [("c3d_byol", 1),
+                                               ("r3d_byol", 18)])
+def test_a_reference_pth_loads_on_the_card_bitwise(dev, tmp_path,
+                                                   model_name, depth):
+    """A pretrain state exported to a reference .pth, then laid over a
+    finetune model on the card: its ``online_net`` tensors bitwise."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.models import torch_import
+    from cstp_tpu_torch.models.bridge import export_state_dict
+    from cstp_tpu_torch.train import finetune as ft
+    from cstp_tpu_torch.train.pretrain import create_pretrain_state
+
+    kw = dict(model_name=model_name, model_depth=depth, sample_duration=8,
+              sample_size=32, batch_size=4, compute_dtype="bfloat16")
+    model, _, _ = create_pretrain_state(
+        Config(task="loss_com", **kw).finalize(), seed=1, device=dev)
+    path = str(tmp_path / "save_1.pth")
+    torch_import.save_torch_checkpoint(
+        path, export_state_dict(model.state_dict()), model_name)
+    cls, _, _ = ft.create_finetune_state(
+        Config(task="ft_all", **kw).finalize(), 11, seed=2, device=dev)
+    tree, meta = torch_import.load_torch_checkpoint(path, model_name)
+    torch_import.load_into(cls, tree)
+    assert meta["arch"] == model_name
+    got, want = cls.state_dict(), model.state_dict()
+    online = [n for n in want if n.startswith("online_net.")]
+    assert online and all(got[n].device.type == "cuda" for n in online)
+    for n in online:
+        assert torch.equal(got[n], want[n]), n

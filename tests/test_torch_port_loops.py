@@ -285,11 +285,26 @@ def test_ft_fc_leaves_the_backbone_as_it_was(tmp_path):
 
 
 def test_a_reference_pth_file_is_refused(tmp_path):
-    f = tmp_path / "save_5.pth"
-    f.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """A reference .pth whose arch tag names another model is refused (the
+    JAX package's check); one of this model loads."""
+    from cstp_tpu_torch.models import torch_import
+    from cstp_tpu_torch.models.bridge import export_state_dict
+
+    model, _, _ = create_pretrain_state(
+        Config(**_kw(tmp_path, task="loss_com")).finalize(), device="cpu")
+    f = str(tmp_path / "save_5.pth")
+    torch_import.save_torch_checkpoint(
+        f, export_state_dict(model.state_dict()), "r21d", epoch=5)
+    ft = loops.run_finetune(_ft_cfg(tmp_path, "ft_all", n_epochs=0,
+                                    pretrained_path=f), device="cpu")
+    assert torch.equal(ft["model"].online_net.conv1.bn.var,
+                       model.online_net.conv1.bn.var)
+    blob = torch.load(f, weights_only=True)
+    blob["arch"] = "c3d_byol"
+    torch.save(blob, f)
+    with pytest.raises(ValueError, match="arch"):
         loops.run_finetune(_ft_cfg(tmp_path, "ft_all", n_epochs=1,
-                                   pretrained_path=str(f)), device="cpu")
+                                   pretrained_path=f), device="cpu")
 
 
 def test_each_cli_prints_its_line(tmp_path, capsys):
