@@ -93,7 +93,23 @@ Phases:
      --export``) that ``main_ft`` (2 steps) and ``main_retrieval`` load with
      bitwise its ``online_net`` tensors; then ``bench_step`` at per-view 64
      (pretrain with K5, and ft) for c3d and r3d-18: step ms, throughput,
-     peak GiB (an out-of-memory is reported with the size asked).
+     peak GiB (an out-of-memory is reported with the size asked);
+  15. inception: the S3D-G and I3D families at full width, bf16: at
+     per-view 16, one pretrain step each of s3d_byol (16 x 112^2 from
+     128x171 frames) and i3d_byol (16 x 224^2 from 256x340 frames: K5's
+     frame in device memory, two device launches in its one call) with K5
+     (0/0/1 launches) against the plain bf16 step (0/0/0) by phase 4's
+     rule, each timed over 2 steps with its peak memory and the forward
+     GFLOP per clip of its convolutions, then one profiled K5 step each
+     (K5's device time inside it); finetune and eval at batch 16 of
+     s3d_classify (MLP head), s3d_byol and i3d_byol (linear head) at
+     112^2 and i3d_byol with ``--i3d_conv_head 1`` at 224^2 (no launch);
+     the ``.pth`` round trip of phase 14 for s3d_byol and i3d_byol; a
+     kinetics-i3d TensorFlow checkpoint written here
+     (``write_tf_checkpoint``, no TensorFlow) loaded by ``main_ft
+     --tf_i3d_ckpt`` (2 steps) and ``main_byol --tf_i3d_ckpt`` (1 epoch of
+     2 steps) into the right towers bitwise; ``bench_step`` at per-view 64
+     (pretrain with K5, and ft) for s3d and i3d.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``), the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -441,6 +457,34 @@ def augment_stage_times(dev, h0: int = H0, w0: int = W0):
     return times
 
 
+def _augment_check(name, inputs, s, dtype, tol):
+    """Holds K5 against its plain float32 chain on ``inputs`` (frames, box,
+    rotk, parameters) at sample size ``s`` and output ``dtype``, for both
+    norms; exits on a mismatch. Returns the larger max abs error."""
+    from cstp_tpu_torch.ops import augment as A
+
+    fr, bx, rt, pp = inputs
+    worst = 0.0
+    for norm in ("tf", "imagenet"):
+        got = A.fused_augment_clips(fr, bx, rt, *pp, sample_size=s,
+                                    norm_method=norm, out_dtype=dtype)
+        want = A.fused_augment_clips_plain(fr, bx, rt, *pp, sample_size=s,
+                                           norm_method=norm,
+                                           out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        log(f"[augment] {name}, N={fr.shape[0]} {fr.shape[2]}x"
+            f"{fr.shape[3]} -> {s}, norm={norm}: max abs err {err:.3e} "
+            f"(tol {tol:g})")
+        if not (err <= tol and got.dtype == dtype
+                and got.shape == (fr.shape[0], T, s, s, 3)):
+            raise SystemExit(f"augment kernel ({name}) disagrees with its "
+                             "plain version")
+        worst = max(worst, err)
+        del got, want
+    return worst
+
+
 def phase_augment(dev):
     from cstp_tpu_torch.ops import augment as A
 
@@ -471,24 +515,10 @@ def phase_augment(dev):
              ("native float32 out, frame in device memory", native, S_LARGE,
               torch.float32, 1e-4))
     err_max = 0.0
-    for name, (fr, bx, rt, pp), s, dtype, tol in cases:
-        for norm in ("tf", "imagenet"):
-            got = A.fused_augment_clips(fr, bx, rt, *pp, sample_size=s,
-                                        norm_method=norm, out_dtype=dtype)
-            want = A.fused_augment_clips_plain(fr, bx, rt, *pp,
-                                               sample_size=s, norm_method=norm,
-                                               out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            err = (got.float() - want).abs().max().item()
-            log(f"[augment] {name}, N={fr.shape[0]} {fr.shape[2]}x"
-                f"{fr.shape[3]} -> {s}, norm={norm}: max abs err {err:.3e} "
-                f"(tol {tol:g})")
-            if not (err <= tol and got.dtype == dtype
-                    and got.shape == (fr.shape[0], T, s, s, 3)):
-                raise SystemExit(f"augment kernel ({name}) disagrees with its "
-                                 "plain version")
-            if fr is not native and dtype == torch.bfloat16:
-                err_max = max(err_max, err)
+    for name, inputs, s, dtype, tol in cases:
+        err = _augment_check(name, inputs, s, dtype, tol)
+        if inputs is not native and dtype == torch.bfloat16:
+            err_max = max(err_max, err)
     frames, box, rot, p = sampled
     ms = time_ms(lambda: A.fused_augment_clips(frames, box, rot, *p,
                                                sample_size=S))
@@ -508,16 +538,27 @@ def phase_augment(dev):
 
 
 def augment_large_time(dev):
-    """K5's time at 2 * B_VIEW clips of T native 256x340 frames -> S_LARGE
-    (bf16, 'tf'), its frame in device memory, beside its plain version's;
-    written down, not judged."""
+    """K5 at 2 * B_VIEW clips of T native 256x340 frames -> S_LARGE, its
+    frame in device memory: the i3d_byol pretrain step's shape, where one
+    wrapper call makes more than one device launch. Held against its plain
+    float32 chain in bf16 (2e-2) and float32 (1e-4) out, both norms, as
+    phase_augment's cases; then its time (bf16, 'tf') beside the plain
+    version's."""
     from cstp_tpu_torch.ops import augment as A
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    frames, box, rot, p = _aug_inputs(dev, gen, False, h0=NATIVE_HW[0],
-                                      w0=NATIVE_HW[1])
+    inputs = _aug_inputs(dev, gen, False, h0=NATIVE_HW[0], w0=NATIVE_HW[1])
+    frames, box, rot, p = inputs
     n = frames.shape[0]
     chunk, per_launch = A.launch_plan(n, T, S_LARGE, NATIVE_HW[1])
+    if per_launch >= n:
+        raise SystemExit(f"launch_plan({n}, {T}, {S_LARGE}, {NATIVE_HW[1]}) "
+                         f"puts all {n} clips in one launch: this case no "
+                         "longer holds a second launch")
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        _augment_check(f"{str(dtype).split('.')[-1]} out, {per_launch} "
+                       "clips per launch", inputs, S_LARGE, dtype, tol)
+    torch.cuda.empty_cache()
     ms = time_ms(lambda: A.fused_augment_clips(frames, box, rot, *p,
                                                sample_size=S_LARGE))
     pms = time_ms(lambda: A.fused_augment_clips_plain(
@@ -593,17 +634,18 @@ def _slice_config(fused: bool, **over):
                   compute_dtype="bfloat16", task="loss_com", **kw).finalize()
 
 
-def _slice_batch(dev, seed: int, n_pb: int = 5):
+def _slice_batch(dev, seed: int, n_pb: int = 5, hw=(H0, W0)):
     """uint8 frame pairs and pretext labels, as the data loader gives them
-    (bench.py's synthetic batch: 16 x 128 x 171 frames); playback labels
-    below ``n_pb`` (the loader's are 0..3: C3D's and r3d's heads have 4
-    classes, R(2+1)D's 5)."""
+    (bench.py's synthetic batch: 16 x 128 x 171 frames, or ``hw``);
+    playback labels below ``n_pb`` (the loader's are 0..3: C3D's, r3d's
+    and I3D's heads have 4 classes, R(2+1)D's and S3D's 5)."""
+    H, W = hw
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def labels(k):
         return torch.randint(0, k, (B_VIEW,), generator=gen, device=dev)
 
-    frames = [torch.randint(0, 256, (B_VIEW, T, H0, W0, 3), generator=gen,
+    frames = [torch.randint(0, 256, (B_VIEW, T, H, W, 3), generator=gen,
                             device=dev, dtype=torch.uint8) for _ in range(2)]
     return dict(frames1=frames[0], frames2=frames[1], rot1=labels(4),
                 rot2=labels(4), tem=labels(5), pb=labels(n_pb))
@@ -673,7 +715,8 @@ def profile_step(run, top: int = 12):
     """One more step under torch.profiler: the device's busy share of the
     step's wall time (union of kernel intervals) and device time by kernel.
     Profiling slows the host side, so the wall time here is not the step
-    time above."""
+    time above. Returns the wall, busy and per-kernel device ms (None when
+    the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -703,6 +746,8 @@ def profile_step(run, top: int = 12):
         f"events; device time by kernel:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {us / 1e3:9.2f} ms  {name[:110]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                ms_by_kernel={k: v / 1e3 for k, v in by_name.items()})
 
 
 def _slice_config_plain_f32(**over):
@@ -866,10 +911,10 @@ def _ft_config(fused: int = 1, dtype: str = "bfloat16", **over):
     return Config(**kw).finalize()
 
 
-def _ft_batch(dev, seed: int):
+def _ft_batch(dev, seed: int, hw=(H0, W0)):
     n = B_FT
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return dict(frames=torch.randint(0, 256, (n, T, H0, W0, 3), generator=gen,
+    return dict(frames=torch.randint(0, 256, (n, T, *hw, 3), generator=gen,
                                      device=dev, dtype=torch.uint8),
                 labels=torch.randint(0, N_FT_CLASSES, (n,), generator=gen,
                                      device=dev))
@@ -1713,11 +1758,13 @@ def phase_flags(dev, card: str, slice_ms: float):
 
 # ------------------------------------------------------------ families
 
-# phase 14's pretrain runs: tag -> (model_name, depth, --resnet_shortcut)
+# phase 14's pretrain runs: tag -> config flags
 FAMILY_RUNS = {
-    "c3d": ("c3d_byol", 1, "B"),
-    "r3d-18 B": ("r3d_byol", 18, "B"),
-    "r3d-18 A": ("r3d_byol", 18, "A"),
+    "c3d": dict(model_name="c3d_byol"),
+    "r3d-18 B": dict(model_name="r3d_byol", model_depth=18,
+                     resnet_shortcut="B"),
+    "r3d-18 A": dict(model_name="r3d_byol", model_depth=18,
+                     resnet_shortcut="A"),
 }
 FAMILY_FT = ("c3d", "r3d-18 B")     # the finetune, eval and importer runs
 FAMILY_BATCH = 16                   # the finetune and eval batch
@@ -1733,25 +1780,21 @@ FAMILY_BENCH_RUNS = [
 ]
 
 
-def _family_kw(tag: str):
-    name, depth, shortcut = FAMILY_RUNS[tag]
-    return dict(model_name=name, model_depth=depth, resnet_shortcut=shortcut)
-
-
-def _family_finetune(dev, card: str, tag: str, steps: int = 2):
+def _family_finetune(dev, card: str, tag: str, kw, steps: int = 2,
+                     hw=(H0, W0)):
     """One warm-up and ``steps`` timed ft_all steps, then one warm-up and
-    ``steps`` timed eval steps, at batch FAMILY_BATCH: no kernel launched
-    (K2/K3 are R(2+1)D's, K5 the pretrain augment), finite losses, the
-    parameters moved."""
+    ``steps`` timed eval steps, at batch FAMILY_BATCH (config flags ``kw``,
+    frames of ``hw``): no kernel launched (K2/K3 are R(2+1)D's, K5 the
+    pretrain augment), finite losses, the parameters moved."""
     from cstp_tpu_torch.train import finetune as ft
 
-    cfg = _ft_config(fused=1, batch_size=FAMILY_BATCH, **_family_kw(tag))
+    cfg = _ft_config(fused=1, batch_size=FAMILY_BATCH, **kw)
     model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
                                                 device=dev)
     step = ft.make_finetune_step(model, tx, cfg)
     eval_step = ft.make_eval_step(model, cfg)
     gen = torch.Generator(device=dev).manual_seed(12)
-    batch = {k: v[:FAMILY_BATCH] for k, v in _ft_batch(dev, 13).items()}
+    batch = {k: v[:FAMILY_BATCH] for k, v in _ft_batch(dev, 13, hw).items()}
     before = _snapshot(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1777,7 +1820,9 @@ def _family_finetune(dev, card: str, tag: str, steps: int = 2):
     losses = torch.stack(losses + [e["loss"]]).float().cpu()
     moved = max((p.detach() - before[n]).abs().max().item()
                 for n, p in model.named_parameters())
-    log(f"[families] {tag} finetune, batch {FAMILY_BATCH}, {T}x{S}^2 bf16, "
+    log(f"[{tag}] finetune ({cfg.model_name}"
+        f"{', i3d_conv_head' if cfg.i3d_conv_head else ''}), batch "
+        f"{FAMILY_BATCH}, {T}x{cfg.sample_size}^2 bf16, "
         f"ft_all: {ft_ms:.1f} ms/step, {FAMILY_BATCH / ft_ms * 1e3:.1f} "
         f"clips/s, peak {peak:.2f} GiB; eval step {eval_ms:.1f} ms "
         f"({steps} steps each after one; {card}); losses (train, eval) "
@@ -1785,15 +1830,15 @@ def _family_finetune(dev, card: str, tag: str, steps: int = 2):
         f"{moved:.3e}; launches {counts}")
     if any(counts.values()) or not bool(torch.isfinite(losses).all()) \
             or moved <= 0.0:
-        raise SystemExit(f"[families] {tag} finetune/eval launched "
+        raise SystemExit(f"[{tag}] finetune/eval launched "
                          f"{counts}, gave non-finite losses or left the "
                          "parameters unchanged")
     del model, state, tx
     torch.cuda.empty_cache()
 
 
-def _family_importer(dev, root: str, tag: str):
-    """A pretrain state (one kernel step from seed 0) saved as a port
+def _family_importer(dev, root: str, tag: str, kw):
+    """A pretrain state (config flags ``kw``) (one kernel step from seed 0) saved as a port
     checkpoint and exported with ``python -m
     cstp_tpu_torch.models.torch_import --export``; then ``main_ft
     --pretrained_path <file>.pth`` for 2 steps on synthetic videos, whose
@@ -1809,15 +1854,17 @@ def _family_importer(dev, root: str, tag: str):
         make_pretrain_step,
     )
 
-    name, depth, shortcut = FAMILY_RUNS[tag]
-    cfg = _slice_config(True, **_family_kw(tag))
+    name = kw["model_name"]
+    cfg = _slice_config(True, **kw)
     model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(14)
     state, _ = make_pretrain_step(model, tx, cfg)(
         state, gen, _slice_batch(dev, seed=15, n_pb=4), cfg.learning_rate)
+    # the backbone's tensors; the projector (S3D's) is pretrain-only
     online = {n: t.detach().cpu().clone()
               for n, t in model.state_dict().items()
-              if n.startswith("online_net.")}
+              if n.startswith("online_net.")
+              and not n.startswith("online_net.project.")}
     ckpt = os.path.join(root, f"{name}_save_1")
     pth = ckpt + ".pth"
     ckpt_lib.save_checkpoint(ckpt, ckpt_lib.state_tree(state),
@@ -1833,8 +1880,8 @@ def _family_importer(dev, root: str, tag: str):
         loaded.append({n: t.detach().cpu().clone()
                        for n, t in m.state_dict().items()})
 
-    common = ["--model_name", name, "--model_depth", str(depth),
-              "--resnet_shortcut", shortcut, "--pretrained_path", pth,
+    common = [a for k, v in kw.items() for a in (f"--{k}", str(v))] + [
+              "--pretrained_path", pth,
               "--sample_duration", str(T), "--sample_size", str(S),
               "--compute_dtype", "bfloat16", "--data_backend", "synthetic",
               "--synthetic_len", str(2 * FAMILY_BATCH),
@@ -1855,13 +1902,13 @@ def _family_importer(dev, root: str, tag: str):
         all(torch.equal(sd[n], v) for n, v in online.items()) for sd in loaded)
     losses = [h["train_loss"] for h in out["history"]]
     recalls = [ret[k] for k in ("R@1", "R@5", "R@10", "R@20", "R@50")]
-    log(f"[families] {tag} importer: exported {len(online)} online_net "
+    log(f"[{tag}] importer: exported {len(online)} online_net "
         f"tensors to {os.path.basename(pth)} "
         f"({os.path.getsize(pth) / 2**20:.1f} MiB); main_ft and main_retrieval loaded them bitwise: {same}; "
         f"finetune losses {losses}; R@k {recalls}")
     if not same or not all(math.isfinite(v) for v in losses) \
             or recalls != sorted(recalls):
-        raise SystemExit(f"[families] {tag}: the .pth did not load bitwise, "
+        raise SystemExit(f"[{tag}] the .pth did not load bitwise, "
                          "or the finetune or retrieval run failed its checks")
 
 
@@ -1883,8 +1930,7 @@ def phase_families(dev, card: str, slice_ms: float):
 
     t_phase = time.perf_counter()
     batch = _slice_batch(dev, seed=4, n_pb=4)
-    for tag in FAMILY_RUNS:
-        kw = _family_kw(tag)
+    for tag, kw in FAMILY_RUNS.items():
         runs = {k: _one_step_run(dev, cfg, batch) for k, cfg in (
             ("kernel", _slice_config(True, **kw)),
             ("plain", _slice_config(False, **kw)),
@@ -1910,17 +1956,28 @@ def phase_families(dev, card: str, slice_ms: float):
         del runs, k, p, f
         torch.cuda.empty_cache()
     for tag in FAMILY_FT:
-        _family_finetune(dev, card, tag)
+        _family_finetune(dev, card, tag, FAMILY_RUNS[tag])
     with tempfile.TemporaryDirectory(prefix="cstp_families_") as root:
         for tag in FAMILY_FT:
-            _family_importer(dev, root, tag)
-    for mode, model, depth, flags, want in FAMILY_BENCH_RUNS:
+            _family_importer(dev, root, tag, FAMILY_RUNS[tag])
+    _family_bench(FAMILY_BENCH_RUNS)
+    log(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def _family_bench(runs):
+    """bench_step at per-view BENCH_STEP_BS, 2 steps after 1, for each
+    ``(mode, --model, --depth, flags, launches per step)`` of ``runs``:
+    step ms, throughput, peak GiB and launches per step, checked; an
+    out-of-memory is reported with the size asked."""
+    from cstp_tpu_torch.perf import bench_step
+
+    for mode, model, depth, flags, want in runs:
         args = ["--mode", mode, "--model", model, "--depth", depth,
                 "--steps", "2", "--warmup", "1", *flags]
         try:
             r = bench_step.main(args)
         except torch.cuda.OutOfMemoryError as e:
-            log(f"[families] bench_step {' '.join(args)}: out of memory at "
+            log(f"[bench_step] {' '.join(args)}: out of memory at "
                 f"per-view {BENCH_STEP_BS}: {str(e).splitlines()[0]}")
             r = None
         gc.collect()
@@ -1929,14 +1986,337 @@ def phase_families(dev, card: str, slice_ms: float):
             continue
         got = {k: v for k, v in r["launches_per_step"].items() if v}
         rate = "pairs_per_s" if mode == "pretrain" else "clips_per_s"
-        log(f"[families] bench_step {' '.join(args)}, per-chip "
+        log(f"[bench_step] {' '.join(args)}, per-chip "
             f"{BENCH_STEP_BS}: {r['step_ms']:.1f} ms/step, {r[rate]:.1f} "
             f"{rate.replace('_per_s', '')}/s, peak "
             f"{r['peak_mem_gib']:.2f} GiB, launches per step {got}")
         if got != want or not math.isfinite(r["loss"]):
             raise SystemExit(f"bench_step {args} launched {got} per step "
                              f"(expected {want}) or lost its loss")
-    log(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ inception
+
+# phase 15's families: tag -> config flags
+INCEPTION_RUNS = {"s3d": dict(model_name="s3d_byol"),
+                  "i3d": dict(model_name="i3d_byol")}
+# the pretrain runs at per-view B_VIEW: tag -> (sample size, source frames)
+INCEPTION_PRETRAIN = {"s3d": (S, (H0, W0)), "i3d": (S_LARGE, NATIVE_HW)}
+# the finetune and eval runs at batch FAMILY_BATCH: (tag, config flags,
+# source frames); the conv head takes 224^2 only
+INCEPTION_FT = [("s3d", dict(model_name="s3d_classify"), (H0, W0)),
+                ("s3d", INCEPTION_RUNS["s3d"], (H0, W0)),
+                ("i3d", INCEPTION_RUNS["i3d"], (H0, W0)),
+                ("i3d", dict(model_name="i3d_byol", i3d_conv_head=1,
+                             sample_size=S_LARGE), NATIVE_HW)]
+INCEPTION_BENCH_RUNS = [
+    ("pretrain", "s3d", "1", ["--pallas-augment", "on"], {"augment": 1}),
+    ("pretrain", "i3d", "1", ["--pallas-augment", "on"], {"augment": 1}),
+    ("ft", "s3d", "1", [], {}),
+    ("ft", "i3d", "1", [], {}),
+]
+
+
+def conv_gflop_per_clip(model, t: int, s: int, dev) -> float:
+    """Forward GFLOP of one t x s^2 clip in ``model``'s convolutions (2 x
+    multiply-adds, from each ``Conv3d``'s output and weight shapes; the
+    dense heads are left out), by one eval-mode forward of a zero clip."""
+    from cstp_tpu_torch.models.layers import Conv3d
+
+    macs = []
+
+    def hook(m, _, out):
+        macs.append(out[0].numel() * m.weight[0].numel())
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, Conv3d)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, t, s, s, 3, device=dev), False)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2 * sum(macs) / 1e9
+
+
+def _inception_config(tag: str, kernel: bool, dtype: str = "bfloat16"):
+    from cstp_tpu_torch.config import Config
+
+    s, _ = INCEPTION_PRETRAIN[tag]
+    return Config(sample_duration=T, sample_size=s, batch_size=B_VIEW,
+                  compute_dtype=dtype, task="loss_com",
+                  fused_conv=int(kernel),
+                  pallas_augment="on" if kernel else "off",
+                  **INCEPTION_RUNS[tag]).finalize()
+
+
+def _inception_profile(dev, tag: str, batch):
+    """One warm-up and one profiled K5 step of ``tag``: its device busy
+    share and K5's device time inside the step."""
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    cfg = _inception_config(tag, True)
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    step = make_pretrain_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    step(state, gen, batch, cfg.learning_rate)
+    prof = profile_step(lambda: step(state, gen, batch, cfg.learning_rate),
+                        top=8)
+    if prof is not None:
+        k5 = {k: v for k, v in prof["ms_by_kernel"].items()
+              if "augment" in k}
+        log(f"[inception] {tag} profiled step: K5 device time "
+            f"{sum(k5.values()):.3f} ms in {len(k5)} kernel name(s) "
+            f"{sorted(k5)}")
+    del model, state, tx, step
+    torch.cuda.empty_cache()
+
+
+def _holds_sonnet(backbone, tensors) -> bool:
+    """Whether every unit of ``backbone`` holds its kinetics-i3d checkpoint
+    tensors bitwise (DHWIO kernels as OIDHW, Sonnet's BN without gamma)."""
+    from cstp_tpu_torch.models.i3d_tf_import import sonnet_name_map
+
+    for scope, path in sonnet_name_map("rgb").items():
+        unit = backbone.get_submodule(".".join(path))
+        w = torch.from_numpy(tensors[f"{scope}/conv_3d/w"]).permute(
+            4, 3, 0, 1, 2)
+        pairs = [(unit.conv.weight, w),
+                 (unit.bn.scale, torch.ones(unit.bn.scale.shape))]
+        pairs += [(t, torch.from_numpy(tensors[f"{scope}/batch_norm/{leaf}"]
+                                       ).reshape(-1))
+                  for t, leaf in ((unit.bn.bias, "beta"),
+                                  (unit.bn.mean, "moving_mean"),
+                                  (unit.bn.var, "moving_variance"))]
+        if not all(torch.equal(a.detach().cpu(), b) for a, b in pairs):
+            return False
+    return True
+
+
+def _inception_tf_ckpt(dev, root: str):
+    """A kinetics-i3d V2 checkpoint under the Sonnet names, of seeded
+    tensors at I3D's full widths, written by ``write_tf_checkpoint``; then
+    ``main_ft --tf_i3d_ckpt`` (2 steps) and ``main_byol --tf_i3d_ckpt``
+    (1 epoch of 2 steps, K5 on), whose towers right after the load must
+    hold the checkpoint bitwise: the finetune model's backbone, then both
+    pretrain towers."""
+    import os
+
+    import numpy as np
+
+    from cstp_tpu_torch.cli import main_byol, main_ft
+    from cstp_tpu_torch.models import make_backbone
+    from cstp_tpu_torch.models.i3d_tf_import import sonnet_name_map
+    from cstp_tpu_torch.train import loops
+
+    shapes = make_backbone("i3d_byol", dtype=torch.float32)
+    rng = np.random.default_rng(16)
+    tensors = {}
+    for scope, path in sonnet_name_map("rgb").items():
+        w = shapes.get_submodule(".".join(path)).conv.weight
+        k = tuple(w.permute(2, 3, 4, 1, 0).shape)
+        c = k[-1]
+        tensors[f"{scope}/conv_3d/w"] = (rng.normal(size=k)
+                                         / math.sqrt(math.prod(k[:4]))
+                                         ).astype(np.float32)
+        tensors[f"{scope}/batch_norm/beta"] = (
+            0.1 * rng.normal(size=c)).astype(np.float32)
+        tensors[f"{scope}/batch_norm/moving_mean"] = (
+            0.1 * rng.normal(size=(1, 1, 1, 1, c))).astype(np.float32)
+        tensors[f"{scope}/batch_norm/moving_variance"] = rng.uniform(
+            0.5, 1.5, (1, 1, 1, 1, c)).astype(np.float32)
+    prefix = os.path.join(root, "rgb_imagenet", "model.ckpt")
+    os.makedirs(os.path.dirname(prefix))
+    t0 = time.perf_counter()
+    write_tf_checkpoint(prefix, tensors)
+    write_s = time.perf_counter() - t0
+    held, load = [], loops.load_tf_i3d
+
+    def recording_load(backbone, path, *a, **k):
+        n = load(backbone, path, *a, **k)
+        held.append(_holds_sonnet(backbone, tensors))
+        return n
+
+    common = ["--model_name", "i3d_byol", "--tf_i3d_ckpt", prefix,
+              "--sample_duration", str(T), "--sample_size", str(S),
+              "--compute_dtype", "bfloat16", "--data_backend", "synthetic",
+              "--synthetic_len", str(2 * FAMILY_BATCH),
+              "--batch_size", str(FAMILY_BATCH), "--n_classes",
+              str(N_FT_CLASSES), "--n_finetune_classes", str(N_FT_CLASSES),
+              "--log_every", "0", "--n_workers", "4", "--n_epochs", "1",
+              "--steps_per_epoch", "2",
+              "--result_path", os.path.join(root, "tf_results")]
+    loops.load_tf_i3d = recording_load
+    try:
+        ft, _ = _cli_run(main_ft.main, common + ["--task", "ft_all"], {}, 2)
+        pre, _ = _cli_run(main_byol.main, common + [
+            "--task", "loss_com", "--pallas_augment", "on"],
+            {"augment": 1}, 2)
+    finally:
+        loops.load_tf_i3d = load
+    losses = [h["train_loss"] for h in ft["history"]] + [
+        h["loss"] for h in pre["history"]]
+    size = sum(os.path.getsize(os.path.join(os.path.dirname(prefix), f))
+               for f in os.listdir(os.path.dirname(prefix)))
+    log(f"[inception] --tf_i3d_ckpt: {len(tensors)} tensors, "
+        f"{size / 2**20:.1f} MiB written in {write_s:.2f} s; loads holding "
+        f"the checkpoint bitwise (main_ft's online_net, main_byol's online "
+        f"and target towers): {held}; losses {losses}")
+    if held != [True] * 3 or not all(math.isfinite(v) for v in losses):
+        raise SystemExit("[inception] the --tf_i3d_ckpt loads did not hold "
+                         "the checkpoint bitwise, or a loss is not finite")
+
+
+def phase_inception(dev, card: str, slice_ms: float):
+    """The S3D-G and I3D families at full width, bf16. At per-view B_VIEW:
+    one pretrain step of s3d_byol (16 x 112^2 from 128x171 frames) and of
+    i3d_byol (16 x 224^2 from 256x340: K5's frame in device memory, two
+    device launches in its one call) from the same weights, generator
+    and batch with K5 (``pallas_augment`` on, ``fused_conv`` 1, which these
+    families ignore: 0/0/1), the plain bf16 step (0/0/0) and the plain
+    float32 step, held by phase 4's rule, each timed over 2 steps with its
+    peak memory, and one profiled K5 step each. Then finetune and eval at
+    batch FAMILY_BATCH (INCEPTION_FT; no launch); the reference-.pth round
+    trip for s3d_byol and i3d_byol; the ``--tf_i3d_ckpt`` loads; and
+    bench_step at per-view 64 (INCEPTION_BENCH_RUNS)."""
+    import tempfile
+
+    from cstp_tpu_torch.models import make_backbone
+
+    t_phase = time.perf_counter()
+    for tag, (s, hw) in INCEPTION_PRETRAIN.items():
+        gflop = conv_gflop_per_clip(
+            make_backbone(INCEPTION_RUNS[tag]["model_name"],
+                          dtype=torch.bfloat16
+                          ).to(dev), T, s, dev)
+        batch = _slice_batch(dev, seed=4, n_pb=4, hw=hw)
+        runs = {k: _one_step_run(dev, cfg, batch) for k, cfg in (
+            ("kernel", _inception_config(tag, True)),
+            ("plain", _inception_config(tag, False)),
+            ("f32", _inception_config(tag, False, "float32")))}
+        k, p, f = (runs[n] for n in ("kernel", "plain", "f32"))
+        loss_err, acc_err, cos_k, cos_p, ok = _agree(k, p, f)
+        log(f"[inception] {tag} pretrain, per-view {B_VIEW}, {T}x{s}^2 from "
+            f"{hw[0]}x{hw[1]} ({gflop:.2f} forward GFLOP per clip in its "
+            f"convolutions): K5 step {k['ms']:.1f} ms "
+            f"({B_VIEW / k['ms'] * 1e3:.1f} pairs/s, peak "
+            f"{k['peak_gib']:.2f} GiB), plain bf16 {p['ms']:.1f} ms "
+            f"(peak {p['peak_gib']:.2f} GiB), plain float32 {f['ms']:.1f} ms "
+            f"(2 steps after one; phase 3's r21d step {slice_ms:.1f} ms; "
+            f"{card}); loss {k['metrics']['loss']:.5f} vs plain "
+            f"{p['metrics']['loss']:.5f}, max rel loss-term err "
+            f"{loss_err:.3e} (tol 2e-2), max accuracy diff {acc_err:.4f} "
+            f"(tol 0.125), update cosine to float32: K5 {cos_k:.5f}, plain "
+            f"{cos_p:.5f} (tol K5 >= plain - 0.05); launches {k['counts']}, "
+            f"plain {p['counts']}, float32 {f['counts']}")
+        if k["counts"] != _per_step(0, 0, 1) or any(p["counts"].values()) \
+                or any(f["counts"].values()):
+            raise SystemExit(f"[inception] {tag}: launches {k['counts']} "
+                             f"(expected 0/0/1), plain {p['counts']}")
+        if not ok:
+            raise SystemExit(f"[inception] {tag}: the K5 step and the plain "
+                             "step disagree")
+        del runs, k, p, f
+        torch.cuda.empty_cache()
+        _inception_profile(dev, tag, batch)
+    for tag, kw, hw in INCEPTION_FT:
+        _family_finetune(dev, card, tag, kw, hw=hw)
+    with tempfile.TemporaryDirectory(prefix="cstp_inception_") as root:
+        for tag, kw in INCEPTION_RUNS.items():
+            _family_importer(dev, root, tag, kw)
+        _inception_tf_ckpt(dev, root)
+    _family_bench(INCEPTION_BENCH_RUNS)
+    log(f"[inception] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ tf checkpoint
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _field(num: int, value) -> bytes:
+    """One protobuf field: an int as a varint, bytes length-delimited."""
+    if isinstance(value, int):
+        return _varint(num << 3) + _varint(value)
+    return _varint(num << 3 | 2) + _varint(len(value)) + value
+
+
+def sstable_bytes(items) -> bytes:
+    """An uncompressed SSTable of ``items`` ((key, value) bytes pairs,
+    sorted by key): one data block with a restart at every entry, an empty
+    meta-index block, an index block and the 48-byte footer. The inverse of
+    ``cstp_tpu_torch/models/tf_checkpoint.py read_table``."""
+    import struct
+
+    from cstp_tpu_torch.models.tf_checkpoint import (
+        TABLE_MAGIC,
+        crc32c,
+        mask_crc,
+    )
+
+    def block(entries):
+        body, restarts = bytearray(), []
+        for k, v in entries:
+            restarts.append(len(body))
+            body += _varint(0) + _varint(len(k)) + _varint(len(v)) + k + v
+        restarts = restarts or [0]
+        return bytes(body) + struct.pack(f"<{len(restarts) + 1}I",
+                                         *restarts, len(restarts))
+
+    out = bytearray()
+
+    def put(contents):
+        handle = _varint(len(out)) + _varint(len(contents))
+        out.extend(contents + b"\0" + struct.pack(
+            "<I", mask_crc(crc32c(contents + b"\0"))))
+        return handle
+
+    data = put(block(items))
+    meta = put(block([]))
+    index = put(block([(items[-1][0], data)]))
+    footer = (meta + index).ljust(40, b"\0")
+    return bytes(out) + footer + struct.pack("<II", TABLE_MAGIC & 0xFFFFFFFF,
+                                             TABLE_MAGIC >> 32)
+
+
+def bundle_entry(a, offset: int) -> bytes:
+    """A ``BundleEntryProto`` of the float32 array ``a`` at ``offset`` of
+    shard 0."""
+    import numpy as np
+
+    from cstp_tpu_torch.models.tf_checkpoint import crc32c, mask_crc
+
+    raw = np.ascontiguousarray(a, "<f4").tobytes()
+    shape = b"".join(_field(2, _field(1, int(d))) for d in np.shape(a))
+    crc = _varint(6 << 3 | 5) + mask_crc(crc32c(raw)).to_bytes(4, "little")
+    return (_field(1, 1) + _field(2, shape) + _field(4, offset)
+            + _field(5, len(raw)) + crc)
+
+
+def write_tf_checkpoint(prefix: str, tensors) -> None:
+    """A TensorFlow V2 checkpoint (``<prefix>.index`` and one data shard)
+    of the float32 arrays ``tensors`` ({name: array}), without TensorFlow:
+    what ``tf.compat.v1.train.Saver`` writes for float32 variables."""
+    import numpy as np
+
+    data, items = bytearray(), []
+    for name in sorted(tensors):
+        items.append((name.encode(), bundle_entry(tensors[name], len(data))))
+        data += np.ascontiguousarray(tensors[name], "<f4").tobytes()
+    header = _field(1, 1) + _field(3, _field(1, 1))   # 1 shard, producer 1
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        f.write(data)
+    with open(prefix + ".index", "wb") as f:
+        f.write(sstable_bytes([(b"", header)] + items))
 
 
 def kernels_line(conv, aug_err, aug_t, counts):
@@ -2012,6 +2392,7 @@ def main(argv=None) -> int:
         phase_cli(dev, card, sl["step_ms"], bench["pretrain"]["step_ms"])
         phase_flags(dev, card, sl["step_ms"])
         phase_families(dev, card, sl["step_ms"])
+        phase_inception(dev, card, sl["step_ms"])
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

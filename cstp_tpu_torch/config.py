@@ -236,8 +236,6 @@ class Config:
             f"model_name {self.model_name}":
                 base_model_name(self.model_name) not in PORTED_FAMILIES,
             "legacy_pace": bool(self.legacy_pace),
-            "i3d_conv_head": bool(self.i3d_conv_head),
-            "tf_i3d_ckpt": bool(self.tf_i3d_ckpt),
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -255,7 +253,7 @@ class Config:
 
 
 # backbone families the port builds (models/__init__.py)
-PORTED_FAMILIES = ("r21d", "c3d", "r3d")
+PORTED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d")
 
 
 def base_model_name(arch: str) -> str:

@@ -6,11 +6,14 @@ ported families:
 | r21d     | 512             | 512 (h4096) | 512 (h4096)  | MLP, 5/5/5/5    |
 | c3d      | 512             | -           | 512 (h4096)  | Linear, 5/5/4/4 |
 | r3d      | 512 * expansion | -           | feat (h4096) | Linear, 5/5/4/4 |
+| s3d      | 1024            | 1024 (h1024)| 1024 (h4096) | MLP, 5/5/5/5    |
+| i3d      | 1024, L2-normed | -           | 1024 (h4096) | Linear, 5/5/4/4 |
 
 Any other family raises ``NotImplementedError``. ``fused_conv``, ``remat``
-and ``remat_policy`` reach R(2+1)D only and ``shortcut`` the 3D ResNet
-only; the other families accept them and do nothing, as in the JAX
-package.
+and ``remat_policy`` reach R(2+1)D only, ``shortcut`` the 3D ResNet only,
+``gating`` / ``slow`` S3D only and ``conv_head`` / ``num_classes`` (the
+``--i3d_conv_head`` classifier) I3D only; the other families accept them
+and do nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +54,11 @@ def backbone_spec(arch: str, depth: int = 1) -> BackboneSpec:
     base = _family(arch)
     if base == "r21d":
         return BackboneSpec(512, 512, 4096, 512, 4096, "mlp")
+    if base == "s3d":
+        return BackboneSpec(1024, 1024, 1024, 1024, 4096, "mlp")
+    if base == "i3d":
+        return BackboneSpec(1024, None, 0, 1024, 4096, "linear", n_pb=4,
+                            n_rot=4, l2_feat=True)
     f = 512
     if base == "r3d":   # an unknown depth: expansion 1 (JAX's fallback)
         from cstp_tpu_torch.models.r3d import R3D_LAYERS
@@ -64,13 +72,26 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
                   fused_conv: bool = False,
                   gen: Optional[torch.Generator] = None,
                   remat: bool = False, remat_policy: str = "",
-                  shortcut: str = "B"):
+                  shortcut: str = "B", gating: bool = True,
+                  slow: bool = False, conv_head: bool = False,
+                  num_classes: int = 0):
     """The backbone module for ``arch`` ('r21d_byol', 'c3d', 'r3d_classify',
     ...); ``remat`` / ``remat_policy`` are ``--remat`` / ``--remat_policy``
     and ``shortcut`` is ``--resnet_shortcut``. An r3d depth without a
     layout builds r3d-18 (the JAX package's fallback: ``--model_depth``
-    defaults to 1)."""
+    defaults to 1). S3D is built with self-gating (``gating``, as the
+    reference's ``s3d_byol``) and the stem's temporal stride 2 unless
+    ``slow``; ``conv_head`` gives I3D the reference classifier of
+    ``num_classes`` outputs."""
     base = _family(arch)
+    if base == "s3d":
+        from cstp_tpu_torch.models.s3dg import S3D
+
+        return S3D(gating, slow, proj_flag, dtype, bn_groups, gen)
+    if base == "i3d":
+        from cstp_tpu_torch.models.i3d import I3D
+
+        return I3D(dtype, bn_groups, conv_head, num_classes, gen)
     if base == "c3d":
         from cstp_tpu_torch.models.c3d import C3D
 

@@ -140,12 +140,28 @@ def _triple(v) -> Tuple[int, int, int]:
     return (v, v, v) if isinstance(v, int) else tuple(v)
 
 
+def _pad_pairs(padding) -> Tuple[Tuple[int, int], ...]:
+    """Per-axis ``(lo, hi)`` pads of ``padding``: an int, three ints
+    (symmetric) or three ``(lo, hi)`` pairs, mixed freely."""
+    return tuple((p, p) if isinstance(p, int) else (int(p[0]), int(p[1]))
+                 for p in _triple(padding))
+
+
+def _ndhwc_pad(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
+    """``x`` (N, T, H, W, C) padded by ``pads`` ((lo, hi) for T, H, W)."""
+    (tlo, thi), (hlo, hhi), (wlo, whi) = pads
+    return F.pad(x, (0, 0, wlo, whi, hlo, hhi, tlo, thi), value=value)
+
+
 class Conv3d(nn.Module):
-    """3D conv on NDHWC with symmetric padding, computed in ``dtype``. The
-    NDHWC tensor is handed to ``F.conv3d`` as its ``channels_last_3d``
-    NCDHW view, so no copy is made. ``use_bias`` adds a float32 bias,
-    initialised to zeros, to the ``dtype`` output (the JAX package's
-    ``out + bias.astype(dtype)``)."""
+    """3D conv on NDHWC, computed in ``dtype``. The NDHWC tensor is handed
+    to ``F.conv3d`` as its ``channels_last_3d`` NCDHW view, so no copy is
+    made. ``padding`` is symmetric per axis (an int each) or, for the
+    TF-SAME backbones, a ``(lo, hi)`` pair per axis: an asymmetric pad is
+    written into the NDHWC tensor first (so cuDNN still gets a
+    ``channels_last_3d`` view) and the conv then pads nothing.
+    ``use_bias`` adds a float32 bias, initialised to zeros, to the
+    ``dtype`` output (the JAX package's ``out + bias.astype(dtype)``)."""
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16,
@@ -154,7 +170,10 @@ class Conv3d(nn.Module):
         super().__init__()
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
-        self.padding = _triple(padding)
+        pads = _pad_pairs(padding)
+        symmetric = all(lo == hi for lo, hi in pads)
+        self.pads = None if symmetric else pads
+        self.padding = tuple(lo for lo, _ in pads) if symmetric else (0, 0, 0)
         self.dtype = dtype
         self.weight = nn.Parameter(glorot_init(
             torch.empty(features, in_ch, *self.kernel), gen))
@@ -162,7 +181,10 @@ class Conv3d(nn.Module):
                      else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
+        x = x.to(self.dtype)
+        if self.pads is not None:
+            x = _ndhwc_pad(x, self.pads)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3),
                      self.weight.to(self.dtype), stride=self.stride,
                      padding=self.padding).permute(0, 2, 3, 4, 1)
         if self.bias is not None:
@@ -177,6 +199,26 @@ def max_pool_3d(x: torch.Tensor, kernel, stride,
     y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), _triple(kernel),
                      _triple(stride), _triple(padding))
     return y.permute(0, 2, 3, 4, 1)
+
+
+def same_pads(kernel, stride) -> Tuple[Tuple[int, int], ...]:
+    """TF SAME pads (the JAX package's ``_same_pads``): ``max(k - s, 0)``
+    per axis, the odd one at the end."""
+    pads = []
+    for k, s in zip(_triple(kernel), _triple(stride)):
+        along = max(k - s, 0)
+        pads.append((along // 2, along - along // 2))
+    return tuple(pads)
+
+
+def max_pool_3d_same(x: torch.Tensor, kernel, stride) -> torch.Tensor:
+    """TF-SAME max pool on NDHWC (I3D's ``MaxPool3dTFPadding``): pads of
+    :func:`same_pads`, ``-inf`` as in the JAX package. ``F.max_pool3d``
+    pads symmetrically only, so an asymmetric pad is written out first."""
+    pads = same_pads(kernel, stride)
+    if all(lo == hi for lo, hi in pads):
+        return max_pool_3d(x, kernel, stride, tuple(lo for lo, _ in pads))
+    return max_pool_3d(_ndhwc_pad(x, pads, float("-inf")), kernel, stride)
 
 
 def r21d_intermediate_channels(in_channels: int, out_channels: int,
@@ -274,6 +316,37 @@ class MLPHead(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = self.bn(self.fc1(x), train)
         return self.fc2(torch.relu(x).to(self.dtype))
+
+
+# The Inception-v1 plan that S3D-G and I3D share (reference s3dg.py:193-222,
+# i3d_byol.py:223-426): block suffix -> out_planes [b0, b1a, b1b, b2a, b2b,
+# b3b]; S3D-G names a block Mixed_<suffix>, I3D mixed_<suffix>
+INCEPTION_PLAN = (
+    ("3b", (64, 96, 128, 16, 32, 32)),
+    ("3c", (128, 128, 192, 32, 96, 64)),
+    ("4b", (192, 96, 208, 16, 48, 64)),
+    ("4c", (160, 112, 224, 24, 64, 64)),
+    ("4d", (128, 128, 256, 24, 64, 64)),
+    ("4e", (112, 144, 288, 32, 64, 64)),
+    ("4f", (256, 160, 320, 32, 128, 128)),
+    ("5b", (256, 160, 320, 32, 128, 128)),
+    ("5c", (384, 192, 384, 48, 128, 128)),
+)
+
+
+class SelfGating(nn.Module):
+    """S3D-G feature gating: ``x * sigmoid(fc(mean of x over T, H, W))``,
+    the mean, the float32 ``fc`` (glorot kernel, torch-default bias) and
+    the product in float32, the result in ``x``'s dtype."""
+
+    def __init__(self, channels: int, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = Dense(channels, channels, torch.float32, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        w = torch.sigmoid(self.fc(xf.mean(dim=(1, 2, 3))))
+        return (xf * w[:, None, None, None, :]).to(x.dtype)
 
 
 class PretextHead(nn.Module):

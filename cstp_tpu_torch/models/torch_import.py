@@ -22,8 +22,11 @@ From the command line (:func:`main`):
     python -m cstp_tpu_torch.models.torch_import --export ckpt_dir \
         out.pth --arch r21d_byol           # port checkpoint -> .pth
 
-The maps cover the five reference families (r21d, c3d, r3d, s3d, i3d);
-the port builds models of the first three.
+The maps cover the five reference families (r21d, c3d, r3d, s3d, i3d),
+all of which the port builds. As in the JAX package, the S3DClassify MLP
+head's reference names ``classify.{0,1,3}`` map to no port module (a
+module path of two parts is not read as ``classify.N``): a finetune model
+loaded from such a file keeps its own head.
 """
 
 from __future__ import annotations

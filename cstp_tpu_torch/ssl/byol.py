@@ -11,10 +11,12 @@ running statistics advance once per call, in that order. The target tower
 runs under ``torch.no_grad()`` (the JAX package's ``stop_gradient``); it
 still runs in train mode, so its BN running statistics update, as in JAX.
 
-``CSTPClassify`` is the finetune/test model: the online backbone, then the
-``linear`` head (L2-normalise -> ``cls_bn`` -> float32 ``classify``) or the
-``mlp`` head (``model_name`` ``*_classify``: Linear-BN-ReLU-Linear on the
-raw feature).
+``CSTPClassify`` is the finetune/test model: the online backbone's feature
+(L2-normalised for I3D, ``feat_and_proj``), then the ``linear`` head
+(L2-normalise -> ``cls_bn`` -> float32 ``classify``) or the ``mlp`` head
+(``model_name`` ``*_classify``: Linear-BN-ReLU-Linear on the feature); or,
+with ``head_style="i3d_conv"`` (``--i3d_conv_head``), the reference I3D
+classifier inside the backbone.
 """
 
 from __future__ import annotations
@@ -154,9 +156,12 @@ class CSTPClassify(nn.Module):
     ``head_style`` 'linear': L2-normalise -> ``cls_bn`` (running statistics
     in eval; left out with ``use_cls_bn=False``) -> float32 ``classify``
     (glorot kernel, torch-default bias). 'mlp': ``classify`` is
-    Linear-BN-ReLU-Linear on the raw feature. ``fused_conv`` reaches the
-    backbone's stride-1 (2+1)D sites, which fuse in train mode only;
-    ``shortcut`` is the 3D ResNet's ``--resnet_shortcut``.
+    Linear-BN-ReLU-Linear on the feature. 'i3d_conv': I3D's own
+    ``conv_head`` classifier (224^2 only); no ``classify`` or ``cls_bn``
+    module, and no pre-head feature. The feature is the backbone's through
+    ``feat_and_proj`` (I3D's is L2-normalised there). ``fused_conv``
+    reaches the backbone's stride-1 (2+1)D sites, which fuse in train mode
+    only; ``shortcut`` is the 3D ResNet's ``--resnet_shortcut``.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
@@ -167,27 +172,39 @@ class CSTPClassify(nn.Module):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.head_style = head_style
+        head = {}
+        if head_style == "i3d_conv":
+            if not backbone.startswith("i3d"):
+                raise ValueError(f"head 'i3d_conv' needs an i3d backbone, "
+                                 f"not {backbone!r}")
+            head = dict(conv_head=True, num_classes=num_classes)
         self.online_net = make_backbone(backbone, depth, dtype=dtype,
                                         proj_flag=False, bn_groups=bn_groups,
                                         fused_conv=fused_conv, gen=gen,
-                                        shortcut=shortcut)
+                                        shortcut=shortcut, **head)
         f = spec.feat_dim
         if head_style == "mlp":
             self.classify = MLPHead(f, f, num_classes, dtype, bn_groups, gen)
         elif head_style == "linear":
             self.cls_bn = BatchNorm(f, bn_groups, gen) if use_cls_bn else None
             self.classify = Dense(f, num_classes, torch.float32, gen)
-        else:
+        elif head_style != "i3d_conv":
             raise NotImplementedError(
-                f"cstp_tpu_torch ports the 'linear' and 'mlp' finetune heads,"
-                f" not {head_style!r}")
+                f"cstp_tpu_torch ports the 'linear', 'mlp' and 'i3d_conv' "
+                f"finetune heads, not {head_style!r}")
 
     def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The backbone's float32 feature vector (before the head)."""
-        return self.online_net(x, train).float()
+        if self.head_style == "i3d_conv":
+            raise ValueError("retrieval features need a pre-head backbone "
+                             "output; the 'i3d_conv' head has none")
+        feat, _ = feat_and_proj(self.online_net(x, train), self.spec)
+        return feat.float()
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        feat = self.online_net(x, train)
+        if self.head_style == "i3d_conv":
+            return self.online_net(x, train)   # the internal head's logits
+        feat, _ = feat_and_proj(self.online_net(x, train), self.spec)
         if self.head_style == "mlp":
             return self.classify(feat, train).float()
         feat = l2_normalize(feat)

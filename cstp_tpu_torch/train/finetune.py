@@ -47,11 +47,14 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
     """``CSTPClassify`` with its initial weights drawn on the CPU from
     ``seed``, moved to ``device`` (CUDA unless ``device="cpu"``).
     ``model_name`` ``*_classify`` selects the 'mlp' head, any other the
-    'linear' head."""
+    'linear' head; ``--i3d_conv_head`` on an ``i3d*`` model the 'i3d_conv'
+    head (224^2 only)."""
     config.check_ported()
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     head = "mlp" if config.model_name.endswith("_classify") else "linear"
+    if config.i3d_conv_head and config.model_name.startswith("i3d"):
+        head = "i3d_conv"
     model = CSTPClassify(config.model_name, config.model_depth, num_classes,
                          use_cls_bn=config.cls_bn, head_style=head,
                          dtype=compute_dtype(config),
@@ -65,7 +68,11 @@ def finetune_frozen_prefixes(config: Config) -> Tuple[str, ...]:
     """The module paths a finetune run freezes (the JAX package's prefixes
     in the port's names): ``ft_all`` (index 0) trains everything; ``ft_fc``
     (5) only the classifier; index 1..4 freezes the stem, ``cls_bn``'s
-    affine parameters and the stages ``conv2 .. conv{idx}``."""
+    affine parameters and the stages ``conv2 .. conv{idx}``. Under
+    ``--i3d_conv_head`` (an ``i3d*`` model) index 5 freezes I3D's stages
+    and trains its internal classifier. Index 1..4 names modules that
+    exist on no s3d or i3d backbone, so there it freezes ``cls_bn`` alone,
+    as in the JAX package."""
     idx = config.ft_begin_index
     if config.task == "ft_fc":
         idx = 5
@@ -74,6 +81,11 @@ def finetune_frozen_prefixes(config: Config) -> Tuple[str, ...]:
     if idx == 0:
         return ()
     if idx >= 5:
+        if config.i3d_conv_head and config.model_name.startswith("i3d"):
+            from cstp_tpu_torch.models.i3d import MIXED, STEM
+
+            stages = (*STEM, *(name for name, _ in MIXED))
+            return tuple(f"online_net.{s}" for s in stages)
         return ("online_net", "cls_bn")
     frozen = ["online_net.conv1", "online_net.bn1", "cls_bn"]
     for i in range(1, idx):

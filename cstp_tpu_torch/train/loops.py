@@ -34,6 +34,7 @@ from cstp_tpu_torch.data.loader import (
     prefetch_to_device,
 )
 from cstp_tpu_torch.models import torch_import
+from cstp_tpu_torch.models.i3d_tf_import import load_tf_i3d
 from cstp_tpu_torch.train import optim
 from cstp_tpu_torch.train.finetune import (
     RETRIEVAL_TOPK,
@@ -232,6 +233,11 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
         echo=config.data_echo)
     model, state, tx = create_pretrain_state(config, seed=config.manual_seed,
                                              device=dev)
+    if config.tf_i3d_ckpt:
+        # a kinetics-i3d checkpoint seeds both towers (the reference loads
+        # it into the I3D base that online and target start from)
+        for tower in (model.online_net, model.target_net):
+            load_tf_i3d(tower, config.tf_i3d_ckpt)
     step_fn = make_pretrain_step(model, tx, config)
 
     log_dir = _log_dir(config)
@@ -395,6 +401,8 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
     num_classes = config.n_finetune_classes or config.n_classes
     model, state, tx = create_finetune_state(
         config, num_classes, seed=config.manual_seed, device=dev)
+    if config.tf_i3d_ckpt:
+        load_tf_i3d(model.online_net, config.tf_i3d_ckpt)
 
     # pretrained backbone, loaded by name (the head keeps its init); a
     # file is a reference torch save_{E}.pth (models/torch_import.py)

@@ -39,7 +39,8 @@ def test_entry_runs_each_mode(capsys, monkeypatch, mode, extra):
 
 
 @pytest.mark.parametrize("mode", ["pretrain", "ft"])
-@pytest.mark.parametrize("model, depth", [("c3d", "1"), ("r3d", "18")])
+@pytest.mark.parametrize("model, depth", [("c3d", "1"), ("r3d", "18"),
+                                          ("s3d", "1"), ("i3d", "1")])
 def test_entry_runs_each_family(capsys, monkeypatch, model, depth, mode):
     """``--model`` builds the family (8 frames: C3D pools time three
     times) and is reported in the JSON line; no kernel but K5 is on these
@@ -55,5 +56,5 @@ def test_entry_runs_each_family(capsys, monkeypatch, model, depth, mode):
 
 
 def test_entry_refuses_an_unported_family():
-    with pytest.raises(NotImplementedError, match="s3d"):
-        bench_step.main([*_TINY, "--model", "s3d"])
+    with pytest.raises(NotImplementedError, match="slowfast"):
+        bench_step.main([*_TINY, "--model", "slowfast"])

@@ -487,10 +487,10 @@ def _flag_config(**over):
     return Config(**kw).finalize()
 
 
-def _flag_step(dev, cfg, n_pb=5):
+def _flag_step(dev, cfg, n_pb=5, hw=(40, 53)):
     """One pretrain step of ``cfg`` from seed-0 weights on a seeded batch
-    (playback labels below ``n_pb``): (metrics, BN buffers after it,
-    K2/K3/K5 launches)."""
+    of ``hw`` frames (playback labels below ``n_pb``): (metrics, BN
+    buffers after it, K2/K3/K5 launches)."""
     from cstp_tpu_torch.train.pretrain import (
         create_pretrain_state,
         make_pretrain_step,
@@ -503,10 +503,10 @@ def _flag_step(dev, cfg, n_pb=5):
     def labels(k):
         return torch.randint(0, k, (b,), generator=gen, device=dev)
 
-    batch = dict(frames1=torch.randint(0, 256, (b, t, 40, 53, 3),
+    batch = dict(frames1=torch.randint(0, 256, (b, t, *hw, 3),
                                        generator=gen, device=dev,
                                        dtype=torch.uint8),
-                 frames2=torch.randint(0, 256, (b, t, 40, 53, 3),
+                 frames2=torch.randint(0, 256, (b, t, *hw, 3),
                                        generator=gen, device=dev,
                                        dtype=torch.uint8),
                  rot1=labels(4), rot2=labels(4), tem=labels(5),
@@ -583,6 +583,29 @@ def test_family_pretrain_steps_with_k5_match_the_plain_path(
     mk, _, counts = _flag_step(dev, _flag_config(**over), n_pb=4)
     mp, _, plain = _flag_step(dev, _flag_config(
         fused_conv=0, pallas_augment="off", **over), n_pb=4)
+    assert counts == (0, 0, 1) and plain == (0, 0, 0)
+    for k in mk:
+        assert np.isfinite(mk[k]), k
+        if k.startswith("loss"):
+            assert abs(mk[k] - mp[k]) <= 2e-2 * abs(mp[k]), k
+
+
+@pytest.mark.parametrize("model_name, size, hw", [
+    ("s3d_byol", 112, (128, 171)), ("i3d_byol", 224, (256, 340))],
+    ids=["s3d-112", "i3d-224"])
+def test_inception_pretrain_steps_with_k5_match_the_plain_path(
+        dev, model_name, size, hw):
+    """S3D-G and I3D pretrain steps at 16 frames, per-view batch 16, with
+    K5 (``fused_conv`` 1, which these families ignore) launch 0/0/1 and the
+    plain step 0/0/0; loss terms within 2e-2 of the plain bf16 step's
+    (phase 4's rule). At 224^2 from 256x340 frames K5 keeps its frame in
+    device memory and its one call makes two launches for the 32 clips (27,
+    then 5): the counter counts the call."""
+    over = dict(model_name=model_name, sample_duration=16,
+                sample_size=size, batch_size=16)
+    mk, _, counts = _flag_step(dev, _flag_config(**over), n_pb=4, hw=hw)
+    mp, _, plain = _flag_step(dev, _flag_config(
+        fused_conv=0, pallas_augment="off", **over), n_pb=4, hw=hw)
     assert counts == (0, 0, 1) and plain == (0, 0, 0)
     for k in mk:
         assert np.isfinite(mk[k]), k

@@ -1,6 +1,8 @@
 """The port stands alone: ``cstp_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``cstp_tpu``, and no entry point
-(steps, loops, CLIs) moves to the CPU unless asked.
+neither JAX nor anything of the JAX package ``cstp_tpu``, nor TensorFlow or
+protobuf (the card machine has neither: the kinetics-i3d checkpoint reader
+is numpy alone), and no entry point (steps, loops, CLIs) moves to the CPU
+unless asked.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py).
@@ -26,15 +28,19 @@ names = [m.name for m in pkgutil.walk_packages(cstp_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "flax", "cstp_tpu")
-             or m.startswith(("jax.", "jaxlib.", "flax.", "cstp_tpu.")))
+             if m in ("jax", "jaxlib", "flax", "cstp_tpu", "tensorflow",
+                      "google.protobuf")
+             or m.startswith(("jax.", "jaxlib.", "flax.", "cstp_tpu.",
+                              "tensorflow.", "google.protobuf.")))
 print(len(names), bad)
 """
 
 
 def _is_jax_or_package(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "cstp_tpu")
+    return (top in ("jax", "jaxlib", "flax", "optax", "cstp_tpu",
+                    "tensorflow")
+            or name == "google.protobuf" or name.startswith("google.protobuf."))
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -145,10 +151,11 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(legacy_pace=1), dict(i3d_conv_head=1),
-    dict(tf_i3d_ckpt="i3d.ckpt"), dict(s2d_stem=True), dict(t_fold=1),
-    dict(quant="int8"), dict(mid_round=128), dict(ntxent_weight=0.5),
-    dict(shard_opt_state=1), dict(model_name="s3d"),
+    dict(legacy_pace=1), dict(model_name="slowfast"),
+    dict(model_name="s3d", s2d_stem=True), dict(s2d_stem=True),
+    dict(t_fold=1), dict(quant="int8"), dict(mid_round=128),
+    dict(ntxent_weight=0.5), dict(shard_opt_state=1),
+    dict(model_name="slowfast_fb"),
 ])
 def test_config_refuses_unported_flags(flag):
     from cstp_tpu_torch.config import Config
@@ -179,6 +186,23 @@ def test_config_takes_the_ported_step_flags(flag):
     assert set(state.opt_state) == (
         {"mu", "nu", "count"} if cfg.optimizer != "sgd"
         else {"trace", "count"} if cfg.dampening else {"trace"})
+
+
+@pytest.mark.parametrize("flag", [
+    dict(model_name="s3d"), dict(model_name="s3d_byol"),
+    dict(model_name="s3d_classify"), dict(model_name="i3d_byol"),
+    dict(model_name="i3d_classify"),
+    dict(model_name="i3d_byol", i3d_conv_head=1),
+    dict(model_name="i3d_byol", tf_i3d_ckpt="i3d.ckpt"),
+])
+def test_config_takes_the_inception_families(flag):
+    """The S3D-G and I3D families, ``--i3d_conv_head`` and
+    ``--tf_i3d_ckpt`` (refused until they were ported) build a config."""
+    from cstp_tpu_torch.config import Config
+
+    cfg = Config(**flag).finalize()
+    for k, v in flag.items():
+        assert getattr(cfg, k) == v
 
 
 @pytest.mark.parametrize("flag, error", [
