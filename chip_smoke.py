@@ -109,9 +109,24 @@ Phases:
      (``write_tf_checkpoint``, no TensorFlow) loaded by ``main_ft
      --tf_i3d_ckpt`` (2 steps) and ``main_byol --tf_i3d_ckpt`` (1 epoch of
      2 steps) into the right towers bitwise; ``bench_step`` at per-view 64
-     (pretrain with K5, and ft) for s3d and i3d.
+     (pretrain with K5, and ft) for s3d and i3d;
+  16. slowfast_legacy: the SlowFast family (``--tau 8 --alpha 4``) and the
+     legacy pace-era models at full width, 16 x 112^2 from 128x171 frames,
+     bf16: at per-view 16, one pretrain step each of SlowFast depth 18 and
+     50 (SlowFast-R50) with K5 (0/0/1) against the plain bf16 step (0/0/0)
+     by phase 4's rule, each timed over 2 steps with its peak memory;
+     finetune and eval of slowfast_fb-50 at batch 16 (no launch); the
+     ``--legacy_pace 1`` finetune step of bare r21d at batch 64 with
+     ``--fused_conv 1`` against its plain steps by phase 9's rule (5/5/0
+     launches); one train-mode forward of each legacy model
+     (``make_legacy_model``: r21d, r21d_byol with one backward, c3d, r3d,
+     s3d_g with and without space to depth) in bf16 against float32 (no
+     launch); ``bench_step --model slowfast --depth 50`` at per-view 64
+     (pretrain with K5, and ft).
 Then one JSON line describing the kernels (``launches`` null with
-``--kernels-only``), the card's name and power limit, and a last JSON line
+``--kernels-only``; the slice phase's launches plus those of phase 16's
+K5 and ``--legacy_pace`` steps), the card's name and power limit, and a
+last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Imports nothing of JAX.
 """
@@ -1072,14 +1087,18 @@ def phase_finetune(dev, card: str, steps: int = 3):
                 state=state_fc)
 
 
-def phase_finetune_parity(dev, timed_steps: int = 2):
+def phase_finetune_parity(dev, timed_steps: int = 2, over=None,
+                          tag: str = "ft-parity"):
     """One finetune step from the same weights and the same pre-augmented
     batch through fused_conv=1 (bf16), fused_conv=0 (bf16) and fused_conv=0
     in float32, which arbitrates; PERF.md section 2's rule. Then each one's
-    step time on the same batch."""
+    step time on the same batch. ``over``: config flags set in all three
+    (phase 16's ``--legacy_pace``). Returns each run's launches in its
+    first step, its step ms and its peak GiB."""
     from cstp_tpu_torch.augment.pipeline import finetune_train_augment_batch
     from cstp_tpu_torch.train import finetune as ft
 
+    over = over or {}
     raw = _ft_batch(dev, seed=12)
     clips = finetune_train_augment_batch(
         torch.Generator(device=dev).manual_seed(13), raw["frames"],
@@ -1087,13 +1106,19 @@ def phase_finetune_parity(dev, timed_steps: int = 2):
     batch = dict(clips=clips, labels=raw["labels"])
     del raw
     runs = {}
-    for name, cfg in (("kernel", _ft_config(1)), ("plain", _ft_config(0)),
-                      ("f32", _ft_config(0, "float32"))):
+    for name, cfg in (("kernel", _ft_config(1, **over)),
+                      ("plain", _ft_config(0, **over)),
+                      ("f32", _ft_config(0, "float32", **over))):
         model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
                                                     device=dev)
         p0 = _snapshot(model)
         step = ft.make_preaugmented_finetune_step(model, tx, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launch_counts()
         state, m = step(state, batch, cfg.learning_rate)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
         update = torch.cat([(p.detach() - p0[n]).flatten().double()
                             for n, p in model.named_parameters()])
         torch.cuda.synchronize()
@@ -1102,7 +1127,8 @@ def phase_finetune_parity(dev, timed_steps: int = 2):
             state, _ = step(state, batch, cfg.learning_rate)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / timed_steps * 1e3
-        runs[name] = ({k: float(v) for k, v in m.items()}, update, ms)
+        runs[name] = ({k: float(v) for k, v in m.items()}, update, ms,
+                      counts, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
         del model, state, tx, step, p0
         torch.cuda.empty_cache()
     mk, mp, mf = (runs[n][0] for n in ("kernel", "plain", "f32"))
@@ -1117,20 +1143,26 @@ def phase_finetune_parity(dev, timed_steps: int = 2):
     # the tolerances of phase 4 (PERF.md section 2): loss within 2e-2
     # relative, accuracy within 0.125, the kernel update's cosine to the
     # float32 update within 0.05 of the plain bf16 update's
-    log(f"[ft-parity] kernel vs plain bf16 finetune step: loss "
+    log(f"[{tag}] kernel vs plain bf16 finetune step: loss "
         f"{mk['loss']:.5f} vs {mp['loss']:.5f} (float32 {mf['loss']:.5f}); "
         f"rel loss err {loss_err:.3e} (tol 2e-2); accuracy diff "
         f"{acc_err:.4f} (tol 0.125); update cosine to the float32 update: "
         f"kernel {cos_k:.5f}, plain {cos_p:.5f} (tol kernel >= plain - 0.05);"
         f" kernel vs plain {cos('kernel', 'plain'):.5f}")
-    log(f"[ft-parity] finetune step ms ({timed_steps} steps after the first, "
-        f"pre-augmented batch): kernel {runs['kernel'][2]:.1f}, plain bf16 "
-        f"{runs['plain'][2]:.1f}, plain float32 {runs['f32'][2]:.1f}")
+    log(f"[{tag}] finetune step ms ({timed_steps} steps after the first, "
+        f"pre-augmented batch {B_FT}): kernel {runs['kernel'][2]:.1f} "
+        f"({B_FT / runs['kernel'][2] * 1e3:.1f} clips/s, peak "
+        f"{runs['kernel'][4]:.2f} GiB), plain bf16 {runs['plain'][2]:.1f} "
+        f"(peak {runs['plain'][4]:.2f} GiB), plain float32 "
+        f"{runs['f32'][2]:.1f}; first-step launches: kernel "
+        f"{runs['kernel'][3]}, plain {runs['plain'][3]}")
     if not (loss_err <= 2e-2 and acc_err <= 0.125 and cos_k >= cos_p - 0.05):
-        raise SystemExit("the kernel finetune step and the plain one "
-                         "disagree")
+        raise SystemExit(f"[{tag}] the kernel finetune step and the plain "
+                         "one disagree")
     return dict(loss_err=loss_err, cos_k=cos_k, cos_p=cos_p,
-                step_ms={n: r[2] for n, r in runs.items()})
+                step_ms={n: r[2] for n, r in runs.items()},
+                counts={n: r[3] for n, r in runs.items()},
+                peak_gib={n: r[4] for n, r in runs.items()})
 
 
 def _timed(fn):
@@ -1780,6 +1812,42 @@ FAMILY_BENCH_RUNS = [
 ]
 
 
+def _family_pretrain(dev, card: str, phase: str, tag: str, kw, batch,
+                     slice_ms: float):
+    """One pretrain step (config flags ``kw`` over the slice's) from the
+    same weights, generator and ``batch`` with K5 (``pallas_augment`` on,
+    and ``fused_conv`` 1, which only R(2+1)D reads; launches 0/0/1), the
+    plain bf16 step (K5's plain version; 0/0/0) and the plain float32 step,
+    held by phase 4's rule, each then timed over 2 steps with its peak
+    memory. Returns the K5 run's launches in its first step."""
+    runs = {k: _one_step_run(dev, cfg, batch) for k, cfg in (
+        ("kernel", _slice_config(True, **kw)),
+        ("plain", _slice_config(False, **kw)),
+        ("f32", _slice_config_plain_f32(**kw)))}
+    k, p, f = (runs[n] for n in ("kernel", "plain", "f32"))
+    loss_err, acc_err, cos_k, cos_p, ok = _agree(k, p, f)
+    log(f"[{phase}] {tag} pretrain, per-view {B_VIEW}, {T}x{S}^2: "
+        f"K5 step {k['ms']:.1f} ms ({B_VIEW / k['ms'] * 1e3:.1f} pairs/s,"
+        f" peak {k['peak_gib']:.2f} GiB), plain bf16 {p['ms']:.1f} ms, "
+        f"plain float32 {f['ms']:.1f} ms (2 steps after one; phase 3's "
+        f"r21d step {slice_ms:.1f} ms; {card}); loss "
+        f"{k['metrics']['loss']:.5f} vs plain {p['metrics']['loss']:.5f}, "
+        f"max rel loss-term err {loss_err:.3e} (tol 2e-2), max accuracy diff "
+        f"{acc_err:.4f} (tol 0.125), update cosine to float32: K5 "
+        f"{cos_k:.5f}, plain {cos_p:.5f} (tol K5 >= plain - 0.05); launches "
+        f"{k['counts']}, plain {p['counts']}")
+    if k["counts"] != _per_step(0, 0, 1) or any(p["counts"].values()):
+        raise SystemExit(f"[{phase}] {tag}: launches {k['counts']} "
+                         f"(expected 0/0/1), plain {p['counts']}")
+    if not ok:
+        raise SystemExit(f"[{phase}] {tag}: the K5 step and the plain "
+                         "step disagree")
+    counts = k["counts"]
+    del runs, k, p, f
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _family_finetune(dev, card: str, tag: str, kw, steps: int = 2,
                      hw=(H0, W0)):
     """One warm-up and ``steps`` timed ft_all steps, then one warm-up and
@@ -1931,30 +1999,7 @@ def phase_families(dev, card: str, slice_ms: float):
     t_phase = time.perf_counter()
     batch = _slice_batch(dev, seed=4, n_pb=4)
     for tag, kw in FAMILY_RUNS.items():
-        runs = {k: _one_step_run(dev, cfg, batch) for k, cfg in (
-            ("kernel", _slice_config(True, **kw)),
-            ("plain", _slice_config(False, **kw)),
-            ("f32", _slice_config_plain_f32(**kw)))}
-        k, p, f = (runs[n] for n in ("kernel", "plain", "f32"))
-        loss_err, acc_err, cos_k, cos_p, ok = _agree(k, p, f)
-        log(f"[families] {tag} pretrain, per-view {B_VIEW}, {T}x{S}^2: "
-            f"K5 step {k['ms']:.1f} ms ({B_VIEW / k['ms'] * 1e3:.1f} pairs/s,"
-            f" peak {k['peak_gib']:.2f} GiB), plain bf16 {p['ms']:.1f} ms, "
-            f"plain float32 {f['ms']:.1f} ms (2 steps after one; phase 3's "
-            f"r21d step {slice_ms:.1f} ms; {card}); loss "
-            f"{k['metrics']['loss']:.5f} vs plain {p['metrics']['loss']:.5f}, max rel loss-term err "
-            f"{loss_err:.3e} (tol 2e-2), max accuracy diff {acc_err:.4f} "
-            f"(tol 0.125), update cosine to float32: K5 {cos_k:.5f}, plain "
-            f"{cos_p:.5f} (tol K5 >= plain - 0.05); launches {k['counts']}, "
-            f"plain {p['counts']}")
-        if k["counts"] != _per_step(0, 0, 1) or any(p["counts"].values()):
-            raise SystemExit(f"[families] {tag}: launches {k['counts']} "
-                             f"(expected 0/0/1), plain {p['counts']}")
-        if not ok:
-            raise SystemExit(f"[families] {tag}: the K5 step and the plain "
-                             "step disagree")
-        del runs, k, p, f
-        torch.cuda.empty_cache()
+        _family_pretrain(dev, card, "families", tag, kw, batch, slice_ms)
     for tag in FAMILY_FT:
         _family_finetune(dev, card, tag, FAMILY_RUNS[tag])
     with tempfile.TemporaryDirectory(prefix="cstp_families_") as root:
@@ -2232,6 +2277,150 @@ def phase_inception(dev, card: str, slice_ms: float):
     log(f"[inception] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------ slowfast, legacy
+
+# phase 16's SlowFast pretrain runs at per-view B_VIEW: tag -> config flags
+# (--tau 8 --alpha 4: the slow pathway takes every 4th of the 16 frames)
+SLOWFAST_RUNS = {
+    "slowfast-18": dict(model_name="slowfast", model_depth=18, tau=8,
+                        alpha=4),
+    "slowfast-50": dict(model_name="slowfast", model_depth=50, tau=8,
+                        alpha=4),
+}
+SLOWFAST_FT = dict(model_name="slowfast_fb", model_depth=50, tau=8, alpha=4)
+SLOWFAST_BENCH_RUNS = [
+    ("pretrain", "slowfast", "50", ["--pallas-augment", "on"], {"augment": 1}),
+    ("ft", "slowfast", "50", [], {}),
+]
+# --legacy_pace: bare r21d's 'pace_project' finetune head; its online
+# tower's 5 fused sites launch K2 and K3 once each per step
+LEGACY_PACE = dict(model_name="r21d", legacy_pace=1)
+# the legacy models: (reference file name, kwargs); one train-mode forward
+# each of LEGACY_BATCH clips of T x S^2, bf16 against float32. In train
+# mode at random weights these deep networks amplify rounding: rounding
+# only the input to bf16 moves the float32 outputs by 0.08% (r3d) to 13%
+# (s3d_g) of their norm, and bf16 compute moves them 2.5-3.9 times as far
+# (on a CPU at this size). So each output's |bf16 - f32| / |f32| must stay
+# within LEGACY_SPREAD times that input spread, at most LEGACY_CAP, plus
+# LEGACY_TOL: for s3d_g (about 0.34 on the CPU) only a gross fault fails
+LEGACY_MODELS = [("r21d", {}), ("r21d_byol", {}), ("c3d", {}), ("r3d", {}),
+                 ("s3d_g", {}), ("s3d_g", dict(space_to_depth=False))]
+LEGACY_BATCH = 8
+LEGACY_SPREAD, LEGACY_CAP, LEGACY_TOL = 10.0, 0.75, 1e-2
+
+
+def _legacy_forward(dev, name: str, kw, dtype, x):
+    """One train-mode forward of the legacy model ``name`` (seed-0
+    weights, compute ``dtype``) on ``x``: its float32 outputs, its ms, and
+    for ``r21d_byol`` one backward of the loss, checked: finite gradients
+    on the online tower and the ``prodictor``, none on the target tower."""
+    from cstp_tpu_torch.models import make_legacy_model
+
+    model = make_legacy_model(name, dtype=dtype,
+                              gen=torch.Generator().manual_seed(0),
+                              **kw).to(dev)
+    args = (x, x.flip(0)) if name in ("r21d_byol", "c3d") else (x,)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(*args, True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = None
+    if name == "r21d_byol":
+        out.backward()
+        g = {n: p.grad for n, p in model.named_parameters()}
+        grads = dict(
+            online=sum(1 for n, v in g.items() if v is not None
+                       and n.startswith(("online_net.", "prodictor."))),
+            finite=all(bool(torch.isfinite(v).all()) for v in g.values()
+                       if v is not None),
+            target=sum(1 for n, v in g.items()
+                       if v is not None and n.startswith("target_net.")))
+    outs = [o.detach().float() for o in (out if isinstance(out, tuple)
+                                         else (out,))]
+    del model
+    torch.cuda.empty_cache()
+    return outs, ms, grads
+
+
+def phase_slowfast_legacy(dev, card: str, slice_ms: float):
+    """The SlowFast family and the legacy pace-era models at full width,
+    16 x 112^2 from 128x171 frames, bf16. SlowFast (``--tau 8 --alpha
+    4``): at per-view B_VIEW, one pretrain step each of depth 18 and 50
+    with K5 (0/0/1) against the plain bf16 step (0/0/0) and the plain
+    float32 step by phase 4's rule, timed over 2 steps with peak memory;
+    finetune and eval of slowfast_fb-50 at batch FAMILY_BATCH (no
+    launch). ``--legacy_pace 1`` (bare r21d): the finetune step at B_FT
+    with fused_conv 1 against the plain steps by phase 9's rule, 5/5/0
+    launches in its first step. The legacy models (LEGACY_MODELS): one
+    train-mode forward each in bf16 held against float32 within
+    LEGACY_TOL, no launch; ``r21d_byol`` also one backward. Then
+    bench_step --model slowfast --depth 50 (SLOWFAST_BENCH_RUNS). Returns
+    the launches of the runs on the main path (the K5 steps and the
+    legacy_pace kernel step), for the kernels line."""
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in _per_step(0, 0, 0)}
+    batch = _slice_batch(dev, seed=4, n_pb=4)
+    for tag, kw in SLOWFAST_RUNS.items():
+        for k, v in _family_pretrain(dev, card, "slowfast", tag, kw, batch,
+                                     slice_ms).items():
+            counts[k] += v
+    del batch
+    _family_finetune(dev, card, "slowfast-50", SLOWFAST_FT)
+    pace = phase_finetune_parity(dev, over=LEGACY_PACE, tag="legacy-pace")
+    want = _per_step(FT_LAUNCHES, FT_LAUNCHES, 0)
+    if pace["counts"]["kernel"] != want or any(
+            v for n in ("plain", "f32") for v in pace["counts"][n].values()):
+        raise SystemExit(f"[legacy-pace] launches {pace['counts']}, "
+                         f"expected {want} on the kernel step, none else")
+    for k, v in pace["counts"]["kernel"].items():
+        counts[k] += v
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.rand((LEGACY_BATCH, T, S, S, 3), generator=gen,
+                   device=dev) * 2 - 1
+    for name, kw in LEGACY_MODELS:
+        tag = name + "".join(f" {k}={v}" for k, v in kw.items())
+        _reset_launch_counts()
+        lo, lo_ms, lo_g = _legacy_forward(dev, name, kw, torch.bfloat16, x)
+        hi, hi_ms, _ = _legacy_forward(dev, name, kw, torch.float32, x)
+        rd, _, _ = _legacy_forward(dev, name, kw, torch.float32,
+                                   x.bfloat16().float())
+        launched = _launch_counts()
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+        errs = [rel(a, b) for a, b in zip(lo, hi)]
+        spreads = [rel(c, b) for c, b in zip(rd, hi)]
+        tols = [min(LEGACY_SPREAD * sp, LEGACY_CAP) + LEGACY_TOL
+                for sp in spreads]
+        finite = all(bool(torch.isfinite(a).all()) for a in lo)
+        log(f"[legacy] {tag}: train-mode forward of {LEGACY_BATCH} clips "
+            f"{T}x{S}^2, outputs {[tuple(a.shape) for a in lo]}; bf16 "
+            f"{lo_ms:.1f} ms, float32 {hi_ms:.1f} ms (first call; {card}); "
+            f"|bf16 - f32| / |f32| {[f'{e:.3e}' for e in errs]}, float32 "
+            f"input-rounding spread {[f'{e:.3e}' for e in spreads]} (tol "
+            f"{[f'{t:.3e}' for t in tols]}); launches {launched}"
+            + (f"; backward: online/prodictor gradients {lo_g['online']}, "
+               f"target gradients {lo_g['target']}, finite {lo_g['finite']}"
+               if lo_g else ""))
+        if not finite or any(e > t for e, t in zip(errs, tols)) \
+                or any(launched.values()):
+            raise SystemExit(f"[legacy] {tag}: bf16 and float32 disagree, "
+                             "an output is not finite, or a kernel ran")
+        if lo_g and not (lo_g["online"] and lo_g["finite"]
+                         and lo_g["target"] == 0):
+            raise SystemExit(f"[legacy] {tag}: the backward reached the "
+                             "target tower, missed the online one or is "
+                             "not finite")
+    del x
+    _family_bench(SLOWFAST_BENCH_RUNS)
+    log(f"[slowfast-legacy] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"main-path launches {counts}")
+    return counts
+
+
 # ------------------------------------------------------------ tf checkpoint
 
 def _varint(n: int) -> bytes:
@@ -2322,8 +2511,10 @@ def write_tf_checkpoint(prefix: str, tensors) -> None:
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
-    launch, with launches from the slice phase; K4a/K4b are one launch at
-    the benchmark's default shape, with launches from its taps9 run.
+    launch, with launches from the slice phase plus phase 16's main-path
+    runs (K5 in the two SlowFast pretrain steps, K2/K3 in the
+    ``--legacy_pace`` finetune step); K4a/K4b are one launch at the
+    benchmark's default shape, with launches from its taps9 run.
     ``counts`` is None when no step ran."""
     pallas = "cstp_tpu/ops/pallas"
     rows = [
@@ -2393,6 +2584,8 @@ def main(argv=None) -> int:
         phase_flags(dev, card, sl["step_ms"])
         phase_families(dev, card, sl["step_ms"])
         phase_inception(dev, card, sl["step_ms"])
+        for k, v in phase_slowfast_legacy(dev, card, sl["step_ms"]).items():
+            counts[k] += v
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

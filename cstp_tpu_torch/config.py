@@ -3,8 +3,10 @@ checks and command-line flags (``parse_opts``) as the JAX package's
 ``Config``, kept as the port's own copy.
 
 Flags whose code paths the port does not have yet raise
-``NotImplementedError`` from ``finalize()`` instead of being ignored. Flags
-that only the TPU reads (``--tpu_vmem_limit_kib``) are accepted and unused.
+``NotImplementedError`` from ``finalize()`` instead of being ignored; an
+unknown ``model_name`` raises ``ValueError`` there, as the JAX package's
+``make_backbone`` does. Flags that only the TPU reads
+(``--tpu_vmem_limit_kib``) are accepted and unused.
 """
 
 from __future__ import annotations
@@ -126,8 +128,10 @@ class Config:
     def warn_if_legacy_model_name(self) -> None:
         """Warn when a bare legacy name is used: in the reference, bare
         'r21d'/'c3d'/'s3d'/'r3d' select the legacy pace contrastive
-        variants, which are not rebuilt; the ``*_byol`` family model is
-        built instead. Called from ``parse_opts`` only."""
+        variants (``models/legacy.py`` rebuilds them as modules), and the
+        ``*_byol`` family model is built instead; ``--legacy_pace 1`` gives
+        bare 'r21d' the reference's live finetune head. Called from
+        ``parse_opts`` only; the text is the JAX package's."""
         if self.model_name in self._LEGACY_BARE_NAMES:
             warnings.warn(
                 f"--model_name {self.model_name!r}: in the reference this "
@@ -139,8 +143,7 @@ class Config:
                 "expressible as --loss_weight 10 1 1 1 1. The reference's "
                 "live bare-'r21d' finetune behavior (CE over a 512-d "
                 "Projector output, models/model.py:41-43) is available with "
-                "--legacy_pace 1 in the JAX package; cstp_tpu_torch does not "
-                "port it yet.",
+                "--legacy_pace 1.",
                 stacklevel=2,
             )
 
@@ -233,15 +236,15 @@ class Config:
             "ntxent_weight > 0": self.ntxent_weight > 0,
             "shard_opt_state": bool(self.shard_opt_state),
             "shard_spatial": bool(self.shard_spatial),
-            f"model_name {self.model_name}":
-                base_model_name(self.model_name) not in PORTED_FAMILIES,
-            "legacy_pace": bool(self.legacy_pace),
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 "cstp_tpu_torch does not port these flag values yet: "
                 + ", ".join(bad))
+        if base_model_name(self.model_name) not in PORTED_FAMILIES:
+            raise ValueError(f"unknown backbone {self.model_name!r}; have "
+                             f"{sorted(PORTED_FAMILIES)}")
         if self.fused_conv not in (0, 1, 2):
             raise ValueError(f"--fused_conv must be 0, 1 or 2, got "
                              f"{self.fused_conv}")
@@ -252,8 +255,10 @@ class Config:
                              f"{self.remat_policy!r}")
 
 
-# backbone families the port builds (models/__init__.py)
-PORTED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d")
+# backbone families the port builds (models/__init__.py): every family the
+# JAX package registers
+PORTED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d", "slowfast",
+                   "slowfast_fb")
 
 
 def base_model_name(arch: str) -> str:

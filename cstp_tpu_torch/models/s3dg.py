@@ -12,8 +12,10 @@ rename. NDHWC activations, ``dtype`` compute, f32 parameters and BN.
 
 ``STConv3d`` is a spatial -> BN -> ReLU -> temporal chain like R(2+1)D's,
 but the JAX package never sends it through ``fused_st_conv`` (``fused_conv``
-reaches R(2+1)D only), so neither does the port. The space-to-depth stem
-(``--s2d_stem``) is not ported (``config.check_ported`` refuses it).
+reaches R(2+1)D only), so neither does the port. ``--s2d_stem`` on this
+S3D is not ported (``config.check_ported`` refuses it); the space-to-depth
+permutation itself, :func:`space_to_depth_stem`, is here, for the legacy
+S3D-G (``models/legacy.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,16 @@ from cstp_tpu_torch.models.layers import (
     SelfGating,
     max_pool_3d,
 )
+
+
+def space_to_depth_stem(x: torch.Tensor) -> torch.Tensor:
+    """``(B, T, H, W, C)`` -> ``(B, T/2, H/2, W/2, 8C)``: each 2x2x2 cell's
+    values in (t, h, w, c) order on the channel axis (reference
+    ``pace/s3d_g.py:280-287``)."""
+    b, t, h, w, c = x.shape
+    x = x.reshape(b, t // 2, 2, h // 2, 2, w // 2, 2, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(b, t // 2, h // 2, w // 2, 8 * c)
 
 
 class BasicConv3d(nn.Module):

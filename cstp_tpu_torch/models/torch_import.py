@@ -22,11 +22,15 @@ From the command line (:func:`main`):
     python -m cstp_tpu_torch.models.torch_import --export ckpt_dir \
         out.pth --arch r21d_byol           # port checkpoint -> .pth
 
-The maps cover the five reference families (r21d, c3d, r3d, s3d, i3d),
-all of which the port builds. As in the JAX package, the S3DClassify MLP
-head's reference names ``classify.{0,1,3}`` map to no port module (a
-module path of two parts is not read as ``classify.N``): a finetune model
-loaded from such a file keeps its own head.
+The maps cover the five reference families (r21d, c3d, r3d, s3d, i3d).
+SlowFast has none, in the JAX package either: ``slowfast`` and
+``slowfast_fb`` raise ``ValueError("unknown model family ...")`` both
+ways. As in the JAX package, the S3DClassify MLP head's reference names
+``classify.{0,1,3}`` map to no port module (a module path of two parts is
+not read as ``classify.N``): a finetune model loaded from such a file
+keeps its own head. The ``--legacy_pace`` head of bare ``r21d`` exports as
+``classify.{0,1,3}`` and ``pace_bn``; loaded back, ``pace_bn`` loads and
+``classify`` keeps its own values, for the same reason.
 """
 
 from __future__ import annotations

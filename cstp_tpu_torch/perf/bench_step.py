@@ -10,9 +10,11 @@ default shape.
         [--concat-views 1|0] [--device cuda|cpu]
 
 Defaults are ``bench.py``'s: per-chip batch 64 (per view in ``pretrain``),
-``--model`` r21d (the backbone family: r21d, c3d, r3d, s3d or i3d; the
-families the port does not build are refused) at ``--depth`` 1, 16 frames
-of 112² (I3D too: its reference recipe's 224² is not bench.py's shape),
+``--model`` r21d (the backbone family: r21d, c3d, r3d, s3d, i3d or
+slowfast; an unknown one raises ``ValueError``) at ``--depth`` 1 (r3d and
+slowfast build depth 18 there; 50 is SlowFast-R50), 16 frames of 112² (I3D
+too: its reference recipe's 224² is not bench.py's shape; SlowFast's slow
+pathway takes every 4th of them, ``--alpha`` 4),
 uint8 source frames of 128×171, bf16, 10 timed steps after 3 warm-up steps,
 ``fused_conv`` 0 and ``pallas_augment`` "auto" (off), no remat,
 ``concat_views`` 1. ``--remat``,
@@ -133,7 +135,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--model", default="r21d",
-                    help="backbone family (r21d|c3d|r3d|s3d|i3d)")
+                    help="backbone family (r21d|c3d|r3d|s3d|i3d|slowfast)")
     ap.add_argument("--depth", type=int, default=1)
     ap.add_argument("--fused-conv", type=int, default=0, choices=[0, 1, 2])
     ap.add_argument("--pallas-augment", default="auto",

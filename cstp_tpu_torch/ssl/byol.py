@@ -16,7 +16,9 @@ still runs in train mode, so its BN running statistics update, as in JAX.
 (L2-normalise -> ``cls_bn`` -> float32 ``classify``) or the ``mlp`` head
 (``model_name`` ``*_classify``: Linear-BN-ReLU-Linear on the feature); or,
 with ``head_style="i3d_conv"`` (``--i3d_conv_head``), the reference I3D
-classifier inside the backbone.
+classifier inside the backbone; or, with ``head_style="pace_project"``
+(``--legacy_pace`` on bare ``r21d``), the legacy pace projector whose 512
+outputs are the logits.
 """
 
 from __future__ import annotations
@@ -82,16 +84,17 @@ class CSTPPretrain(nn.Module):
     target tower only, 0 = none. ``concat_views``: 1 = one 2B call per
     tower, 0 = one call per view. ``remat`` / ``remat_policy``: the
     towers' ``--remat`` / ``--remat_policy`` (``models/r21d.py``).
-    ``shortcut``: ``--resnet_shortcut`` of the 3D ResNet. The predictor
-    takes the projection, or the feature where the family has no
-    projector.
+    ``shortcut``: ``--resnet_shortcut`` of the 3D ResNet; ``alpha``:
+    SlowFast's ``--alpha``. The predictor takes the projection, or the
+    feature where the family has no projector.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
                  dtype=torch.bfloat16, bn_groups: int = 1, fused_conv: int = 0,
                  gen: Optional[torch.Generator] = None,
                  concat_views: bool = True, remat: bool = False,
-                 remat_policy: str = "", shortcut: str = "B"):
+                 remat_policy: str = "", shortcut: str = "B",
+                 alpha: int = 4):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.concat_views = bool(concat_views)
@@ -99,7 +102,7 @@ class CSTPPretrain(nn.Module):
         use_proj = spec.proj_dim is not None
         tower = dict(dtype=dtype, proj_flag=use_proj, bn_groups=g2, gen=gen,
                      remat=remat, remat_policy=remat_policy,
-                     shortcut=shortcut)
+                     shortcut=shortcut, alpha=alpha)
         self.online_net = make_backbone(backbone, depth,
                                         fused_conv=fused_conv == 1, **tower)
         self.target_net = make_backbone(backbone, depth,
@@ -158,17 +161,23 @@ class CSTPClassify(nn.Module):
     (glorot kernel, torch-default bias). 'mlp': ``classify`` is
     Linear-BN-ReLU-Linear on the feature. 'i3d_conv': I3D's own
     ``conv_head`` classifier (224^2 only); no ``classify`` or ``cls_bn``
-    module, and no pre-head feature. The feature is the backbone's through
-    ``feat_and_proj`` (I3D's is L2-normalised there). ``fused_conv``
-    reaches the backbone's stride-1 (2+1)D sites, which fuse in train mode
-    only; ``shortcut`` is the 3D ResNet's ``--resnet_shortcut``.
+    module, and no pre-head feature. 'pace_project' (``--legacy_pace``):
+    ``classify`` is Linear(feat, 4096)-BN-ReLU-Linear(4096, 512), then the
+    BatchNorm ``pace_bn`` and a ReLU; its 512 outputs are the logits
+    whatever ``num_classes`` is (the reference's live behaviour), returned
+    in float32. The feature is the backbone's through ``feat_and_proj``
+    (I3D's is L2-normalised there). ``fused_conv`` reaches the backbone's
+    stride-1 (2+1)D sites, which fuse in train mode only; ``shortcut`` is
+    the 3D ResNet's ``--resnet_shortcut`` and ``alpha`` SlowFast's
+    ``--alpha``.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
                  num_classes: int = 101, use_cls_bn: bool = True,
                  head_style: str = "linear", dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None, shortcut: str = "B"):
+                 gen: Optional[torch.Generator] = None, shortcut: str = "B",
+                 alpha: int = 4):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.head_style = head_style
@@ -181,17 +190,19 @@ class CSTPClassify(nn.Module):
         self.online_net = make_backbone(backbone, depth, dtype=dtype,
                                         proj_flag=False, bn_groups=bn_groups,
                                         fused_conv=fused_conv, gen=gen,
-                                        shortcut=shortcut, **head)
+                                        shortcut=shortcut, alpha=alpha,
+                                        **head)
         f = spec.feat_dim
         if head_style == "mlp":
             self.classify = MLPHead(f, f, num_classes, dtype, bn_groups, gen)
         elif head_style == "linear":
             self.cls_bn = BatchNorm(f, bn_groups, gen) if use_cls_bn else None
             self.classify = Dense(f, num_classes, torch.float32, gen)
+        elif head_style == "pace_project":
+            self.classify = MLPHead(f, 4096, 512, dtype, bn_groups, gen)
+            self.pace_bn = BatchNorm(512, bn_groups, gen)
         elif head_style != "i3d_conv":
-            raise NotImplementedError(
-                f"cstp_tpu_torch ports the 'linear', 'mlp' and 'i3d_conv' "
-                f"finetune heads, not {head_style!r}")
+            raise ValueError(f"unknown finetune head {head_style!r}")
 
     def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The backbone's float32 feature vector (before the head)."""
@@ -207,6 +218,9 @@ class CSTPClassify(nn.Module):
         feat, _ = feat_and_proj(self.online_net(x, train), self.spec)
         if self.head_style == "mlp":
             return self.classify(feat, train).float()
+        if self.head_style == "pace_project":
+            p = self.pace_bn(self.classify(feat, train), train)
+            return torch.relu(p).float()
         feat = l2_normalize(feat)
         if self.cls_bn is not None:
             feat = self.cls_bn(feat, train)

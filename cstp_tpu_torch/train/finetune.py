@@ -48,19 +48,25 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
     ``seed``, moved to ``device`` (CUDA unless ``device="cpu"``).
     ``model_name`` ``*_classify`` selects the 'mlp' head, any other the
     'linear' head; ``--i3d_conv_head`` on an ``i3d*`` model the 'i3d_conv'
-    head (224^2 only)."""
+    head (224^2 only); ``--legacy_pace`` on bare ``r21d`` (that name only)
+    the 'pace_project' head, whose 512 outputs take at most 512 classes."""
     config.check_ported()
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     head = "mlp" if config.model_name.endswith("_classify") else "linear"
     if config.i3d_conv_head and config.model_name.startswith("i3d"):
         head = "i3d_conv"
+    if config.legacy_pace and config.model_name == "r21d":
+        if num_classes > 512:
+            raise ValueError(f"--legacy_pace head is fixed at 512 outputs, "
+                             f"not {num_classes} classes")
+        head = "pace_project"
     model = CSTPClassify(config.model_name, config.model_depth, num_classes,
                          use_cls_bn=config.cls_bn, head_style=head,
                          dtype=compute_dtype(config),
                          bn_groups=bn_groups_from_config(config),
                          fused_conv=bool(config.fused_conv), gen=gen,
-                         shortcut=config.resnet_shortcut)
+                         shortcut=config.resnet_shortcut, alpha=config.alpha)
     return model.to(dev)
 
 
@@ -71,8 +77,9 @@ def finetune_frozen_prefixes(config: Config) -> Tuple[str, ...]:
     affine parameters and the stages ``conv2 .. conv{idx}``. Under
     ``--i3d_conv_head`` (an ``i3d*`` model) index 5 freezes I3D's stages
     and trains its internal classifier. Index 1..4 names modules that
-    exist on no s3d or i3d backbone, so there it freezes ``cls_bn`` alone,
-    as in the JAX package."""
+    exist on no s3d, i3d or slowfast backbone (the prefixes match whole
+    path parts: ``online_net.conv1`` is not ``online_net.slow_conv1``), so
+    there it freezes ``cls_bn`` alone, as in the JAX package."""
     idx = config.ft_begin_index
     if config.task == "ft_fc":
         idx = 5

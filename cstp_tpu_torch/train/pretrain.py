@@ -94,7 +94,7 @@ def create_pretrain_model(config: Config, seed: int = 0,
                          concat_views=bool(config.concat_views),
                          remat=config.remat,
                          remat_policy=config.remat_policy,
-                         shortcut=config.resnet_shortcut)
+                         shortcut=config.resnet_shortcut, alpha=config.alpha)
     return model.to(dev)
 
 

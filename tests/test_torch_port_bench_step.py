@@ -38,13 +38,16 @@ def test_entry_runs_each_mode(capsys, monkeypatch, mode, extra):
     assert res["concat_views"] == (0 if "--concat-views" in extra else 1)
 
 
-@pytest.mark.parametrize("mode", ["pretrain", "ft"])
+@pytest.mark.parametrize("mode", ["pretrain", "ft", "eval"])
 @pytest.mark.parametrize("model, depth", [("c3d", "1"), ("r3d", "18"),
-                                          ("s3d", "1"), ("i3d", "1")])
+                                          ("s3d", "1"), ("i3d", "1"),
+                                          ("slowfast", "18"),
+                                          ("slowfast", "50")])
 def test_entry_runs_each_family(capsys, monkeypatch, model, depth, mode):
     """``--model`` builds the family (8 frames: C3D pools time three
-    times) and is reported in the JSON line; no kernel but K5 is on these
-    families' path, and the CPU launches none."""
+    times, and SlowFast's ``alpha`` 4 divides them) and is reported in the
+    JSON line; no kernel but K5 is on these families' path, and the CPU
+    launches none."""
     monkeypatch.setattr(bench_step, "T", 8)
     monkeypatch.setattr(bench_step, "S", 32)
     res = bench_step.main([*_TINY, "--mode", mode, "--model", model,
@@ -55,6 +58,6 @@ def test_entry_runs_each_family(capsys, monkeypatch, model, depth, mode):
     assert not any(res["launches_per_step"].values())
 
 
-def test_entry_refuses_an_unported_family():
-    with pytest.raises(NotImplementedError, match="slowfast"):
-        bench_step.main([*_TINY, "--model", "slowfast"])
+def test_entry_refuses_an_unknown_family():
+    with pytest.raises(ValueError, match="unknown backbone 'slowfast_xl'"):
+        bench_step.main([*_TINY, "--model", "slowfast_xl"])

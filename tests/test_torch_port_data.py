@@ -330,10 +330,8 @@ def test_parse_opts_gives_the_jax_values(i):
     for name in sorted(shared):
         assert getattr(got, name) == getattr(want, name), name
     assert got.clip_stride == want.clip_stride
-    # the same legacy-name warning (its last sentence names the port's
-    # refusal of --legacy_pace instead of the flag)
-    assert ([str(w.message).split("--legacy_pace")[0] for w in pw]
-            == [str(w.message).split("--legacy_pace")[0] for w in jw])
+    # the same legacy-name warning, word for word
+    assert [str(w.message) for w in pw] == [str(w.message) for w in jw]
     assert pconfig.Config.from_json(got.to_json()) == got
 
 

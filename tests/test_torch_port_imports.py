@@ -151,17 +151,49 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(legacy_pace=1), dict(model_name="slowfast"),
     dict(model_name="s3d", s2d_stem=True), dict(s2d_stem=True),
     dict(t_fold=1), dict(quant="int8"), dict(mid_round=128),
     dict(ntxent_weight=0.5), dict(shard_opt_state=1),
-    dict(model_name="slowfast_fb"),
 ])
 def test_config_refuses_unported_flags(flag):
     from cstp_tpu_torch.config import Config
 
     with pytest.raises(NotImplementedError):
         Config(**flag).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(legacy_pace=1), dict(model_name="slowfast"),
+    dict(model_name="slowfast_fb"),
+])
+def test_config_takes_slowfast_and_legacy_pace(flag):
+    """The SlowFast names and ``--legacy_pace`` (refused until they were
+    ported) build a config and a finetune model: SlowFast's, or bare
+    ``r21d``'s 'pace_project' head."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.train.finetune import create_classify_model
+
+    kw = dict(model_name="r21d", sample_duration=4, sample_size=32)
+    kw.update(flag)
+    cfg = Config(**kw).finalize()
+    model = create_classify_model(cfg, 5, device="cpu")
+    assert model.head_style == ("pace_project" if cfg.legacy_pace
+                                else "linear")
+    assert type(model.online_net).__name__ == (
+        "R2Plus1DNet" if cfg.legacy_pace else "SlowFastNet")
+
+
+@pytest.mark.parametrize("name", ["slowfast_xl", "r22d_byol", "legacy"])
+def test_config_refuses_an_unknown_model_name(name):
+    """An unknown family raises ``ValueError``, as the JAX package's
+    ``make_backbone`` does."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.models import backbone_spec, make_backbone
+
+    for build in (lambda: Config(model_name=name).finalize(),
+                  lambda: make_backbone(name), lambda: backbone_spec(name)):
+        with pytest.raises(ValueError, match="unknown backbone"):
+            build()
 
 
 @pytest.mark.parametrize("flag", [
