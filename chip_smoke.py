@@ -6,7 +6,9 @@
 
 Phases:
   1. device and build: the card's name and power limit, then every CUDA
-     kernel of the port built from ``cstp_tpu_torch/csrc``;
+     kernel of the port built from ``cstp_tpu_torch/csrc``, and its host
+     CSTPack reader (``csrc/cstpack_reader.cc``, ``g++``: the command, the
+     seconds and whether ``jpeglib.h`` was found);
   2. each kernel against its plain PyTorch version on the card, with times
      and roofline bounds: both (2+1)D conv kernel pairs (K2/K3, tiling
      "clip", and K4a/K4b, tiling "taps9": the same kernels on the padded
@@ -67,7 +69,11 @@ Phases:
      pretrain epoch at per-view 64 and one from a frame directory of
      JPEGs; the kernels' launches per loop step, finite CSV rows, the
      checkpoints, the printed accuracy and non-decreasing R@k checked; the
-     loop's step and data-wait ms printed beside phases 3 and 11;
+     loop's step and data-wait ms printed beside phases 3 and 11; the
+     CSTPack runs read through the reader ``build_dataset`` takes (the C++
+     ``NativePackedDataset``), and the pretrain loader alone over the
+     Python and the C++ reader at per-view 16 and 64 (host and landed ms
+     per batch);
   13. flags: the step flags at per-view batch 16, kernels on: K2/K3 at the
      per-view calls' shape (16 clips, one BN group); one step each of
      ``--concat_views 0`` (20/20/1 launches), ``--remat`` (15/15/1),
@@ -122,7 +128,17 @@ Phases:
      (``make_legacy_model``: r21d, r21d_byol with one backward, c3d, r3d,
      s3d_g with and without space to depth) in bf16 against float32 (no
      launch); ``bench_step --model slowfast --depth 50`` at per-view 64
-     (pretrain with K5, and ft).
+     (pretrain with K5, and ft);
+  17. ingest: videos to pretraining through the port's tools alone: 4
+     videos written with cv2 (2 classes, 80 frames, 320x240),
+     ``extract_frames --res 128 --list-file`` (ffmpeg, or cv2 where there is
+     none), ``pack frames`` as JPEG and with ``--raw-hw 128 171``, ``pack
+     make-lmdb``, ``pack lmdb`` (byte-identical to the JPEG shard) and
+     ``pack info``; the C++ reader held against the Python one (raw frames
+     bitwise, JPEG mean |diff| < 2.0, or the JPEG shard refused where the
+     reader was built without libjpeg); one ``main_byol`` epoch of 3 steps
+     at per-view 16 from the JPEG shard and from the LMDB, 10/10/1 launches
+     a step, finite CSV rows, the loop step and data wait beside phase 3.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``; the slice phase's launches plus those of phase 16's
 K5 and ``--legacy_pace`` steps), the card's name and power limit, and a
@@ -136,6 +152,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -209,6 +226,10 @@ def bound_ms(ops: float, nbytes: float, rate: float):
 
 
 def phase_build():
+    """Every CUDA library (one ``nvcc`` per source, all at once) and the
+    host reader (``g++``); returns the reader's build record."""
+    from pathlib import Path
+
     from cstp_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -219,6 +240,16 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    jpeg = build.has_jpeglib()
+    path = build.build_host("cstpack_reader")
+    reader = dict(seconds=time.perf_counter() - t0, jpeg=jpeg,
+                  command=" ".join(build.host_command(
+                      "cstpack_reader", Path(path), jpeg)))
+    log(f"[build] host reader csrc/cstpack_reader.cc in "
+        f"{reader['seconds']:.1f} s, jpeglib.h found: {jpeg}: "
+        f"{reader['command']}")
+    return reader
 
 
 def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G):
@@ -1439,31 +1470,48 @@ def _trace_busy(trace_dir: str):
 
 def _loader_alone(train: str, dev):
     """The pretrain loader without a step, per-view B_VIEW and
-    BENCH_STEP_BS: host ms per batch, and ms per batch landed on the card
-    through ``prefetch_to_device``, over CLI_STEPS - 1 batches after the
-    first."""
+    BENCH_STEP_BS, over the Python reader (per-clip thread pool) and the C++
+    reader (``read_clips``, one native call a batch), both with 6 threads:
+    host ms per batch, and ms per batch landed on the card through
+    ``prefetch_to_device``, over CLI_STEPS - 1 batches after the first."""
     from cstp_tpu_torch.data.loader import PretrainLoader, prefetch_to_device
+    from cstp_tpu_torch.data.native_reader import NativePackedDataset
     from cstp_tpu_torch.data.packed import PackedDataset
 
-    ds = PackedDataset(train)
     out = {}
-    for bs in (B_VIEW, BENCH_STEP_BS):
-        res = []
-        for land in (False, True):
-            it = PretrainLoader(ds, bs, T, seed=1, num_workers=6).epoch(1)
-            if land:
-                it = prefetch_to_device(it, dev)
-            next(it)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(CLI_STEPS - 1):
+    for reader, ds in (("python", PackedDataset(train)),
+                       ("native", NativePackedDataset(train, n_threads=6))):
+        for bs in (B_VIEW, BENCH_STEP_BS):
+            res = []
+            for land in (False, True):
+                it = PretrainLoader(ds, bs, T, seed=1,
+                                    num_workers=6).epoch(1)
+                if land:
+                    it = prefetch_to_device(it, dev)
                 next(it)
-            torch.cuda.synchronize()
-            res.append((time.perf_counter() - t0) * 1e3 / (CLI_STEPS - 1))
-            it.close()
-        out[bs] = tuple(res)
-    ds.close()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(CLI_STEPS - 1):
+                    next(it)
+                torch.cuda.synchronize()
+                res.append((time.perf_counter() - t0) * 1e3
+                           / (CLI_STEPS - 1))
+                it.close()
+            out[reader, bs] = tuple(res)
+        ds.close()
     return out
+
+
+def _packed_reader(path: str) -> str:
+    """The reader ``build_dataset`` takes for the CSTPack file ``path``."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.train.loops import build_dataset
+
+    ds = build_dataset(Config(data_backend="packed", lmdb_path=path,
+                              n_workers=6).finalize(), "train")
+    name = type(ds).__name__
+    ds.close()
+    return name
 
 
 def _check_rows(path):
@@ -1505,6 +1553,8 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
             f"({os.path.getsize(train) / 1e9:.2f} GB train file), "
             f"{CLI_JPEG_STEPS * B_VIEW} JPEG frame dirs, written in "
             f"{time.perf_counter() - t0:.1f} s")
+        log(f"[cli] the packed runs read through "
+            f"{_packed_reader(train)} (train/loops.py build_dataset)")
         res = os.path.join(root, "results")
         common = ["--model_name", "r21d_byol", "--model_depth", "1",
                   "--sample_duration", str(T), "--sample_size", str(S),
@@ -1657,11 +1707,11 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
     log(f"[cli] phase 3's bare step again after the loops: "
         f"{times['bare_after']:.1f} ms (phase 3: {slice_ms:.1f} ms); echo "
         f"loop / this bare step {times['echo']['step_ms'] / times['bare_after']:.3f}")
-    for bs, (host_ms, landed_ms) in times["loader"].items():
-        log(f"[cli] loader alone, per-view {bs}: {host_ms:.1f} ms per host "
-            f"batch ({2 * bs * T} frames of {H0}x{W0}, 6 threads), "
-            f"{landed_ms:.1f} ms per batch landed on the card through "
-            f"prefetch_to_device ({card})")
+    for (reader, bs), (host_ms, landed_ms) in times["loader"].items():
+        log(f"[cli] loader alone, {reader} reader, per-view {bs}: "
+            f"{host_ms:.1f} ms per host batch ({2 * bs * T} frames of "
+            f"{H0}x{W0}, 6 threads), {landed_ms:.1f} ms per batch landed on "
+            f"the card through prefetch_to_device ({card})")
     log(f"[cli] pretrain CSV {n_rows} finite rows (2 epochs + 2 resumed); "
         f"test {times['test_s']:.1f} s for {CLI_EVAL} videos, accuracy "
         f"{float(acc[1]):.4f}; retrieval {times['retrieval_s']:.1f} s, R@k "
@@ -2508,6 +2558,225 @@ def write_tf_checkpoint(prefix: str, tensors) -> None:
         f.write(sstable_bytes([(b"", header)] + items))
 
 
+# ---------------------------------------------------------------- ingest
+
+# phase 17: videos -> frames -> CSTPack / LMDB -> pretraining, through the
+# port's ingest tools on the card's machine
+INGEST_VIDEOS = 4         # 2 classes x 2 videos, written with cv2
+INGEST_FRAMES = 80
+INGEST_WH = (320, 240)    # width, height; --res 128 gives 171 x 128 frames
+INGEST_STEPS = 3          # steps of each pretrain epoch, per-view B_VIEW
+# each video listed this many times in the split list, so that an epoch
+# has INGEST_STEPS batches of B_VIEW
+INGEST_REPEAT = -(-INGEST_STEPS * B_VIEW // INGEST_VIDEOS)
+
+
+def _ingest_videos(root: str) -> None:
+    """INGEST_VIDEOS MJPG videos of INGEST_FRAMES frames at INGEST_WH, 25
+    fps: a smooth random picture from seed 0 that pans over time."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    w, h = INGEST_WH
+    for v in range(INGEST_VIDEOS):
+        d = os.path.join(root, f"class{v % 2}")
+        os.makedirs(d, exist_ok=True)
+        wr = cv2.VideoWriter(os.path.join(d, f"clip{v}.avi"),
+                             cv2.VideoWriter_fourcc(*"MJPG"), 25, (w, h))
+        if not wr.isOpened():
+            raise SystemExit("cv2.VideoWriter could not open an MJPG file")
+        base = cv2.resize(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8),
+                          (w, h), interpolation=cv2.INTER_CUBIC)
+        for t in range(INGEST_FRAMES):
+            wr.write(np.roll(base, 4 * t, axis=1))
+        wr.release()
+
+
+def _tool(main, argv):
+    """A tool's ``main(argv)`` in process; returns its printed lines
+    (standard output and error), each echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[ingest]   {line}")
+    if rc != 0:
+        raise SystemExit(f"{main.__module__} {argv} returned {rc}")
+    return lines
+
+
+def _hold_readers(raw: str, jpeg: str, has_jpeg: bool):
+    """``NativePackedDataset`` against ``PackedDataset``: the raw shard's
+    frames bitwise at the stored size and mean |diff| < 6.0 resized to
+    S x S; the JPEG shard's mean |diff| < 2.0 where the reader has libjpeg,
+    and refused (``NoJpegDecoder``) where it has not. Returns the text of
+    the record."""
+    import numpy as np
+
+    from cstp_tpu_torch.data.native_reader import (
+        NativePackedDataset,
+        NoJpegDecoder,
+    )
+    from cstp_tpu_torch.data.packed import PackedDataset
+
+    frames = list(range(INGEST_FRAMES))
+    worst = []
+    for hw in ((H0, W0), (S, S)):
+        nat = NativePackedDataset(raw, ingest_hw=hw, n_threads=6)
+        py = PackedDataset(raw, ingest_hw=hw)
+        d = max(np.abs(nat.read_frames(i, frames).astype(np.int16)
+                       - py.read_frames(i, frames)).mean()
+                for i in range(nat.num_videos()))
+        if hw == (H0, W0) and d != 0:
+            raise SystemExit(f"native raw frames differ from the Python "
+                             f"reader's (mean |diff| {d})")
+        if d >= 6.0:
+            raise SystemExit(f"native resized raw frames mean |diff| {d}")
+        worst.append(float(d))
+        nat.close()
+        py.close()
+    text = (f"raw frames bitwise at {H0}x{W0} (mean |diff| {worst[0]}), "
+            f"mean |diff| {worst[1]:.3f} at {S}x{S} (bound 6.0)")
+    if has_jpeg:
+        nat = NativePackedDataset(jpeg, ingest_hw=(H0, W0), n_threads=6)
+        py = PackedDataset(jpeg, ingest_hw=(H0, W0))
+        d = max(np.abs(nat.read_frames(i, frames).astype(np.int16)
+                       - py.read_frames(i, frames)).mean()
+                for i in range(0, nat.num_videos(), INGEST_REPEAT))
+        nat.close()
+        py.close()
+        if d >= 2.0:
+            raise SystemExit(f"native JPEG frames mean |diff| {d}")
+        return text + f"; JPEG frames mean |diff| {d:.3f} (bound 2.0)"
+    try:
+        NativePackedDataset(jpeg)
+    except NoJpegDecoder as e:
+        return text + f"; JPEG shard refused: {e}"
+    raise SystemExit("a reader built without libjpeg opened a JPEG shard")
+
+
+def phase_ingest(dev, card: str, slice_ms: float, reader_build):
+    """Videos to pretraining through the port alone: INGEST_VIDEOS videos
+    written with cv2, ``extract_frames --res 128 --list-file`` (ffmpeg
+    where it is on the PATH, else cv2), ``pack frames`` as JPEG and with
+    ``--raw-hw``, ``pack make-lmdb``, ``pack lmdb`` (byte-identical to the
+    JPEG shard) and ``pack info``; the C++ reader held against the Python
+    one; then one ``main_byol`` epoch of INGEST_STEPS steps from the JPEG
+    shard (``--data_backend packed``) and from the LMDB (``--data_backend
+    lmdb``), each at 10/10/1 launches a step with finite CSV rows. Prints
+    the loop step and data wait beside phase 3's bare step."""
+    import os
+    import shutil
+    import tempfile
+
+    from cstp_tpu_torch.cli import main_byol
+    from cstp_tpu_torch.data import extract_frames, pack
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cstp_ingest_") as root:
+        vids, frames = os.path.join(root, "videos"), os.path.join(root,
+                                                                 "frames")
+        ann = os.path.join(root, "ann")
+        os.makedirs(ann)
+        t0 = time.perf_counter()
+        _ingest_videos(vids)
+        t_write = time.perf_counter() - t0
+        listed = os.path.join(root, "extracted.txt")
+        decoder = ("ffmpeg" if shutil.which("ffmpeg")
+                   else "cv2 (no ffmpeg on the PATH)")
+        t0 = time.perf_counter()
+        _tool(extract_frames.main, [
+            "--vid-dir", vids, "--frame-dir", frames, "--res", "128",
+            "--fps", "25", "--workers", "4", "--list-file", listed])
+        t_extract = time.perf_counter() - t0
+        with open(listed) as f:
+            lines = f.read().splitlines()
+        want = sorted(f"class{v % 2}/clip{v} {v % 2} {INGEST_FRAMES}"
+                      for v in range(INGEST_VIDEOS))
+        if sorted(lines) != want:
+            raise SystemExit(f"extract_frames listed {lines}, not {want}")
+        split = os.path.join(ann, "trainlist01_nframe.txt")
+        with open(split, "w") as f:
+            f.write("".join(f"{line}\n" for line in lines
+                            for _ in range(INGEST_REPEAT)))
+        jpeg, raw, conv, db = (os.path.join(root, n) for n in (
+            "train_jpeg.cstp", "raw.cstp", "from_lmdb.cstp", "lmdb"))
+        t0 = time.perf_counter()
+        _tool(pack.main, ["frames", "--frame-dir", frames, "--annotation",
+                          split, "--out", jpeg])
+        _tool(pack.main, ["frames", "--frame-dir", frames, "--annotation",
+                          listed, "--out", raw, "--raw-hw", str(H0),
+                          str(W0)])
+        _tool(pack.main, ["make-lmdb", "--frame-dir", frames, "--out", db])
+        _tool(pack.main, ["lmdb", "--lmdb", db, "--annotation-path", ann,
+                          "--out", conv])
+        info = _tool(pack.main, ["info", jpeg]) + _tool(pack.main,
+                                                        ["info", raw])
+        t_pack = time.perf_counter() - t0
+        with open(jpeg, "rb") as a, open(conv, "rb") as b:
+            if a.read() != b.read():
+                raise SystemExit("pack lmdb's CSTPack differs from pack "
+                                 "frames' on the same split list")
+        held = _hold_readers(raw, jpeg, reader_build["jpeg"])
+        log(f"[ingest] readers: {held}")
+        log(f"[ingest] the JPEG shard reads through {_packed_reader(jpeg)},"
+            f" the raw shard through {_packed_reader(raw)} (build_dataset)")
+
+        common = ["--model_name", "r21d_byol", "--model_depth", "1",
+                  "--sample_duration", str(T), "--sample_size", str(S),
+                  "--compute_dtype", "bfloat16", "--fused_conv", "1",
+                  "--log_every", "0", "--n_workers", "6",
+                  "--dataset", "UCF101", "--task", "loss_com",
+                  "--pallas_augment", "on", "--learning_rate", "0.03",
+                  "--batch_size", str(B_VIEW), "--n_epochs", "1",
+                  "--steps_per_epoch", str(INGEST_STEPS),
+                  "--ckpt_every_epochs", "100"]
+        per_pre = {"conv21d_stats": 10, "conv21d_fwd": 10, "augment": 1}
+        times = {}
+        for name, data in (
+                ("packed", ["--data_backend", "packed", "--lmdb_path",
+                            jpeg]),
+                ("lmdb", ["--data_backend", "lmdb", "--lmdb_path", db,
+                          "--annotation_path", ann])):
+            res = os.path.join(root, f"results_{name}")
+            out, _ = _cli_run(main_byol.main, common + data + [
+                "--result_path", res], per_pre, INGEST_STEPS)
+            times[name] = _loop_times(out, B_VIEW)
+            losses = [h["loss"] for h in out["history"]]
+            del out
+            torch.cuda.empty_cache()
+            if not all(math.isfinite(v) for v in losses):
+                raise SystemExit(f"the {name} epoch gave a non-finite loss")
+            _check_rows(os.path.join(
+                res, "UCF101", "loss_com",
+                f"UCF101_train_clip{T}modelr21d_byol1.log"))
+    seconds = time.perf_counter() - t_phase
+    log(f"[ingest] {INGEST_VIDEOS} videos of {INGEST_FRAMES} frames at "
+        f"{INGEST_WH[0]}x{INGEST_WH[1]} written in {t_write:.1f} s; "
+        f"extract_frames by {decoder} in {t_extract:.1f} s; pack frames "
+        f"(JPEG, {INGEST_VIDEOS * INGEST_REPEAT} list entries; raw "
+        f"{H0}x{W0}), make-lmdb, lmdb (byte-identical to the JPEG shard) and "
+        f"info in {t_pack:.1f} s: {' | '.join(info)}")
+    log(f"[ingest] reader build (phase 1): {reader_build['seconds']:.1f} s, "
+        f"jpeglib.h found: {reader_build['jpeg']}")
+    for name, t in times.items():
+        log(f"[ingest] main_byol from the {name} shard (per-view {B_VIEW}, "
+            f"{t['steps']} steps): loop step {t['step_ms']:.1f} ms, data "
+            f"wait {t['wait_ms']:.2f} ms per step (steps after the first), "
+            f"epoch wall {t['wall_ms']:.1f} ms per step; phase 3's bare step "
+            f"{slice_ms:.1f} ms, loop / bare {t['step_ms'] / slice_ms:.3f} "
+            f"({card})")
+    log(f"[ingest] phase {seconds:.1f} s")
+    return dict(times=times, seconds=seconds)
+
+
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
@@ -2555,12 +2824,18 @@ def main(argv=None) -> int:
         return 3
     dev = torch.device("cuda", 0)
     card = card_line()
+    # the data layer's log lines (which reader and which JPEG decode path)
+    data_log = logging.getLogger("cstp_tpu_torch.data")
+    data_log.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[data] %(message)s"))
+    data_log.addHandler(handler)
     log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[device] TF32 off for cuDNN convolutions and matmuls (comparisons "
         "in full f32)")
-    phase_build()
+    reader_build = phase_build()
     conv = phase_conv21d(dev)
     aug_err, aug_t = phase_augment(dev)
     phase_hashes(dev)
@@ -2586,6 +2861,7 @@ def main(argv=None) -> int:
         phase_inception(dev, card, sl["step_ms"])
         for k, v in phase_slowfast_legacy(dev, card, sl["step_ms"]).items():
             counts[k] += v
+        phase_ingest(dev, card, sl["step_ms"], reader_build)
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

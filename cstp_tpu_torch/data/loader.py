@@ -3,7 +3,10 @@ the JAX package's ``data/loader.py``.
 
 * per-epoch deterministic shuffling seeded by epoch, sharded per process
   (``process_index::process_count``);
-* a thread pool for frame decode (PIL releases the GIL);
+* the batched path: a reader with ``read_clips`` (the C++ reader,
+  ``data/native_reader.py``) fills a whole batch in one native call,
+  outside the interpreter lock;
+* otherwise a thread pool for frame decode (PIL releases the GIL);
 * :func:`prefetch_to_device`: a background thread copies each host batch
   through a small ring of pinned buffers into device tensors on its own
   CUDA stream while the previous step computes.
@@ -76,22 +79,42 @@ class PretrainLoader:
         f2 = self.ds.read_frames(vid, s.indices_2)
         return f1, f2, s
 
+    def _sample_batch(self, ids, epoch: int):
+        """The clip pairs of ``ids``, each drawn from its own generator
+        ``(seed, epoch, video)``, as ``_load_one`` draws them."""
+        return [sample_clip_pair_host(
+                    np.random.default_rng((self.seed, epoch, int(v))),
+                    self.ds.video_meta(int(v))[0], self.sample_duration)
+                for v in ids]
+
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         perm = _epoch_permutation(self.ds.num_videos(), epoch, self.seed,
                                   True)
         perm = perm[self.process_index::self.process_count]
         bs = self.batch_size
+        batched = hasattr(self.ds, "read_clips")
         with ThreadPoolExecutor(self.num_workers) as pool:
             for start in range(0, len(perm) - (bs - 1 if self.drop_last
                                                else 0), bs):
                 ids = perm[start:start + bs]
-                rngs = [np.random.default_rng((self.seed, epoch, int(v)))
-                        for v in ids]
-                results = list(pool.map(self._load_one, ids, rngs))
-                samples = [r[2] for r in results]
+                if batched:
+                    # both views of the batch in one native call
+                    samples = self._sample_batch(ids, epoch)
+                    frames = self.ds.read_clips(
+                        np.asarray(list(ids) * 2, np.int32),
+                        np.stack([s.indices_1 for s in samples]
+                                 + [s.indices_2 for s in samples]))
+                    f1, f2 = frames[:len(ids)], frames[len(ids):]
+                else:
+                    rngs = [np.random.default_rng((self.seed, epoch, int(v)))
+                            for v in ids]
+                    results = list(pool.map(self._load_one, ids, rngs))
+                    f1 = np.stack([r[0] for r in results])
+                    f2 = np.stack([r[1] for r in results])
+                    samples = [r[2] for r in results]
                 batch = {
-                    "frames1": np.stack([r[0] for r in results]),
-                    "frames2": np.stack([r[1] for r in results]),
+                    "frames1": f1,
+                    "frames2": f2,
                     "rot1": np.asarray([s.rot_label_1 for s in samples],
                                        np.int32),
                     "rot2": np.asarray([s.rot_label_2 for s in samples],
@@ -158,6 +181,7 @@ class FinetuneLoader:
                                   self.train)
         perm = perm[self.process_index::self.process_count]
         bs = self.batch_size
+        batched = hasattr(self.ds, "read_clips")
         if self.drop_last:
             stop = max(len(perm) - (bs - 1), 0)
         else:
@@ -180,10 +204,22 @@ class FinetuneLoader:
                            "labels": np.zeros((bs,), np.int32),
                            "mask": np.zeros((bs,), np.float32)}
                     continue
-                results = list(pool.map(self._load_one, ids,
-                                        [epoch] * len(ids)))
-                frames = np.stack([r[0] for r in results])
-                labels = np.asarray([r[1] for r in results], np.int32)
+                if batched:
+                    metas = [self.ds.video_meta(int(v)) for v in ids]
+                    idx = np.stack([
+                        self._clip_indices(
+                            nf, np.random.default_rng((self.seed, epoch,
+                                                       int(v)))
+                            if self.train else None)
+                        for (nf, _), v in zip(metas, ids)])
+                    frames = self.ds.read_clips(np.asarray(ids, np.int32),
+                                                idx)
+                    labels = np.asarray([m[1] for m in metas], np.int32)
+                else:
+                    results = list(pool.map(self._load_one, ids,
+                                            [epoch] * len(ids)))
+                    frames = np.stack([r[0] for r in results])
+                    labels = np.asarray([r[1] for r in results], np.int32)
                 mask = np.ones((len(ids),), np.float32)
                 if len(ids) < bs:
                     pad = bs - len(ids)

@@ -9,15 +9,18 @@ the same file format:
             frame_offsets u64[nframes + 1]  (absolute file offsets)
 
 Readers mmap the file and fetch exactly the frames a clip needs. The raw
-codec is a memcpy per frame; JPEG frames decode with PIL. The offline
-packing tool (``pack_frame_dir``) and the C++ reader stay in the JAX
-package for now.
+codec is a memcpy per frame; JPEG frames decode with PIL. This module is
+the pure-Python reader and the writer; the C++ reader of the same format
+is ``data/native_reader.py``, and ``pack_frame_dir`` is the offline tool
+that packs a frame directory (``python -m cstp_tpu_torch.data.pack
+frames``).
 """
 
 from __future__ import annotations
 
 import io
 import mmap
+import os
 import struct
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -163,3 +166,38 @@ def _resize_batch(frames: np.ndarray, h: int, w: int) -> np.ndarray:
             Image.fromarray(frames[i]).resize((w, h), Image.BILINEAR), np.uint8
         )
     return out
+
+
+def pack_frame_dir(frame_dir: str, annotation_file: str, out_path: str,
+                   raw_hw: Optional[Tuple[int, int]] = None,
+                   limit: int = 0) -> int:
+    """Offline tool: the JPEG frames of a frame directory -> one CSTPack
+    shard, the videos of ``annotation_file`` in its order. With ``raw_hw``
+    frames are decoded and stored raw at that size (reads without decode).
+    Returns the number of videos packed."""
+    from PIL import Image
+
+    from cstp_tpu_torch.data.labels import parse_ucf_list
+
+    records = parse_ucf_list(annotation_file, frame_dir, check_exists=True)
+    if limit:
+        records = records[:limit]
+    w = PackedWriter(out_path)
+    for r in records:
+        vdir = os.path.join(frame_dir, r.path)
+        files = sorted(f for f in os.listdir(vdir) if f.endswith(".jpg"))
+        if raw_hw is None:
+            blobs = []
+            for f in files:
+                with open(os.path.join(vdir, f), "rb") as fh:
+                    blobs.append(fh.read())
+            w.add_video(r.path, r.label, blobs, codec=CODEC_JPEG)
+        else:
+            frames = []
+            for f in files:
+                with Image.open(os.path.join(vdir, f)) as img:
+                    frames.append(np.asarray(img.convert("RGB").resize(
+                        (raw_hw[1], raw_hw[0]), Image.BILINEAR), np.uint8))
+            w.add_video_raw(r.path, r.label, np.stack(frames))
+    w.close()
+    return len(records)

@@ -1,4 +1,5 @@
-"""Builds the port's CUDA kernels with ``nvcc`` at first use and loads them.
+"""Builds the port's CUDA kernels with ``nvcc`` at first use and loads them;
+likewise its host library, the CSTPack reader, with ``g++``.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
@@ -8,22 +9,35 @@ and the flags, so an edited source or header rebuilds and an unchanged one
 is reused. ``build_all`` starts one ``nvcc``
 per source at once. A missing ``nvcc`` or a failed build raises: there is
 no fallback for a CUDA tensor.
+
+``csrc/<name>.cc`` (``HOST_SOURCES``) is host code: ``build_host`` compiles
+it with ``g++`` (``HOST_FLAGS``, ``HOST_LIBS``), needs no ``nvcc``, and
+raises with the compiler's output when the build fails. It links libjpeg
+where ``g++`` finds ``jpeglib.h`` (``has_jpeglib``); elsewhere it compiles
+the JPEG decode out (``-DCSTP_NO_JPEG``) and the library says so through
+``cstp_has_jpeg()``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cstp_tpu_torch"
 SOURCES = ("conv21d", "augment")
+HOST_SOURCES = ("cstpack_reader",)
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+HOST_LIBS = ("-lpthread",)
+JPEG_LIBS = ("-ljpeg",)
+NO_JPEG_FLAGS = ("-DCSTP_NO_JPEG",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +67,68 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("cstp_tpu_torch: g++ not found on PATH; the host "
+                           "library (csrc/*.cc) cannot be built")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def has_jpeglib() -> bool:
+    """Whether ``g++`` finds libjpeg's header, ``jpeglib.h``."""
+    proc = subprocess.run([gxx_path(), "-fsyntax-only", "-x", "c++", "-"],
+                          input="#include <cstdio>\n#include <jpeglib.h>\n",
+                          capture_output=True, text=True)
+    return proc.returncode == 0
+
+
+def host_command(name: str, out: Path, jpeg: bool) -> list:
+    """The ``g++`` command that builds ``csrc/<name>.cc`` into ``out``, with
+    libjpeg or with the JPEG decode compiled out."""
+    return [gxx_path(), *HOST_FLAGS, *(() if jpeg else NO_JPEG_FLAGS),
+            "-o", str(out), str(CSRC / f"{name}.cc"),
+            *(JPEG_LIBS if jpeg else ()), *HOST_LIBS]
+
+
+def _host_lib_path(name: str, jpeg: bool) -> Path:
+    """The host library's path, named by a hash of its source and of its
+    command's flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
+    h.update(" ".join(host_command(name, Path(), jpeg)[1:]).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str, jpeg: Optional[bool] = None) -> str:
+    """Compile ``csrc/<name>.cc`` unless its current library exists; returns
+    the library's path. ``jpeg`` defaults to ``has_jpeglib()``. Raises
+    ``RuntimeError`` with the compiler's output when ``g++`` fails."""
+    jpeg = has_jpeglib() if jpeg is None else jpeg
+    out = _host_lib_path(name, jpeg)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = host_command(name, tmp, jpeg)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for csrc/{name}.cc:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return str(out)
+
+
+def bind(lib: ctypes.CDLL, signatures: Dict[str, Tuple[list, Any]]
+         ) -> ctypes.CDLL:
+    """Set ``argtypes``/``restype`` of ``lib``'s functions from
+    ``signatures``; returns ``lib``."""
+    for fn, (argtypes, restype) in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def _start(name: str) -> subprocess.Popen:
     out = _lib_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -80,18 +156,20 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def load(name: str, signatures: Dict[str, Tuple[list, Any]]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use, with
+    """The loaded library for ``csrc/<name>.cu`` (or the host library
+    ``csrc/<name>.cc`` of ``HOST_SOURCES``), built on first use, with
     ``argtypes``/``restype`` set from ``signatures`` ({function: (argtypes,
     restype)}; pointers and the stream as ``c_void_p``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            if not _lib_path(name).exists():
-                build_all([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, (argtypes, restype) in signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
+            if name in HOST_SOURCES:
+                path = build_host(name)
+            else:
+                if not _lib_path(name).exists():
+                    build_all([name])
+                path = str(_lib_path(name))
+            lib = bind(ctypes.CDLL(path), signatures)
             _libs[name] = lib
         return lib
 

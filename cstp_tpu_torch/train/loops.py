@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import time
 from typing import Dict
@@ -117,9 +118,14 @@ def build_dataset(config: Config, data_type: str):
             config.frame_dir, config.annotation_path, dataset=config.dataset,
             data_type=data_type, split=config.split)
     if config.data_backend == "packed":
-        # the Python reader: the JAX package's own path where its C++
-        # reader is not built
-        from cstp_tpu_torch.data.packed import PackedDataset
+        # the C++ reader, as the JAX package's build_dataset takes it; a
+        # library that does not build raises with the compiler's output.
+        # Only a library built without libjpeg, on a shard of JPEG videos,
+        # hands the shard to the Python reader, and says so.
+        from cstp_tpu_torch.data.native_reader import (
+            NativePackedDataset,
+            NoJpegDecoder,
+        )
 
         path = config.lmdb_path
         if data_type != "train":
@@ -127,7 +133,14 @@ def build_dataset(config: Config, data_type: str):
                                else "test")
             if os.path.exists(alt):
                 path = alt
-        return PackedDataset(path)
+        try:
+            return NativePackedDataset(path, n_threads=config.n_workers)
+        except NoJpegDecoder as e:
+            from cstp_tpu_torch.data.packed import PackedDataset
+
+            logging.getLogger("cstp_tpu_torch.data").warning(
+                "%s: reading it with the Python PackedDataset (PIL)", e)
+            return PackedDataset(path)
     raise ValueError(f"unknown data_backend {config.data_backend!r}")
 
 

@@ -2,7 +2,8 @@
 
 Held bitwise: every reader's ``num_videos`` / ``video_meta`` /
 ``read_frames`` on the same files (synthetic, frame-dir JPEGs, CSTPack raw
-and JPEG, LMDB, a cv2-written video), the CSTPack writer's bytes, the label
+and JPEG, LMDB decoded with PIL and with the native pool, a cv2-written
+video), the CSTPack writer's bytes, the label
 parsers, the clip-pair sampler on a grid, the cosine schedule, the parsed
 ``Config`` of the recipes' command lines, and the TensorBoard records.
 ``PreemptionGuard`` reports a SIGTERM sent to the process.
@@ -113,10 +114,17 @@ def _readers(kind, tmp_path, monkeypatch):
         # raw frames are stored at 30x40: ingest HW resizes them with PIL
         return (jpacked.PackedDataset(path, ingest_hw=HW),
                 ppacked.PackedDataset(path, ingest_hw=HW))
-    if kind == "lmdb":
-        # JAX's frame_dir_to_lmdb over a frame directory; its JAX reader
-        # decodes with PIL (its native decoder off), as the port does
-        monkeypatch.setenv("CSTP_FORCE_PIL_DECODE", "1")
+    if kind.startswith("lmdb"):
+        # JAX's frame_dir_to_lmdb over a frame directory. "lmdb": both
+        # readers decode with PIL (CSTP_FORCE_PIL_DECODE=1); "lmdb_native":
+        # both through their own native libjpeg pool
+        if kind == "lmdb":
+            monkeypatch.setenv("CSTP_FORCE_PIL_DECODE", "1")
+        else:
+            from cstp_tpu.data import native_reader as jnative
+
+            monkeypatch.delenv("CSTP_FORCE_PIL_DECODE", raising=False)
+            assert jnative.load_native_lib() is not None
         root, ann = _framedir(tmp_path)
         db = str(tmp_path / "db")
         assert jlmdb_dataset.frame_dir_to_lmdb(root, db) == N_VIDEOS
@@ -144,7 +152,7 @@ def _readers(kind, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kind", [
     "synthetic0", "synthetic1", "framedir", "packed_raw", "packed_jpeg",
-    "lmdb", "video"])
+    "lmdb", "lmdb_native", "video"])
 def test_readers_are_bitwise_the_jax_readers(kind, tmp_path, monkeypatch):
     jds, pds = _readers(kind, tmp_path, monkeypatch)
     assert pds.num_videos() == jds.num_videos() == N_VIDEOS

@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 48, out.stdout
+    assert int(n) >= 62, out.stdout
     assert bad == "[]", bad
 
 
@@ -93,7 +93,7 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip("a CUDA GPU is present")
     import numpy as np
 
-    from cstp_tpu_torch import resolve_device
+    from cstp_tpu_torch import graft_entry, resolve_device
     from cstp_tpu_torch.config import Config
     from cstp_tpu_torch.perf import bench_conv21d, bench_step
     from cstp_tpu_torch.train import finetune
@@ -119,6 +119,8 @@ def test_entry_points_refuse_missing_cuda():
     for mode in ("pretrain", "ft", "eval"):
         with pytest.raises(RuntimeError, match="CUDA"):
             bench_step.main(["--mode", mode, "--per-chip-bs", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
     assert resolve_device("cpu").type == "cpu"
 
 
