@@ -139,10 +139,24 @@ Phases:
      reader was built without libjpeg); one ``main_byol`` epoch of 3 steps
      at per-view 16 from the JPEG shard and from the LMDB, 10/10/1 launches
      a step, finite CSV rows, the loop step and data wait beside phase 3.
+  18. data parallel (``cstp_tpu_torch/parallel``): (a) phase 4's kernel
+     step with ``--ntxent_weight 0.5`` from its weights, generator and
+     batch inside a world-1 NCCL group (BN moments all-reduced between K2
+     and K3, gradient and metric all-reduces, the gathered NT-Xent)
+     against the same step without a group: loss terms within 1e-3
+     relative, update cosine >= 0.999, 10/10/1 launches, its step ms over
+     3 steps beside phase 3's; (b) two rank processes on the one card over
+     gloo (this script with ``--dp-rank``), per-view 8 each, against one
+     process on the per-view 16 batch: the kernel step by phase 4's rule
+     (10/10/1 launches on each rank) and the plain float32 step to cosine
+     0.999; (c) ``torchrun --nproc_per_node 1 -m
+     cstp_tpu_torch.cli.main_byol`` (``python -m torch.distributed.run``)
+     for one epoch of 3 steps with ``--ntxent_weight 0.5`` on the first 48
+     videos of phase 12's CSTPack data, finite CSV rows.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``; the slice phase's launches plus those of phase 16's
-K5 and ``--legacy_pace`` steps), the card's name and power limit, and a
-last JSON line
+K5 and ``--legacy_pace`` steps and of phase 18's main-path steps), the
+card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Imports nothing of JAX.
 """
@@ -1354,6 +1368,29 @@ CLI_FT_STEPS = 4
 CLI_JPEG_STEPS = 3      # the frame-dir JPEG epoch, per-view B_VIEW
 
 
+def _cli_videos():
+    """The synthetic videos of phase 12's CSTPack files."""
+    from cstp_tpu_torch.data.synthetic import SyntheticVideoDataset
+
+    return SyntheticVideoDataset(n_videos=CLI_TRAIN + 2 * CLI_EVAL,
+                                 n_classes=N_FT_CLASSES, ingest_hw=(H0, W0),
+                                 seed=0)
+
+
+def _pack_videos(path: str, ds, ids, pool) -> None:
+    """Videos ``ids`` of ``ds`` (CLI_FRAMES raw frames each) into a CSTPack
+    file at ``path``."""
+    from cstp_tpu_torch.data.packed import PackedWriter
+
+    w = PackedWriter(path)
+    for lo in range(0, len(ids), 32):
+        chunk = ids[lo:lo + 32]
+        for i, f in zip(chunk, pool.map(
+                lambda i: ds.read_frames(i, range(CLI_FRAMES)), chunk)):
+            w.add_video_raw(f"v{i:04d}", ds.video_meta(i)[1], f)
+    w.close()
+
+
 def _cli_data(root: str):
     """Train, val and test CSTPack files (``build_dataset`` finds val and
     test by replacing "train" in the train file's path) and a frame
@@ -1363,12 +1400,7 @@ def _cli_data(root: str):
 
     from PIL import Image
 
-    from cstp_tpu_torch.data.packed import PackedWriter
-    from cstp_tpu_torch.data.synthetic import SyntheticVideoDataset
-
-    ds = SyntheticVideoDataset(n_videos=CLI_TRAIN + 2 * CLI_EVAL,
-                               n_classes=N_FT_CLASSES, ingest_hw=(H0, W0),
-                               seed=0)
+    ds = _cli_videos()
 
     def frames(i):
         return ds.read_frames(i, range(CLI_FRAMES))
@@ -1380,12 +1412,7 @@ def _cli_data(root: str):
              "test": range(CLI_TRAIN + CLI_EVAL, CLI_TRAIN + 2 * CLI_EVAL)}
     with ThreadPoolExecutor(8) as pool:
         for split, ids in spans.items():
-            w = PackedWriter(paths[split])
-            for lo in range(0, len(ids), 32):
-                chunk = ids[lo:lo + 32]
-                for i, f in zip(chunk, pool.map(frames, chunk)):
-                    w.add_video_raw(f"v{i:04d}", ds.video_meta(i)[1], f)
-            w.close()
+            _pack_videos(paths[split], ds, ids, pool)
 
         jpeg_dir, ann = os.path.join(root, "frames"), os.path.join(root, "ann")
         n_jpeg = CLI_JPEG_STEPS * B_VIEW
@@ -2777,12 +2804,273 @@ def phase_ingest(dev, card: str, slice_ms: float, reader_build):
     return dict(times=times, seconds=seconds)
 
 
+# ------------------------------------------------------ data parallel
+
+DP_STEPS = 3            # pretrain steps of phase 18's torchrun epoch
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_config():
+    """Phase 4's kernel configuration with the NT-Xent term."""
+    return _slice_config(True, ntxent_weight=0.5)
+
+
+def _loss_err(run, ref):
+    return max(abs(run["metrics"][k] - ref["metrics"][k])
+               / max(abs(ref["metrics"][k]), 1e-6)
+               for k in ref["metrics"] if k.startswith("loss"))
+
+
+def _dp_runs():
+    """Phase 18 (b)'s configurations: the kernel step (phase 4's, with the
+    NT-Xent term) and the plain float32 step, its arbiter."""
+    return {"kernel": _dp_config(),
+            "f32": _slice_config_plain_f32(ntxent_weight=0.5)}
+
+
+def dp_rank(rank: int, world: int, port: int, out: str,
+            device: str = "cuda:0") -> None:
+    """One rank of phase 18 (b): each of ``_dp_runs`` on its rows of phase
+    4's per-view B_VIEW batch, over gloo on card 0; writes the metrics,
+    launches and step ms, and (rank 0) the updates, under ``out``."""
+    import os
+
+    from cstp_tpu_torch.parallel import mesh
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK="0")
+    dev = torch.device(device)
+    mesh.maybe_initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", device=dev, backend="gloo")
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rows = mesh.shard_batch(_slice_batch(dev, seed=4))
+        result = {}
+        for name, cfg in _dp_runs().items():
+            run = _one_step_run(dev, cfg, rows)
+            update = run.pop("update")
+            run.pop("stats")
+            run["update_norm"] = float(update.norm())
+            if mesh.is_main():
+                torch.save(update.float().cpu(), f"{out}.{name}.pt")
+            result[name] = run
+        torch.save(result, f"{out}.{rank}.pt")
+    finally:
+        mesh.shutdown()
+
+
+def _dp_two_ranks(one, world: int = 2):
+    """Phase 18 (b): ``world`` rank processes on the one card over gloo,
+    each per-view B_VIEW / world, against the one-process steps ``one``
+    (``_dp_runs``' names) on the global batch. The plain float32 step must
+    match (loss terms within 1e-3 relative, update cosine >= 0.999). The
+    kernel step is held by phase 4's rule: loss terms within 2e-2, and its
+    update as close to the float32 update as the one-process kernel
+    step's (cosine within 0.05): two bf16 steps that sum in other orders
+    (rank halves, other cuDNN algorithms at half the batch) differ by
+    their rounding, amplified by this network's ill-conditioned gradient,
+    as phase 4's kernel and plain steps do. Returns the ranks' launches."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cstp_dp_") as d:
+        out, port = os.path.join(d, "rank"), _free_port()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CSTP_", "MASTER_"))}
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--dp-rank", str(r), str(world),
+             str(port), out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            for line in text.splitlines()[-20:]:
+                log(f"[dp]   rank {r}: {line}")
+            if p.returncode != 0:
+                raise SystemExit(f"[dp] rank {r} of {world} over gloo "
+                                 f"exited {p.returncode}")
+        ranks = [torch.load(f"{out}.{r}.pt", weights_only=False)
+                 for r in range(world)]
+        updates = {n: torch.load(f"{out}.{n}.pt").double().to(
+            one[n]["update"].device) for n in one}
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+    kernel_want = {"conv21d_stats": 10, "conv21d_fwd": 10,
+                   "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
+                   "augment": 1}
+    ok = True
+    for name, run in one.items():
+        got = [r[name] for r in ranks]
+        loss_err = _loss_err(got[0], run)
+        c = cos(updates[name], run["update"])
+        want = (kernel_want if name == "kernel"
+                else dict.fromkeys(kernel_want, 0))
+        if name == "kernel":
+            c_f32 = cos(updates[name], one["f32"]["update"])
+            c_one = _cos(run, one["f32"])
+            rule = (f"cosine to the float32 update: {world} ranks "
+                    f"{c_f32:.5f}, one process {c_one:.5f} (tol {world} "
+                    f"ranks >= one process - 0.05)")
+            ok &= loss_err <= 2e-2 and c_f32 >= c_one - 0.05
+        else:
+            rule = "tol: loss terms 1e-3, cosine 0.999"
+            ok &= loss_err <= 1e-3 and c >= 0.999
+        ok &= all(g["counts"] == want for g in got)
+        ok &= len({g["update_norm"] for g in got}) == 1
+        log(f"[dp] (b) {name}: {world} ranks on one card over gloo, "
+            f"per-view {B_VIEW // world} each, against one process on the "
+            f"per-view {B_VIEW} batch: max rel loss-term err {loss_err:.3e}"
+            f", update cosine {c:.5f}; {rule}; rank updates' norms "
+            f"{[round(g['update_norm'], 6) for g in got]}; launches "
+            f"{[g['counts'] for g in got]}; step ms (2 steps after the "
+            f"first) {[round(g['ms'], 1) for g in got]}")
+    if not ok:
+        raise SystemExit(f"[dp] the {world}-rank steps and the one-process "
+                         "steps disagree")
+    return [r["kernel"]["counts"] for r in ranks]
+
+
+def _dp_torchrun(dev) -> float:
+    """Phase 18 (c): ``torchrun --nproc_per_node 1 -m
+    cstp_tpu_torch.cli.main_byol`` for one epoch of DP_STEPS steps with
+    ``--ntxent_weight 0.5`` on the first videos of phase 12's CSTPack
+    train file, written here; finite CSV rows. Returns its seconds."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory(prefix="cstp_dp_cli_") as root:
+        train = os.path.join(root, "train.cstp")
+        with ThreadPoolExecutor(8) as pool:
+            _pack_videos(train, _cli_videos(), range(DP_STEPS * B_VIEW),
+                         pool)
+        res = os.path.join(root, "results")
+        argv = ["--model_name", "r21d_byol", "--model_depth", "1",
+                "--sample_duration", str(T), "--sample_size", str(S),
+                "--compute_dtype", "bfloat16", "--fused_conv", "1",
+                "--pallas_augment", "on", "--ntxent_weight", "0.5",
+                "--task", "loss_com", "--batch_size", str(B_VIEW),
+                "--n_epochs", "1", "--steps_per_epoch", str(DP_STEPS),
+                "--log_every", "1", "--n_workers", "6",
+                "--data_backend", "packed", "--lmdb_path", train,
+                "--dataset", "UCF101", "--result_path", res]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "cstp_tpu_torch.cli.main_byol",
+               *argv]
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CSTP_", "MASTER_"))}
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.getcwd()] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        seconds = time.perf_counter() - t0
+        for line in (done.stdout + done.stderr).splitlines()[-12:]:
+            log(f"[dp]   torchrun: {line}")
+        if done.returncode != 0:
+            raise SystemExit(f"[dp] torchrun main_byol exited "
+                             f"{done.returncode}")
+        rows = _check_rows(os.path.join(
+            res, "UCF101", "loss_com",
+            f"UCF101_train_clip{T}modelr21d_byol1.log"))
+    log(f"[dp] (c) torchrun --nproc_per_node 1 -m cstp_tpu_torch.cli."
+        f"main_byol, --ntxent_weight 0.5, 1 epoch of {DP_STEPS} steps at "
+        f"per-view {B_VIEW} on {DP_STEPS * B_VIEW} videos of phase 12's "
+        f"CSTPack data: {rows} finite CSV row(s), {seconds:.1f} s with the "
+        "process start")
+    return seconds
+
+
+def phase_data_parallel(dev, card: str, slice_ms: float):
+    """Phase 18: (a) phase 4's kernel step with ``--ntxent_weight 0.5``
+    from its weights, generator and batch, alone and then inside a world-1
+    NCCL group (cross-rank BN between K2 and K3, gradient and metric
+    all-reduces, the gathered NT-Xent): loss terms within 1e-3 relative,
+    update cosine >= 0.999, 10/10/1 launches, step ms over 3 steps beside
+    phase 3's; (b) two ranks on the one card over gloo; (c) a torchrun
+    epoch. Returns the launches of its main-path runs."""
+    import os
+
+    from cstp_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    cfg, batch = _dp_config(), _slice_batch(dev, seed=4)
+    alone = _one_step_run(dev, cfg, batch, timed_steps=3)
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE",
+                                            "LOCAL_RANK")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        mesh.maybe_initialize_distributed(
+            init_method=f"tcp://127.0.0.1:{_free_port()}", device=dev)
+        backend = torch.distributed.get_backend()
+        grouped = _one_step_run(dev, cfg, batch, timed_steps=3)
+    finally:
+        mesh.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    loss_err = _loss_err(grouped, alone)
+    cos = _cos(grouped, alone)
+    diff = float((grouped["update"] - alone["update"]).abs().max())
+    want = {"conv21d_stats": 10, "conv21d_fwd": 10, "conv21d_taps9_stats": 0,
+            "conv21d_taps9_fwd": 0, "augment": 1}
+    log(f"[dp] (a) world size 1 over {backend}, r21d depth 1, {T}x{S}^2 "
+        f"bf16, per-view {B_VIEW}, fused_conv=1 pallas_augment=on "
+        f"ntxent_weight=0.5, against the same step without a process group: "
+        f"max rel loss-term err {loss_err:.3e} (tol 1e-3); update cosine "
+        f"{cos:.6f} (tol 0.999), max |update diff| {diff:.3e}; launches "
+        f"{grouped['counts']}")
+    log(f"[dp] (a) step ms (3 steps after the first): world-1 group "
+        f"{grouped['ms']:.1f}, no group {alone['ms']:.1f} (the collectives' "
+        f"cost {grouped['ms'] - alone['ms']:+.1f} ms); phase 3's step "
+        f"(no NT-Xent) {slice_ms:.1f} ({card})")
+    if grouped["counts"] != want:
+        raise SystemExit(f"[dp] launches {grouped['counts']}, expected "
+                         f"{want}")
+    if loss_err > 1e-3 or cos < 0.999:
+        raise SystemExit("[dp] the world-1 step differs from the step "
+                         "without a process group")
+    counts = dict(grouped["counts"])
+    del grouped
+    torch.cuda.empty_cache()
+    one = {"kernel": alone,
+           "f32": _one_step_run(dev, _dp_runs()["f32"], batch)}
+    for c in _dp_two_ranks(one):
+        for k, v in c.items():
+            counts[k] += v
+    del alone, one
+    torch.cuda.empty_cache()
+    _dp_torchrun(dev)
+    log(f"[dp] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def kernels_line(conv, aug_err, aug_t, counts):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
     launch, with launches from the slice phase plus phase 16's main-path
     runs (K5 in the two SlowFast pretrain steps, K2/K3 in the
-    ``--legacy_pace`` finetune step); K4a/K4b are one launch at the
+    ``--legacy_pace`` finetune step) and phase 18's (the world-1 step and
+    each gloo rank's kernel step); K4a/K4b are one launch at the
     benchmark's default shape, with launches from its taps9 run.
     ``counts`` is None when no step ran."""
     pallas = "cstp_tpu/ops/pallas"
@@ -2811,7 +3099,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
+    ap.add_argument("--dp-rank", nargs=4, metavar=("RANK", "WORLD", "PORT",
+                                                    "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dp_rank:    # one rank of phase 18 (b), started by that phase
+        r, w, port, out = args.dp_rank
+        dp_rank(int(r), int(w), int(port), out)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA GPU", file=sys.stderr)
@@ -2862,6 +3157,8 @@ def main(argv=None) -> int:
         for k, v in phase_slowfast_legacy(dev, card, sl["step_ms"]).items():
             counts[k] += v
         phase_ingest(dev, card, sl["step_ms"], reader_build)
+        for k, v in phase_data_parallel(dev, card, sl["step_ms"]).items():
+            counts[k] += v
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,12 @@ parameters, so from one generator state they see the same draws:
 * :func:`pretrain_augment_batch_fused`: one ``fused_augment_clips`` call
   over the 2B concatenated clips (the CUDA kernel for CUDA tensors);
 * :func:`pretrain_augment_batch`: the ops path of ``augment/ops.py``.
+
+Under data parallelism (``shard=(rank, world)``) each rank draws the
+parameters of the whole global batch from the same generator state, as the
+JAX package draws the global batch's from one key, and keeps its own rows;
+every row's draw depends on that row alone, so the ranks' views,
+concatenated, are the one-process views of the global batch.
 """
 
 from __future__ import annotations
@@ -98,30 +104,58 @@ def apply_pretrain_aug(frames1, frames2, rot1, rot2, sampled,
     return view(frames1, box1, rot1, p1), view(frames2, box2, rot2, p2)
 
 
-def _sample(gen, frames1, rot1, rot2):
+def _spread(x: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's ``(b, ...)`` rows placed at rows ``[r b, (r+1) b)`` of a
+    zero ``(N b, ...)`` global batch."""
+    r, n = shard
+    b = x.shape[0]
+    out = x.new_zeros((n * b,) + tuple(x.shape[1:]))
+    out[r * b:(r + 1) * b] = x
+    return out
+
+
+def _own_rows(x, shard, b: int):
+    """Rows ``[r b, (r+1) b)`` of a global batch's tensor or parameter
+    tuple."""
+    if isinstance(x, tuple):
+        return type(x)(*(_own_rows(v, shard, b) for v in x))
+    r = shard[0]
+    return x[r * b:(r + 1) * b]
+
+
+def _sample(gen, frames1, rot1, rot2, shard=(0, 1)):
     b, t, h0, w0, _ = frames1.shape
-    return sample_pretrain_aug_params(gen, b, t, float(w0), float(h0), rot1,
-                                      rot2)
+    n = shard[1]
+    if n == 1:
+        return sample_pretrain_aug_params(gen, b, t, float(w0), float(h0),
+                                          rot1, rot2)
+    # the other ranks' labels are unknown here and only steer their rows
+    sampled = sample_pretrain_aug_params(
+        gen, n * b, t, float(w0), float(h0), _spread(rot1, shard),
+        _spread(rot2, shard))
+    return tuple(_own_rows(x, shard, b) for x in sampled)
 
 
 def pretrain_augment_batch_fused(gen, frames1, frames2, rot1, rot2,
                                  sample_size: int = 112,
                                  norm_method: str = "tf",
-                                 out_dtype=torch.bfloat16
+                                 out_dtype=torch.bfloat16, shard=(0, 1)
                                  ) -> Tuple[torch.Tensor, ...]:
     """Sample, then one fused augment call; ``(view1, view2, spa)`` with
-    views in ``out_dtype``."""
-    sampled = _sample(gen, frames1, rot1, rot2)
+    views in ``out_dtype``. ``shard``: ``(rank, world)`` of a rank's rows
+    (module docstring)."""
+    sampled = _sample(gen, frames1, rot1, rot2, shard)
     v1, v2 = apply_pretrain_aug_fused(frames1, frames2, rot1, rot2, sampled,
                                       sample_size, norm_method, out_dtype)
     return v1, v2, sampled[2]
 
 
 def pretrain_augment_batch(gen, frames1, frames2, rot1, rot2,
-                           sample_size: int = 112, norm_method: str = "tf"):
+                           sample_size: int = 112, norm_method: str = "tf",
+                           shard=(0, 1)):
     """Sample, then the ops path; ``(view1, view2, spa)`` with float32
-    views."""
-    sampled = _sample(gen, frames1, rot1, rot2)
+    views. ``shard``: ``(rank, world)`` of a rank's rows."""
+    sampled = _sample(gen, frames1, rot1, rot2, shard)
     v1, v2 = apply_pretrain_aug(frames1, frames2, rot1, rot2, sampled,
                                 sample_size, norm_method)
     return v1, v2, sampled[2]
@@ -160,11 +194,15 @@ def apply_finetune_aug(frames: torch.Tensor, p: FinetuneAugParams,
 
 def finetune_train_augment_batch(gen: torch.Generator, frames: torch.Tensor,
                                  sample_size: int = 112,
-                                 norm_method: str = "tf") -> torch.Tensor:
+                                 norm_method: str = "tf",
+                                 shard=(0, 1)) -> torch.Tensor:
     """Sample, then apply: ``(B, T, H0, W0, 3)`` uint8 -> ``(B, T, S, S, 3)``
-    float32 in [-1, 1] ('tf')."""
+    float32 in [-1, 1] ('tf'). ``shard``: ``(rank, world)`` of a rank's
+    rows: the global batch's parameters are drawn, this rank's kept."""
     b, _, h0, w0, _ = frames.shape
-    p = sample_finetune_aug_params(gen, b, h0, w0, frames.device)
+    p = sample_finetune_aug_params(gen, shard[1] * b, h0, w0, frames.device)
+    if shard[1] > 1:
+        p = _own_rows(p, shard, b)
     return apply_finetune_aug(frames, p, sample_size, norm_method)
 
 

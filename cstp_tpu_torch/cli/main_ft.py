@@ -9,10 +9,16 @@
 """
 
 from cstp_tpu_torch.config import parse_opts
+from cstp_tpu_torch.parallel import distributed_run
 from cstp_tpu_torch.train.loops import run_finetune
 
 
 def main(argv=None, device=None):
+    with distributed_run(device):
+        return _main(argv, device)
+
+
+def _main(argv, device):
     config = parse_opts(argv)
     if config.task not in ("ft_fc", "ft_all", "scratch", "resume"):
         raise SystemExit(f"main_ft handles finetune tasks, got {config.task!r}")

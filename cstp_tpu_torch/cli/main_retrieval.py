@@ -12,10 +12,16 @@ features, from a pretrain checkpoint or a finetune checkpoint:
 """
 
 from cstp_tpu_torch.config import parse_opts
+from cstp_tpu_torch.parallel import distributed_run
 from cstp_tpu_torch.train.loops import run_retrieval
 
 
 def main(argv=None, device=None):
+    with distributed_run(device):
+        return _main(argv, device)
+
+
+def _main(argv, device):
     config = parse_opts(argv)
     if config.task != "retrieval":
         raise SystemExit(

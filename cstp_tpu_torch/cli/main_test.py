@@ -8,10 +8,16 @@
 """
 
 from cstp_tpu_torch.config import parse_opts
+from cstp_tpu_torch.parallel import distributed_run
 from cstp_tpu_torch.train.loops import run_test
 
 
 def main(argv=None, device=None):
+    with distributed_run(device):
+        return _main(argv, device)
+
+
+def _main(argv, device):
     config = parse_opts(argv)
     if config.task != "test":
         raise SystemExit(f"main_test handles task 'test', got {config.task!r}")

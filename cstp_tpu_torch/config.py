@@ -233,7 +233,6 @@ class Config:
             "t_fold": bool(self.t_fold),
             "quant": bool(self.quant),
             "mid_round > 1": self.mid_round > 1,
-            "ntxent_weight > 0": self.ntxent_weight > 0,
             "shard_opt_state": bool(self.shard_opt_state),
             "shard_spatial": bool(self.shard_spatial),
         }

@@ -42,6 +42,14 @@ def _epoch_permutation(n: int, epoch: int, seed: int,
     return rng.permutation(n)
 
 
+def _shard(perm: np.ndarray, index: int, count: int) -> np.ndarray:
+    """Process ``index``'s interleaved share of an epoch, every share cut to
+    the shortest one's length, so all processes take the same number of
+    steps (a process with one more batch would wait forever in its
+    collectives)."""
+    return perm[index::count][:len(perm) // count]
+
+
 class PretrainLoader:
     """Yields pretrain batches: two raw clips and the temporal pretext
     labels.
@@ -90,7 +98,7 @@ class PretrainLoader:
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         perm = _epoch_permutation(self.ds.num_videos(), epoch, self.seed,
                                   True)
-        perm = perm[self.process_index::self.process_count]
+        perm = _shard(perm, self.process_index, self.process_count)
         bs = self.batch_size
         batched = hasattr(self.ds, "read_clips")
         with ThreadPoolExecutor(self.num_workers) as pool:
@@ -179,7 +187,10 @@ class FinetuneLoader:
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         perm = _epoch_permutation(self.ds.num_videos(), epoch, self.seed,
                                   self.train)
-        perm = perm[self.process_index::self.process_count]
+        if self.drop_last:
+            perm = _shard(perm, self.process_index, self.process_count)
+        else:
+            perm = perm[self.process_index::self.process_count]
         bs = self.batch_size
         batched = hasattr(self.ds, "read_clips")
         if self.drop_last:

@@ -1,5 +1,5 @@
-"""Entry point for a single-device check of the port: the counterpart of
-the JAX package's ``__graft_entry__.entry``.
+"""Entry points for a check of the port: the counterparts of the JAX
+package's ``__graft_entry__.entry`` and ``dryrun_multichip``.
 
     fn, args = entry()          # on the card
     byol, logits = fn(*args)
@@ -8,15 +8,29 @@ the JAX package's ``__graft_entry__.entry``.
 (``r21d_byol``, task ``loss_com``), 8 x 112^2 clips, bf16, in train mode,
 so the BatchNorm running statistics are updated. It returns the BYOL loss
 and the six pretext logits ``(spa, tem, pb1, pb2, rot1, rot2)``.
+
+``dryrun_multichip(n)`` runs the data-parallel steps in ``n`` gloo
+processes on the CPU at tiny shapes (``python -m
+cstp_tpu_torch.graft_entry --dryrun N``).
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
 import torch
 
 from cstp_tpu_torch import resolve_device
 from cstp_tpu_torch.config import Config
 from cstp_tpu_torch.train.pretrain import create_pretrain_model
+
+# JAX's variants that need a 'model' axis or sharded optimizer state
+WAITING_FOR_17C = ("shard_opt_state", "shard_spatial")
 
 
 def entry(device=None):
@@ -34,3 +48,143 @@ def entry(device=None):
         return model(x1, x2, train=True)
 
     return fwd, (model, x, x)
+
+
+def _dryrun_variants(n: int) -> None:
+    """One rank's share of :func:`dryrun_multichip`: each variant's step on
+    this rank's rows of a seeded global batch (2 clips per rank); rank 0
+    prints one line per variant."""
+    from cstp_tpu_torch.parallel import mesh
+    from cstp_tpu_torch.train.finetune import (
+        create_finetune_state,
+        make_eval_step,
+        make_features_step,
+        make_finetune_step,
+    )
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    def say(msg):
+        if mesh.is_main():
+            print(f"dryrun_multichip({n}) {msg}", flush=True)
+
+    def gen():
+        return torch.Generator().manual_seed(1)
+
+    small = dict(model_name="r21d", model_depth=1, sample_duration=4,
+                 sample_size=32, batch_size=2 * n, compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    b, t = 2 * n, small["sample_duration"]
+
+    def frames():
+        return torch.from_numpy(
+            rng.integers(0, 255, (b, t, 48, 64, 3)).astype(np.uint8))
+
+    def labels(k):
+        return torch.from_numpy(rng.integers(0, k, (b,)).astype(np.int64))
+
+    batch = mesh.shard_batch({"frames1": frames(), "frames2": frames(),
+                              "rot1": labels(4), "rot2": labels(4),
+                              "tem": labels(5), "pb": labels(4)})
+    for name, over in (("default", {}), ("sync_bn=0", {"sync_bn": 0})):
+        cfg = Config(**small, **over).finalize()
+        model, state, tx = create_pretrain_state(cfg, device="cpu")
+        mesh.replicate(model)
+        step = make_pretrain_step(model, tx, cfg)
+        state, metrics = step(state, gen(), batch, 0.01)
+        loss = float(metrics["loss"])
+        assert np.isfinite(loss), loss
+        say(f"[{name}]: loss={loss:.4f} ok")
+    for name in WAITING_FOR_17C:
+        say(f"[{name}]: waits for ROADMAP item 17c, not ported; not run")
+
+    cfg = Config(**small, task="ft_all", n_finetune_classes=5).finalize()
+    model, state, tx = create_finetune_state(cfg, 5, device="cpu")
+    mesh.replicate(model)
+    ft = mesh.shard_batch({"frames": frames(), "labels": labels(5)})
+    state, metrics = make_finetune_step(model, tx, cfg)(state, gen(), ft,
+                                                       0.01)
+    ev = make_eval_step(model, cfg)(state, ft)
+    ft_loss, ev_loss = float(metrics["loss"]), float(ev["loss_sum"]) / b
+    assert np.isfinite(ft_loss) and np.isfinite(ev_loss), (ft_loss, ev_loss)
+    assert float(ev["count"]) == b, float(ev["count"])
+    say(f"[finetune+eval]: ft_loss={ft_loss:.4f} eval_loss={ev_loss:.4f} ok")
+
+    feats = make_features_step(model, cfg)(state, mesh.shard_rows(frames()))
+    norms = torch.linalg.vector_norm(feats, dim=-1)
+    assert bool(torch.isfinite(feats).all()), feats
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-3), norms
+    say(f"[retrieval]: feats={tuple(feats.shape)} per rank, unit-norm ok")
+
+
+def dryrun_multichip(n: int, timeout: float = 300.0) -> str:
+    """The JAX package's ``dryrun_multichip`` over ``n`` gloo processes on
+    the CPU (one per rank, rendezvous through a ``file://`` store): the
+    pretrain step with ``--sync_bn 1`` and ``0``, the finetune step with
+    the eval step, and the retrieval features, on tiny shapes. Prints and
+    returns rank 0's lines, one ``ok`` line per variant and one line for
+    each variant that waits for ROADMAP item 17c; raises if a rank
+    fails."""
+    with tempfile.TemporaryDirectory(prefix="cstp_dryrun_") as d:
+        store = os.path.join(d, "store")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        base = {k: v for k, v in os.environ.items()
+                if not k.startswith(("CSTP_", "MASTER_"))}
+        base["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        procs = []
+        for r in range(n):
+            env = dict(base, RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "cstp_tpu_torch.graft_entry",
+                 "--dryrun-rank", str(n), store],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    bad = [(r, p.returncode, o) for r, (p, o) in enumerate(zip(procs, outs))
+           if p.returncode != 0]
+    if bad:
+        r, rc, out = bad[0]
+        raise RuntimeError(f"dryrun_multichip({n}): rank {r} exited {rc}:\n"
+                           f"{out}")
+    print(outs[0], end="", flush=True)
+    return outs[0]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dryrun", type=int, metavar="N",
+                    help="dryrun_multichip(N): N gloo processes on the CPU")
+    ap.add_argument("--dryrun-rank", nargs=2, metavar=("N", "STORE"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.dryrun_rank:
+        from cstp_tpu_torch.parallel import mesh
+
+        torch.set_num_threads(1)
+        n, store = int(args.dryrun_rank[0]), args.dryrun_rank[1]
+        mesh.maybe_initialize_distributed(init_method=f"file://{store}",
+                                          device="cpu")
+        try:
+            _dryrun_variants(n)
+        finally:
+            mesh.shutdown()
+    elif args.dryrun:
+        dryrun_multichip(args.dryrun)
+    else:
+        ap.print_help()
+
+
+if __name__ == "__main__":
+    main()

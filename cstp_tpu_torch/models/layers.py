@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cstp_tpu_torch.ops.conv21d import fused_st_conv
+from cstp_tpu_torch.parallel.mesh import global_moments
 
 BN_MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
 BN_EPS = 1e-5
@@ -61,7 +62,15 @@ class BatchNorm(nn.Module):
     mean of the group statistics. ``groups == 1`` is ``flax.linen.BatchNorm``
     (fast variance, clipped at 0). ``torch.nn.BatchNorm*`` would update the
     running variance with the unbiased estimate, hence this module.
+
+    ``cross_rank`` (``--sync_bn 1``, set by ``parallel.set_cross_rank_bn``):
+    under a process group each group's first and second moments are
+    averaged over the ranks, so every group takes the global batch's
+    statistics (what flax computes over a 'data'-sharded batch); without a
+    group it changes nothing.
     """
+
+    cross_rank = False
 
     def __init__(self, channels: int, groups: int = 1,
                  gen: Optional[torch.Generator] = None):
@@ -78,8 +87,8 @@ class BatchNorm(nn.Module):
         c = xf.shape[-1]
         if self.groups == 1:
             flat = xf.reshape(-1, c)
-            mean = flat.mean(0)
-            var = torch.clamp(flat.square().mean(0) - mean.square(), min=0.0)
+            mean, sq = self._global(flat.mean(0), flat.square().mean(0))
+            var = torch.clamp(sq - mean.square(), min=0.0)
             return mean[None], var[None]
         b, g = xf.shape[0], self.groups
         if b % g:
@@ -87,9 +96,13 @@ class BatchNorm(nn.Module):
         axes = tuple(range(1, xf.dim() - 1))
         pmean = xf.mean(dim=axes) if axes else xf               # (B, C)
         psq = xf.square().mean(dim=axes) if axes else xf.square()
-        gmean = pmean.reshape(g, b // g, c).mean(1)
-        gvar = psq.reshape(g, b // g, c).mean(1) - gmean.square()
-        return gmean, gvar
+        gmean, gsq = self._global(pmean.reshape(g, b // g, c).mean(1),
+                                  psq.reshape(g, b // g, c).mean(1))
+        return gmean, gsq - gmean.square()
+
+    def _global(self, mean, sq):
+        """The moments over the ranks' rows under ``cross_rank``."""
+        return global_moments(mean, sq) if self.cross_rank else (mean, sq)
 
     @torch.no_grad()
     def update_running(self, gmean: torch.Tensor, gvar: torch.Tensor):
@@ -271,7 +284,7 @@ class SpatioTemporalConv(nn.Module):
             wt = self.temporal_conv.weight[:, :, :, 0, 0].permute(2, 1, 0)
             out, gmean, gvar = fused_st_conv(
                 x.to(self.dtype), ws, wt, self.bn.scale, self.bn.bias,
-                self.bn.groups, BN_EPS)
+                self.bn.groups, BN_EPS, cross_rank=self.bn.cross_rank)
             self.bn.update_running(gmean, gvar)
             return out
         x = self.spatial_conv(x)

@@ -30,6 +30,13 @@ dtype. Its backward recomputes the plain chain with the statistics
 recomputed inside, for either tiling, so gradients flow through the mean and
 variance like a plain BatchNorm; the cotangents of the returned statistics
 are dropped (they only feed the running-stat update).
+
+``cross_rank`` (``--sync_bn 1`` under a process group): K2's per-group
+statistics become the global batch's before K3 reads them, by small
+all-reduces between the two launches (``global_stats``). The plain version
+and the backward's recompute average the first and second moments over the
+ranks (an autograd-aware all-reduce, as flax does over a sharded batch), so
+every rank issues its collectives in the same order.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from cstp_tpu_torch.ops import build
+from cstp_tpu_torch.parallel.mesh import global_moments, is_distributed
 
 # launches per wrapper (one per call on CUDA tensors)
 launches = {"stats": 0, "fwd": 0, "stats_taps9": 0, "fwd_taps9": 0}
@@ -58,17 +66,35 @@ def _spatial_conv(x, ws, dtype):
     return y.permute(0, 2, 3, 4, 1)
 
 
-def reference_stats(x, ws, bn_groups: int, dtype=torch.bfloat16):
+def reference_stats(x, ws, bn_groups: int, dtype=torch.bfloat16,
+                    cross_rank: bool = False):
     """Per-group ``(G, M)`` mean / biased variance of the spatial conv,
-    rounded to ``dtype``, by partial moments (``reference_stats``)."""
+    rounded to ``dtype``, by partial moments (``reference_stats``); with
+    ``cross_rank`` over every rank's rows (the variance clipped at 0)."""
     b = x.shape[0]
     g = bn_groups
     mid = _spatial_conv(x, ws, dtype).float()
     pmean = mid.mean(dim=(1, 2, 3))                             # (B, M)
     psq = mid.square().mean(dim=(1, 2, 3))
     m = pmean.reshape(g, b // g, -1).mean(dim=1)
-    v = psq.reshape(g, b // g, -1).mean(dim=1) - m.square()
-    return m, v
+    sq = psq.reshape(g, b // g, -1).mean(dim=1)
+    if cross_rank:
+        m, sq = global_moments(m, sq)
+        return m, torch.clamp(sq - m.square(), min=0.0)
+    return m, sq - m.square()
+
+
+def global_stats(gmean, gvar):
+    """K2's per-rank ``(G, M)`` mean and biased variance -> the global
+    batch's (every rank holds as many rows): the ranks' mean variance plus
+    the variance of their means, in two small all-reduces. Going through
+    ``var + mean^2`` instead loses the variance to cancellation where
+    ``mean^2`` dwarfs it, which moved the bf16 update (cosine 0.982 to the
+    step without a process group at world size 1 on an H100); this form is
+    exact at world size 1."""
+    m, v = global_moments(gmean, gvar)
+    (between,) = global_moments((gmean - m).square())
+    return m, v + between
 
 
 def reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups: int,
@@ -89,11 +115,12 @@ def reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups: int,
 
 
 def fused_st_conv_plain(x, ws, wt, scale, bias, bn_groups: int = 1,
-                        eps: float = 1e-5, dtype=torch.bfloat16):
+                        eps: float = 1e-5, dtype=torch.bfloat16,
+                        cross_rank: bool = False):
     """Plain version of the two kernels: ``(out, gmean, gvar)``. With
     ``dtype=bfloat16`` it rounds where the kernels round (x, weights, the
     spatial-conv output, the post-ReLU mid, the output)."""
-    gmean, gvar = reference_stats(x, ws, bn_groups, dtype)
+    gmean, gvar = reference_stats(x, ws, bn_groups, dtype, cross_rank)
     out = reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups,
                           eps, dtype)
     return out, gmean, gvar
@@ -469,9 +496,11 @@ def _check_tiling(tiling):
 
 
 def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
-                       eps: float = 1e-5, tiling: str = "clip"):
+                       eps: float = 1e-5, tiling: str = "clip",
+                       cross_rank: bool = False):
     """The chosen tiling's two kernels on CUDA tensors, with the TPU
-    kernels' bf16 casts."""
+    kernels' bf16 casts; ``cross_rank``: the statistics all-reduced
+    between the two launches."""
     _check_tiling(tiling)
     kh, kw, cin, m = ws.shape
     if (kh, kw) != (3, 3) or wt.shape[0] != 3:
@@ -485,11 +514,15 @@ def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
     if tiling == "taps9":
         x_pad = pad_hw(xb)
         gmean, gvar = run_stats_taps9(x_pad, wsb, bn_groups)
+        if cross_rank:
+            gmean, gvar = global_stats(gmean, gvar)
         out = run_fwd_taps9(x_pad, wsb, wtb, gmean, gvar, scale, bias,
                             bn_groups, eps)
     else:
         ws2 = wsb.reshape(9 * cin, m)
         gmean, gvar = run_stats(xb, ws2, bn_groups)
+        if cross_rank:
+            gmean, gvar = global_stats(gmean, gvar)
         out = run_fwd(xb, ws2, wtb, gmean, gvar, scale, bias, bn_groups, eps)
     return out, gmean, gvar
 
@@ -498,17 +531,20 @@ def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
 
 class FusedSTConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ws, wt, scale, bias, bn_groups, eps, tiling):
+    def forward(ctx, x, ws, wt, scale, bias, bn_groups, eps, tiling,
+                cross_rank):
         if x.device.type == "cuda":
             out, gmean, gvar = fused_st_conv_cuda(x, ws, wt, scale, bias,
-                                                  bn_groups, eps, tiling)
+                                                  bn_groups, eps, tiling,
+                                                  cross_rank)
             ctx.dtype = torch.bfloat16
         else:
             ctx.dtype = x.dtype
             out, gmean, gvar = fused_st_conv_plain(x, ws, wt, scale, bias,
-                                                   bn_groups, eps, x.dtype)
+                                                   bn_groups, eps, x.dtype,
+                                                   cross_rank)
         ctx.save_for_backward(x, ws, wt, scale, bias)
-        ctx.bn_groups, ctx.eps = bn_groups, eps
+        ctx.bn_groups, ctx.eps, ctx.cross_rank = bn_groups, eps, cross_rank
         ctx.mark_non_differentiable(gmean, gvar)
         return out, gmean, gvar
 
@@ -523,7 +559,8 @@ class FusedSTConv(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         with torch.enable_grad():
             x, ws, wt, scale, bias = inputs
-            gm, gv = reference_stats(x, ws, ctx.bn_groups, ctx.dtype)
+            gm, gv = reference_stats(x, ws, ctx.bn_groups, ctx.dtype,
+                                     ctx.cross_rank)
             out = reference_chain(x, ws, wt, scale, bias, gm, gv,
                                   ctx.bn_groups, ctx.eps, ctx.dtype)
         wanted = [t for t, n in zip(inputs, need) if n]
@@ -532,16 +569,20 @@ class FusedSTConv(torch.autograd.Function):
         grads = [next(got) if n else None for n in need]
         grads = [None if g is None else g.to(t.dtype)
                  for g, t in zip(grads, saved)]
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def fused_st_conv(x, ws, wt, scale, bias, bn_groups: int = 1,
-                  eps: float = 1e-5, tiling: str = "clip"):
+                  eps: float = 1e-5, tiling: str = "clip",
+                  cross_rank: bool = False):
     """Fused spatial(1,3,3) -> BN(train stats) -> ReLU -> temporal(3,1,1).
     ``x`` (B, T, H, W, Cin) unpadded; ``ws`` (3, 3, Cin, M); ``wt``
     (3, M, Cout); ``scale``/``bias`` (M,). ``tiling`` picks the kernel pair
     for CUDA tensors: "clip" (K2/K3) or "taps9" (K4a/K4b); anything else
-    raises. Returns ``(out, gmean, gvar)`` with ``(G, M)`` group
+    raises. ``cross_rank``: global-batch statistics under a process group
+    (``--sync_bn 1``). Returns ``(out, gmean, gvar)`` with ``(G, M)`` group
     statistics."""
     _check_tiling(tiling)
-    return FusedSTConv.apply(x, ws, wt, scale, bias, bn_groups, eps, tiling)
+    cross_rank = bool(cross_rank) and is_distributed()
+    return FusedSTConv.apply(x, ws, wt, scale, bias, bn_groups, eps, tiling,
+                             cross_rank)

@@ -118,14 +118,18 @@ class CSTPPretrain(nn.Module):
         self.pb_cls = PretextHead(style, f, f, spec.n_pb, dtype, g2, gen)
         self.rotate_cls = PretextHead(style, f, f, spec.n_rot, dtype, g2, gen)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = True):
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = True,
+                with_proj: bool = False):
         """``o_type='loss_com'`` forward: returns ``(byol_loss_mean,
-        (pred_spa, pred_tem, pb1, pb2, rot1, rot2))``."""
+        (pred_spa, pred_tem, pb1, pb2, rot1, rot2))``; with ``with_proj``
+        also the two views' online projections ``(emb1, emb2)``, the input
+        of the NT-Xent term (``ssl/ntxent.py``)."""
         spec = self.spec
         if self.concat_views:
             x12 = torch.cat([x1, x2], dim=0)
             feats, embs = feat_and_proj(self.online_net(x12, train), spec)
             pred1, pred2 = self.predictor(embs, train).chunk(2, dim=0)
+            emb1, emb2 = embs.chunk(2, dim=0)
             feat1, feat2 = feats.chunk(2, dim=0)
             with torch.no_grad():
                 _, tembs = feat_and_proj(self.target_net(x12, train), spec)
@@ -150,6 +154,8 @@ class CSTPPretrain(nn.Module):
             rot2 = self.rotate_cls(feat2, train)
         out = (self.overlap_spa(feat_cat, train),
                self.overlap_tem(feat_cat, train), pb1, pb2, rot1, rot2)
+        if with_proj:
+            return loss.mean(), out, (emb1, emb2)
         return loss.mean(), out
 
 

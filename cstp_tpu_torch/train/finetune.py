@@ -12,6 +12,11 @@ BN running statistics, optimizer state) in place. Frozen parameters are
 handed neither to autograd nor to the optimizer: they keep their values
 bitwise, as the JAX package's ``set_to_zero`` partition does, and their BN
 running statistics still move in train mode.
+
+Under a process group (``parallel/mesh.py``) the finetune step averages
+its gradients and metrics over the ranks once per optimizer step, with the
+BatchNorm semantics of ``--sync_bn`` as in ``train/pretrain.py``, and the
+eval step sums ``loss_sum``, ``correct`` and ``count`` over the ranks.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from cstp_tpu_torch.augment.pipeline import (
     finetune_train_augment_batch,
 )
 from cstp_tpu_torch.config import Config
+from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.pretext.sampling import (
     strided_frame_indices,
     wraparound_frame_indices,
@@ -36,9 +42,10 @@ from cstp_tpu_torch.train import optim
 from cstp_tpu_torch.train.accum import accumulated_grads, microbatches
 from cstp_tpu_torch.train.pretrain import (
     TrainState,
-    bn_groups_from_config,
+    all_reduce_step,
     compute_dtype,
     double_bias_lr,
+    local_bn_groups,
 )
 
 
@@ -64,9 +71,10 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
     model = CSTPClassify(config.model_name, config.model_depth, num_classes,
                          use_cls_bn=config.cls_bn, head_style=head,
                          dtype=compute_dtype(config),
-                         bn_groups=bn_groups_from_config(config),
+                         bn_groups=local_bn_groups(config),
                          fused_conv=bool(config.fused_conv), gen=gen,
                          shortcut=config.resnet_shortcut, alpha=config.alpha)
+    mesh.set_cross_rank_bn(model, bool(config.sync_bn))
     return model.to(dev)
 
 
@@ -141,6 +149,7 @@ def _build_finetune_train(model: CSTPClassify, tx: optim.Optimizer,
         grads, metrics = accumulated_grads(
             lambda mb: loss_fn(m, mb), microbatches((x, labels), accum),
             params)
+        grads, metrics = all_reduce_step(m, grads, metrics, config)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
         optim.apply_lr(params, updates, lr, lr_mult(params))
         state.step += 1
@@ -162,7 +171,8 @@ def make_finetune_step(model: CSTPClassify, tx: optim.Optimizer,
              batch: Dict[str, torch.Tensor], lr):
         x = finetune_train_augment_batch(
             generator, batch["frames"], sample_size=config.sample_size,
-            norm_method=config.norm_method).to(dtype)
+            norm_method=config.norm_method,
+            shard=(mesh.rank(), mesh.world_size())).to(dtype)
         return train(state, x, batch["labels"], lr)
 
     return step
@@ -192,7 +202,8 @@ def make_eval_step(model: CSTPClassify, config: Config):
     the eval-mode forward (running statistics), and mask-weighted sums
     ``loss_sum``/``correct``/``count`` (rows of ``batch["mask"]`` 0 pad a
     tail batch; without a mask every row counts), their means ``loss`` and
-    ``acc``, and the ``logits``."""
+    ``acc``, and the ``logits`` (this rank's). Under a process group the
+    sums are over every rank's rows."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -205,9 +216,9 @@ def make_eval_step(model: CSTPClassify, config: Config):
         mask = mask.float()
         per_loss = cross_entropy(logits, labels, reduce=False)
         hits = (logits.argmax(-1) == labels).float()
-        count = mask.sum()
-        loss_sum = (per_loss * mask).sum()
-        correct = (hits * mask).sum()
+        sums = torch.stack([(per_loss * mask).sum(), (hits * mask).sum(),
+                            mask.sum()])
+        loss_sum, correct, count = mesh.all_reduce_sum(sums).unbind(0)
         return {"loss_sum": loss_sum, "correct": correct, "count": count,
                 "loss": loss_sum / torch.clamp(count, min=1.0),
                 "acc": correct / torch.clamp(count, min=1.0),

@@ -10,6 +10,14 @@ runs on CUDA unless the caller passes ``device="cpu"``.
 Each ``run_*`` returns what the JAX loop returns, plus ``timing``: per
 epoch, the host wall time of each step and of each wait for data
 (``StepTimer``) and the epoch's wall time up to its metrics on the host.
+
+Under a process group (``parallel/mesh.py``; the CLIs join one first)
+``run_pretrain`` and ``run_finetune`` are data parallel, as the JAX loops
+are over processes: each rank loads ``batch_size // world`` clips per view
+from its shard of the epoch, the state starts from rank 0's (a resume is
+read on rank 0 and broadcast), and only rank 0 prints, writes the CSV,
+TensorBoard and the checkpoints. ``run_test`` and ``run_retrieval`` run in
+one process only (ROADMAP item 17b-ii).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from cstp_tpu_torch.data.loader import (
 )
 from cstp_tpu_torch.models import torch_import
 from cstp_tpu_torch.models.i3d_tf_import import load_tf_i3d
+from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.train import optim
 from cstp_tpu_torch.train.finetune import (
     RETRIEVAL_TOPK,
@@ -146,13 +155,52 @@ def build_dataset(config: Config, data_type: str):
 
 def _log_dir(config: Config) -> str:
     # result_path/dataset/task; a resume keeps writing where the original
-    # run did, the checkpoint's parent directory
+    # run did, the checkpoint's parent directory. Rank 0 writes it.
     if config.task == "resume" and config.resume_md_path:
         return os.path.dirname(os.path.abspath(config.resume_md_path))
     d = os.path.join(config.result_path, config.dataset, config.task)
-    os.makedirs(d, exist_ok=True)
-    _dump_config(config, d)
+    if mesh.is_main():
+        os.makedirs(d, exist_ok=True)
+        _dump_config(config, d)
     return d
+
+
+class _NoLogger:
+    """The epoch log of a rank other than 0: writes nothing."""
+
+    def log(self, values) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _epoch_logger(path: str, header, overlay: bool):
+    return Logger(path, header, overlay) if mesh.is_main() else _NoLogger()
+
+
+def _per_rank_batch(config: Config) -> int:
+    """The clips per view each rank loads: the global ``--batch_size`` over
+    the world size (the mesh is checked against it)."""
+    world = data_shard_count(config)
+    if config.batch_size % world:
+        raise ValueError(f"--batch_size {config.batch_size} not divisible "
+                         f"by world size {world}")
+    return config.batch_size // world
+
+
+def _restore_on_rank0(path: str):
+    """``(tree, meta)`` of a checkpoint, read on rank 0 and broadcast."""
+    got = ckpt_lib.restore_checkpoint(path) if mesh.is_main() else None
+    return mesh.broadcast_object(got)
+
+
+def _single_process(what: str) -> None:
+    if mesh.world_size() > 1:
+        raise NotImplementedError(
+            f"{what} under a process group of {mesh.world_size()} ranks is "
+            "ROADMAP item 17b-ii; run it as one process (its result is the "
+            "JAX package's data-sharded one)")
 
 
 def _dump_config(config: Config, log_dir: str) -> None:
@@ -236,13 +284,14 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
     if config.task not in ("loss_com", "r_byol", "resume"):
         raise ValueError(f"run_pretrain: task {config.task!r}")
     dev = resolve_device(device)
-    data_shard_count(config)
+    batch = _per_rank_batch(config)
     if config.steps_per_epoch and not max_steps_per_epoch:
         max_steps_per_epoch = config.steps_per_epoch
     dataset = build_dataset(config, "train")
     loader = PretrainLoader(
-        dataset, config.batch_size, config.sample_duration,
+        dataset, batch, config.sample_duration,
         seed=config.manual_seed, num_workers=config.n_workers,
+        process_index=mesh.rank(), process_count=mesh.world_size(),
         echo=config.data_echo)
     model, state, tx = create_pretrain_state(config, seed=config.manual_seed,
                                              device=dev)
@@ -259,17 +308,19 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
     if config.task == "resume":
         resume_from = config.resume_md_path
     elif config.auto_resume:
-        resume_from = ckpt_lib.latest_checkpoint(log_dir)
+        resume_from = mesh.broadcast_object(
+            ckpt_lib.latest_checkpoint(log_dir) if mesh.is_main() else None)
     if resume_from:
         begin_epoch = ckpt_lib.epoch_from_name(resume_from)
-        tree, meta = ckpt_lib.restore_checkpoint(resume_from)
+        tree, meta = _restore_on_rank0(resume_from)
         if meta.get("arch") != config.arch:
             raise ValueError(f"checkpoint {resume_from} holds arch "
                              f"{meta.get('arch')!r}, the config asks for "
                              f"{config.arch!r}")
         _restore_state(state, tree, dev)
+    mesh.replicate(model)
 
-    logger = Logger(
+    logger = _epoch_logger(
         os.path.join(log_dir,
                      f"{config.dataset}_train_clip{config.sample_duration}"
                      f"model{config.model_name}{config.model_depth}.log"),
@@ -311,7 +362,8 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
                 clock.batch_tick()
                 if i + 1 >= 2 + config.profile_steps:
                     tracing.close()
-                if config.log_every and (i + 1) % config.log_every == 0:
+                if (config.log_every and (i + 1) % config.log_every == 0
+                        and mesh.is_main()):
                     # fetching a step's metrics waits for it
                     m = {k: float(v) for k, v in metrics.items()}
                     for k, meter in step_meters.items():
@@ -366,16 +418,17 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
                 tb.flush()
         history.append(row)
         if preempted:
-            ckpt_lib.save_checkpoint(
-                os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
-                ckpt_lib.state_tree(state),
-                meta={"arch": config.arch, "epoch": epoch,
-                      "preempted": True})
-            print(f"Preempted at epoch {epoch} step {global_step}: "
-                  f"checkpoint saved; relaunch with --auto_resume "
-                  f"(or --task resume) to continue", flush=True)
+            if mesh.is_main():
+                ckpt_lib.save_checkpoint(
+                    os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
+                    ckpt_lib.state_tree(state),
+                    meta={"arch": config.arch, "epoch": epoch,
+                          "preempted": True})
+                print(f"Preempted at epoch {epoch} step {global_step}: "
+                      f"checkpoint saved; relaunch with --auto_resume "
+                      f"(or --task resume) to continue", flush=True)
             break
-        if epoch % config.ckpt_every_epochs == 0:
+        if epoch % config.ckpt_every_epochs == 0 and mesh.is_main():
             ckpt_lib.save_checkpoint(
                 os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
                 ckpt_lib.state_tree(state),
@@ -396,21 +449,22 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
     if config.task not in ("ft_fc", "ft_all", "scratch", "resume"):
         raise ValueError(f"run_finetune: task {config.task!r}")
     dev = resolve_device(device)
-    data_shard_count(config)
+    batch = _per_rank_batch(config)
     if config.steps_per_epoch and not max_steps_per_epoch:
         max_steps_per_epoch = config.steps_per_epoch
     train_ds = build_dataset(config, "train")
     val_ds = build_dataset(config, "val")
+    shard = dict(process_index=mesh.rank(), process_count=mesh.world_size())
     train_loader = FinetuneLoader(
-        train_ds, config.batch_size, config.sample_duration,
+        train_ds, batch, config.sample_duration,
         config.clip_stride, train=True, seed=config.manual_seed,
-        num_workers=config.n_workers)
+        num_workers=config.n_workers, **shard)
     # drop_last=False and a padded, masked tail batch: every val video
     # counts once
     val_loader = FinetuneLoader(
-        val_ds, config.batch_size, config.sample_duration,
+        val_ds, batch, config.sample_duration,
         config.clip_stride, train=False, seed=config.manual_seed,
-        num_workers=config.n_workers, drop_last=False)
+        num_workers=config.n_workers, drop_last=False, **shard)
     num_classes = config.n_finetune_classes or config.n_classes
     model, state, tx = create_finetune_state(
         config, num_classes, seed=config.manual_seed, device=dev)
@@ -435,7 +489,7 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
         # original run's --ft_begin_index
         if not config.resume_md_path:
             raise ValueError("finetune resume needs --resume_md_path")
-        tree, meta = ckpt_lib.restore_checkpoint(config.resume_md_path)
+        tree, meta = _restore_on_rank0(config.resume_md_path)
         if config.arch not in str(meta.get("arch", config.arch)):
             raise ValueError(f"checkpoint {config.resume_md_path} holds arch "
                              f"{meta.get('arch')!r}, the config asks for "
@@ -447,6 +501,7 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
         best = {"acc": float(meta.get("best_acc", -1.0)),
                 "path": config.resume_md_path, "epoch": ep}
         begin_epoch = int(meta.get("epoch", ep + 1))
+    mesh.replicate(model)
 
     step_fn = make_finetune_step(model, tx, config)
     eval_fn = make_eval_step(model, config)
@@ -454,10 +509,10 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
     stem = (f"{config.dataset}_clip{config.sample_duration}"
             f"model{config.model_name}{config.model_depth}.log")
     overlay = config.task != "resume"
-    train_logger = Logger(os.path.join(log_dir, "train_" + stem),
-                          ["epoch", "loss", "acc", "lr"], overlay=overlay)
-    val_logger = Logger(os.path.join(log_dir, "val_" + stem),
-                        ["epoch", "loss", "acc"], overlay=overlay)
+    train_logger = _epoch_logger(os.path.join(log_dir, "train_" + stem),
+                                 ["epoch", "loss", "acc", "lr"], overlay)
+    val_logger = _epoch_logger(os.path.join(log_dir, "val_" + stem),
+                               ["epoch", "loss", "acc"], overlay)
     tb = maybe_tb_writer(config.tb_dir, "finetune")
     gen = torch.Generator(device=dev).manual_seed(config.manual_seed + 23)
     history, timing = [], []
@@ -478,7 +533,8 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
                 state, metrics = step_fn(state, gen, batch, lr)
                 train_ms.append(metrics)
                 clock.batch_tick()
-                if config.log_every and (i + 1) % config.log_every == 0:
+                if (config.log_every and (i + 1) % config.log_every == 0
+                        and mesh.is_main()):
                     loss_m.update(float(metrics["loss"]))
                     acc_m.update(float(metrics["acc"]))
                     t = clock.timer
@@ -528,16 +584,17 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
         if preempted:
             # a resumable (not best) checkpoint; meta epoch = this epoch, so
             # --task resume redoes it. Partial val numbers are dropped.
-            ckpt_lib.save_checkpoint(
-                os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
-                ckpt_lib.state_tree(state),
-                meta={"arch": config.arch, "epoch": epoch,
-                      "plateau": plateau.state_dict(),
-                      "best_acc": best["acc"], "preempted": True})
-            print(f"Preempted at epoch {epoch} step {global_step}: "
-                  f"checkpoint saved; relaunch with --task resume "
-                  f"--resume_md_path .../{ckpt_lib.ckpt_name(epoch)} to "
-                  f"continue", flush=True)
+            if mesh.is_main():
+                ckpt_lib.save_checkpoint(
+                    os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
+                    ckpt_lib.state_tree(state),
+                    meta={"arch": config.arch, "epoch": epoch,
+                          "plateau": plateau.state_dict(),
+                          "best_acc": best["acc"], "preempted": True})
+                print(f"Preempted at epoch {epoch} step {global_step}: "
+                      f"checkpoint saved; relaunch with --task resume "
+                      f"--resume_md_path .../{ckpt_lib.ckpt_name(epoch)} to "
+                      f"continue", flush=True)
             break
         plateau.step(v_loss)
         train_logger.log({"epoch": epoch, "loss": t_loss, "acc": t_acc,
@@ -550,13 +607,15 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
                            prefix="val/")
             tb.flush()
         if v_acc > best["acc"]:  # keep only the best epoch's checkpoint
-            if best["path"]:
-                ckpt_lib.delete_checkpoint(best["path"])
             path = os.path.join(log_dir, ckpt_lib.ckpt_name(epoch, best=True))
-            ckpt_lib.save_checkpoint(
-                path, ckpt_lib.state_tree(state),
-                meta={"arch": config.arch, "epoch": epoch + 1,
-                      "plateau": plateau.state_dict(), "best_acc": v_acc})
+            if mesh.is_main():
+                if best["path"]:
+                    ckpt_lib.delete_checkpoint(best["path"])
+                ckpt_lib.save_checkpoint(
+                    path, ckpt_lib.state_tree(state),
+                    meta={"arch": config.arch, "epoch": epoch + 1,
+                          "plateau": plateau.state_dict(),
+                          "best_acc": v_acc})
             best = {"acc": v_acc, "path": path, "epoch": epoch}
         history.append({"epoch": epoch, "train_loss": t_loss,
                         "train_acc": t_acc, "val_loss": v_loss,
@@ -585,6 +644,7 @@ def _window_batch(dataset, i: int, config: Config, dev, max_windows: int = 0):
 def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
     """Video-level sliding-window test (the reference's ``test.py``): per
     video, the mean of its windows' logits -> top-1 / top-5."""
+    _single_process("run_test")
     dev = resolve_device(device)
     data_shard_count(config)
     dataset = build_dataset(config, "test")
@@ -667,6 +727,7 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
     Weights: ``--pretrained_path`` (a pretrain checkpoint or a reference
     ``.pth`` file, loaded by name), else ``--test_md_path``, else the one ``*_max`` finetune checkpoint of
     ``--t_ft_task`` (default ft_all)."""
+    _single_process("run_retrieval")
     dev = resolve_device(device)
     data_shard_count(config)
     num_classes = config.n_finetune_classes or config.n_classes

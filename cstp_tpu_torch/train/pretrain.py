@@ -16,10 +16,21 @@ the JAX package:
   running statistics advancing once per microbatch, in order); the
   gradients are summed, divided by the count, and take one update.
 
+With ``--ntxent_weight w`` the loss gains ``w`` times the NT-Xent of the
+two views' online projections, over the global batch (per microbatch under
+``--grad_accum``).
+
 PyTorch state is mutable: a step updates ``state`` (parameters, BN running
-statistics, optimizer state) in place and returns it with the metrics. The
-port runs as one process on one device; data-parallel meshes are not
-ported.
+statistics, optimizer state) in place and returns it with the metrics.
+
+Data parallelism (``parallel/mesh.py``): under a process group of N ranks,
+each holding its rows of the global batch, the augment draws the global
+batch's parameters and keeps its rows, the gradients are averaged once per
+optimizer step after the accumulation (the JAX step's accumulate-then-
+update order), and the metrics too; ``--sync_bn 1`` BatchNorms take
+global-batch statistics, and under ``--sync_bn 0`` the BN running
+statistics are averaged after the step. EMA, clip and update then see the
+same tensors on every rank.
 """
 
 from __future__ import annotations
@@ -35,7 +46,9 @@ from cstp_tpu_torch.augment.pipeline import (
     pretrain_augment_batch_fused,
 )
 from cstp_tpu_torch.config import Config
+from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.ssl.byol import CSTPPretrain, cross_entropy, ema_update
+from cstp_tpu_torch.ssl.ntxent import cross_replica_ntxent
 from cstp_tpu_torch.train import optim
 from cstp_tpu_torch.train.accum import accumulated_grads, microbatches
 
@@ -54,21 +67,24 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 
 def data_shard_count(config: Config) -> int:
-    """Size of the mesh 'data' axis, resolved against the port's single
-    device."""
-    shape = [1 if s == -1 else s for s in config.mesh_shape]
-    n = shape[list(config.mesh_axes).index("data")]
-    if n != 1:
-        raise NotImplementedError(
-            f"--mesh_shape {config.mesh_shape}: cstp_tpu_torch runs on one "
-            "device; data-parallel meshes are not ported")
-    return n
+    """Size of the mesh 'data' axis: the world size of the process group
+    (1 without one), which ``--mesh_shape`` must agree with; a 'model' axis
+    above 1 raises ``NotImplementedError`` (``parallel.create_mesh``)."""
+    return mesh.create_mesh(config.mesh_shape, config.mesh_axes).data
 
 
 def bn_groups_from_config(config: Config) -> int:
-    """--sync_bn 1 -> one group (global-batch statistics); --sync_bn 0 ->
-    one group per data shard."""
+    """BN groups of the global batch (per view): --sync_bn 1 -> one group
+    (global-batch statistics); --sync_bn 0 -> one group per data shard."""
     return 1 if config.sync_bn else data_shard_count(config)
+
+
+def local_bn_groups(config: Config) -> int:
+    """BN groups of one rank's rows (per view): always one. Under --sync_bn
+    0 JAX's group r of a ``data=N`` mesh is rank r's rows; under --sync_bn
+    1 the one global group spans every rank's rows, its moments averaged
+    over the ranks (``BatchNorm.cross_rank``)."""
+    return max(1, bn_groups_from_config(config) // data_shard_count(config))
 
 
 def effective_byol_momentum(config: Config) -> float:
@@ -89,12 +105,13 @@ def create_pretrain_model(config: Config, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = CSTPPretrain(config.model_name, config.model_depth,
-                         compute_dtype(config), bn_groups_from_config(config),
+                         compute_dtype(config), local_bn_groups(config),
                          int(config.fused_conv), gen,
                          concat_views=bool(config.concat_views),
                          remat=config.remat,
                          remat_policy=config.remat_policy,
                          shortcut=config.resnet_shortcut, alpha=config.alpha)
+    mesh.set_cross_rank_bn(model, bool(config.sync_bn))
     return model.to(dev)
 
 
@@ -123,9 +140,14 @@ def double_bias_lr(config: Config):
     return lambda params: None
 
 
-def _loss_and_metrics(model: CSTPPretrain, views_labels, w):
+def _loss_and_metrics(model: CSTPPretrain, views_labels, w,
+                      ntxent_weight: float = 0.0, temperature: float = 0.5):
     v1, v2, spa, tem, pb, rot1, rot2 = views_labels
-    byol, logits = model(v1, v2, train=True)
+    if ntxent_weight:
+        byol, logits, (emb1, emb2) = model(v1, v2, train=True,
+                                           with_proj=True)
+    else:
+        byol, logits = model(v1, v2, train=True)
     p_spa, p_tem, p_pb1, p_pb2, p_rot1, p_rot2 = logits
     l_spa = cross_entropy(p_spa, spa)
     l_tem = cross_entropy(p_tem, tem)
@@ -133,6 +155,9 @@ def _loss_and_metrics(model: CSTPPretrain, views_labels, w):
     l_rot1, l_rot2 = cross_entropy(p_rot1, rot1), cross_entropy(p_rot2, rot2)
     total = (w[0] * byol + w[1] * l_spa + w[2] * l_tem
              + w[3] * (l_pb1 + l_pb2) + w[4] * (l_rot1 + l_rot2))
+    if ntxent_weight:
+        total = total + ntxent_weight * cross_replica_ntxent(
+            emb1, emb2, temperature)
     with torch.no_grad():
         hits = [(p.argmax(-1) == y.long()).float()
                 for p, y in ((p_spa, spa), (p_tem, tem), (p_pb1, pb),
@@ -167,14 +192,15 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
     use_fused = config.pallas_augment == "on"
 
     def augment(gen, frames1, frames2, rot1, rot2):
+        shard = (mesh.rank(), mesh.world_size())
         if use_fused:
             return pretrain_augment_batch_fused(
                 gen, frames1, frames2, rot1, rot2,
                 sample_size=config.sample_size,
-                norm_method=config.norm_method, out_dtype=dtype)
+                norm_method=config.norm_method, out_dtype=dtype, shard=shard)
         v1, v2, spa = pretrain_augment_batch(
             gen, frames1, frames2, rot1, rot2, sample_size=config.sample_size,
-            norm_method=config.norm_method)
+            norm_method=config.norm_method, shard=shard)
         return v1.to(dtype), v2.to(dtype), spa
 
     accum = config.grad_accum
@@ -185,14 +211,29 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
         ema_update(m.target_net, m.online_net, momentum)
         params = optim.trainable(m)
         grads, metrics = accumulated_grads(
-            lambda mb: _loss_and_metrics(m, mb, w),
+            lambda mb: _loss_and_metrics(m, mb, w, config.ntxent_weight,
+                                         config.temperature),
             microbatches(views_labels, accum), params)
+        grads, metrics = all_reduce_step(m, grads, metrics, config)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
         optim.apply_lr(params, updates, lr, lr_mult(params))
         state.step += 1
         return state, metrics
 
     return augment, train
+
+
+def all_reduce_step(model, grads: Dict[str, torch.Tensor], metrics,
+                    config: Config):
+    """Under a process group: the gradients and metrics averaged over the
+    ranks (one flat all-reduce each), and under --sync_bn 0 the BN running
+    statistics too. ``(grads, metrics)``; the identity without a group."""
+    if not mesh.is_distributed():
+        return grads, metrics
+    mesh.all_reduce_mean_(grads.values())
+    if not config.sync_bn:
+        mesh.average_buffers_(model)
+    return grads, mesh.mean_metrics(metrics)
 
 
 def split_pretrain_step(model: CSTPPretrain, tx: optim.Optimizer,

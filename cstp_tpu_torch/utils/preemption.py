@@ -1,8 +1,16 @@
-"""Graceful preemption for one process: SIGTERM -> finish the current step,
-checkpoint, stop. The port of the JAX package's ``utils/preemption.py``
-single-process regime (a signal handler sets a flag that the train loop
-checks after every step); the multi-process agreement on a stop step
-belongs with distributed training, which the port does not have yet.
+"""Graceful preemption: SIGTERM -> finish the current step, checkpoint,
+stop. The port of the JAX package's ``utils/preemption.py``.
+
+Two regimes:
+
+* one process: a signal handler sets a flag that the train loop checks
+  after every step;
+* a process group: every rank must stop at the same step, or the others
+  wait forever in the next collective. Each check all-reduces the MAX of
+  the ranks' local flags over a gloo group on the CPU, so every rank sees
+  a stop at the same ``step_id`` (the counterpart of JAX's
+  ``reached_preemption_sync_point``) without waiting for the card. Rank 0
+  then writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -11,9 +19,14 @@ import signal
 import threading
 from typing import Iterable
 
+import torch
+import torch.distributed as dist
+
+from cstp_tpu_torch.parallel.mesh import is_distributed
+
 
 class PreemptionGuard:
-    """Install a SIGTERM flag.
+    """Install a SIGTERM flag; under a process group, agree on it.
 
     Usage::
 
@@ -22,6 +35,9 @@ class PreemptionGuard:
             if guard.requested(global_step):
                 save_checkpoint(...); break
         guard.close()
+
+    Every rank constructs its guard at the same point of the run (the gloo
+    group is created collectively) and calls ``requested`` once per step.
     """
 
     def __init__(self, enabled: bool = True,
@@ -29,6 +45,11 @@ class PreemptionGuard:
         self.enabled = bool(enabled)
         self._event = threading.Event()
         self._old = {}
+        self._group = None
+        self._multi = self.enabled and is_distributed() \
+            and dist.get_world_size() > 1
+        if self._multi and dist.get_backend() != "gloo":
+            self._group = dist.new_group(backend="gloo")
         if not self.enabled:
             return
         for sig in signals:
@@ -42,10 +63,16 @@ class PreemptionGuard:
         self._event.set()
 
     def requested(self, step_id: int) -> bool:
-        """True once a graceful stop should happen. ``step_id`` is the
-        global step counter (the agreement point of the multi-process
-        regime; unused by one process)."""
-        return self.enabled and self._event.is_set()
+        """True once a graceful stop should happen: this process's flag, or
+        under a process group any rank's (the same answer on every rank at
+        this ``step_id``, the global step counter)."""
+        if not self.enabled:
+            return False
+        if not self._multi:
+            return self._event.is_set()
+        flag = torch.tensor([int(self._event.is_set())], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+        return bool(flag.item())
 
     def close(self) -> None:
         """Restore any signal handlers this guard replaced."""

@@ -22,6 +22,8 @@ import struct
 import time
 from typing import Optional
 
+from cstp_tpu_torch.parallel.mesh import is_main
+
 # -- crc32c (Castagnoli, reflected poly 0x82F63B78), table-driven ------------
 
 _TABLE = []
@@ -125,8 +127,8 @@ class TBWriter:
 
 
 def maybe_tb_writer(tb_dir: str, sub: str = "") -> Optional[TBWriter]:
-    """Writer factory; '' disables (the default). The port runs as one
-    process, which writes."""
-    if not tb_dir:
+    """Writer factory; '' disables (the default). Under a process group
+    only rank 0 writes (the JAX package's process 0)."""
+    if not tb_dir or not is_main():
         return None
     return TBWriter(os.path.join(tb_dir, sub) if sub else tb_dir)

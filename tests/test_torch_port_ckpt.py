@@ -9,6 +9,7 @@ meters and the checkpoint-name helpers are held exactly.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,16 @@ from cstp_tpu_torch.train.pretrain import create_pretrain_state
 
 B, T, S = 4, 4, 32
 N_CLASSES = 5
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _kw(**over):
@@ -66,10 +77,12 @@ def pretrained(tmp_path_factory):
     cfg = Config(**_kw()).finalize()
     model, state, _ = create_pretrain_state(cfg, seed=1, device="cpu")
     load_jax_variables(model, params, stats)
-    path = str(tmp_path_factory.mktemp("ckpt") / ck.ckpt_name(7))
+    ckdir = tmp_path_factory.mktemp("ckpt")
+    path = str(ckdir / ck.ckpt_name(7))
     ck.save_checkpoint(path, ck.state_tree(state),
                        meta={"arch": cfg.arch, "epoch": 8})
-    return dict(params=params, stats=stats, state=state, path=path, cfg=cfg)
+    yield dict(params=params, stats=stats, state=state, path=path, cfg=cfg)
+    shutil.rmtree(ckdir, ignore_errors=True)
 
 
 def test_save_restore_round_trip(pretrained):

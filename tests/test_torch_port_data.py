@@ -11,6 +11,7 @@ parsers, the clip-pair sampler on a grid, the cosine schedule, the parsed
 
 import dataclasses
 import os
+import shutil
 import signal
 import warnings
 
@@ -46,6 +47,16 @@ HW = (24, 32)          # ingest size of the file-backed cases
 N_VIDEOS, N_FRAMES = 3, 7
 # frame indices to read: in order, reversed, repeated
 READS = [[0, 1, 2, 3], [6, 2, 2, 0], [5, 5, 5, 1]]
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _frames(seed, n=N_FRAMES, hw=(30, 40)):

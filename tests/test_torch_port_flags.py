@@ -40,6 +40,7 @@ bitwise.
 
 import copy
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -80,6 +81,16 @@ B, T, S = 4, 4, 32
 LR = 3e-4   # the Config default
 KEYS = ("view1", "view2", "spa", "tem", "pb", "rot1", "rot2")
 N_CLASSES = 5
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _np_tree(tree):

@@ -33,6 +33,7 @@ Tolerances (those of ``tests/test_torch_port_families.py``):
 """
 
 import contextlib
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -79,6 +80,16 @@ N_CLASSES = 7
 LR = 3e-4
 KEYS = ("view1", "view2", "spa", "tem", "pb", "rot1", "rot2")
 FAMILIES = {"s3d": "s3d_byol", "i3d": "i3d_byol"}
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _np_tree(tree):

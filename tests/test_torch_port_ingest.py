@@ -43,6 +43,16 @@ from cstp_tpu_torch.models.bridge import export_jax_variables
 NAMES = ["classA/v_00", "classA/v_01", "classB/v_02", "classB/v_03"]
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 def _frame_tree(root):
     rng = np.random.default_rng(0)
     for i, rel in enumerate(NAMES):

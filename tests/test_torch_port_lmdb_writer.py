@@ -11,6 +11,7 @@ the other's files.
 """
 
 import os
+import shutil
 
 import msgpack
 import numpy as np
@@ -18,6 +19,16 @@ import pytest
 
 from cstp_tpu.data import lmdb_store as jstore
 from cstp_tpu_torch.data import lmdb_store as pstore
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _bytes(rng, n):

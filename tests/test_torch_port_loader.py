@@ -12,6 +12,7 @@ error again.
 """
 
 import itertools
+import shutil
 import threading
 
 import numpy as np
@@ -65,7 +66,8 @@ def shards(tmp_path_factory):
                 w.add_video_raw(f"v{i}", label, frames)
         w.close()
     assert jnative.load_native_lib() is not None
-    return paths
+    yield paths
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _native(mod, path):

@@ -21,6 +21,7 @@ import csv
 import dataclasses
 import os
 import re
+import shutil
 
 import jax
 import numpy as np
@@ -49,6 +50,16 @@ T, S, N_CLASSES = 4, 32, 5
 # pb_rate 25: window span 76, so the synthetic videos (40-300 frames) give
 # 1-4 test windows each, one window bucket, one JAX program per step
 PB = 25
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _kw(tmp_path, **over):
@@ -96,7 +107,8 @@ def weights(tmp_path_factory):
     ppath = root / "port" / "UCF101" / "ft_all" / "save_1_max"
     ck.save_checkpoint(str(ppath), ck.state_tree(state),
                        meta={"arch": cfg.arch, "epoch": 2})
-    return dict(root=root, params=params, stats=stats)
+    yield dict(root=root, params=params, stats=stats)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _report_lines(path):

@@ -15,6 +15,7 @@ built without libjpeg serves raw shards bitwise and refuses JPEG shards.
 import ctypes
 import io
 import logging
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +31,16 @@ from cstp_tpu_torch.train.loops import build_dataset
 
 STORED = (48, 64)
 N_RAW, N_JPEG, N_FRAMES = 4, 2, 10
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _frames(seed, n=N_FRAMES, hw=STORED):
@@ -53,14 +64,16 @@ def _jpeg(frame, quality=95) -> bytes:
 @pytest.fixture(scope="module")
 def shard(tmp_path_factory):
     """Videos 0..3 raw at the stored size, 4..5 JPEG."""
-    path = str(tmp_path_factory.mktemp("pack") / "shard.cstp")
+    root = tmp_path_factory.mktemp("pack")
+    path = str(root / "shard.cstp")
     w = PackedWriter(path)
     for i in range(N_RAW):
         w.add_video_raw(f"raw{i}", i % 3, _frames(i))
     for i in range(N_RAW, N_RAW + N_JPEG):
         w.add_video(f"jpg{i}", i % 3, [_jpeg(f) for f in _frames(i)])
     w.close()
-    return path
+    yield path
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ Tolerances (those of ``tests/test_torch_port_inception.py``):
 """
 
 import contextlib
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -71,6 +72,16 @@ B, T, S, H0, W0 = 4, 8, 32, 40, 48
 N_CLASSES = 7
 LR = 3e-4
 KEYS = ("view1", "view2", "spa", "tem", "pb", "rot1", "rot2")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _np_tree(tree):

@@ -14,6 +14,7 @@ the right towers. Everything loaded is compared bitwise.
 """
 
 import os
+import shutil
 import struct
 
 import numpy as np
@@ -27,6 +28,16 @@ from cstp_tpu_torch.models import tf_checkpoint as tfc
 from cstp_tpu_torch.models.i3d_tf_import import load_tf_i3d, sonnet_name_map
 
 N_CLASSES = 5
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +104,8 @@ def saver_ckpt(tmp_path_factory, i3d):
         sess.run(tf.compat.v1.global_variables_initializer())
         path = tf.compat.v1.train.Saver().save(
             sess, str(tmp_path_factory.mktemp("tf") / "model.ckpt"))
-    return tf, path, tensors
+    yield tf, path, tensors
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
 
 
 def test_reader_returns_what_tensorflow_reads(saver_ckpt):
@@ -263,9 +275,11 @@ def test_strict_refuses_a_missing_scope(tmp_path, i3d):
 @pytest.fixture(scope="module")
 def written_ckpt(tmp_path_factory, i3d):
     tensors = sonnet_tensors(i3d, seed=2)
-    prefix = str(tmp_path_factory.mktemp("ckpt") / "rgb_imagenet.ckpt")
+    ckdir = tmp_path_factory.mktemp("ckpt")
+    prefix = str(ckdir / "rgb_imagenet.ckpt")
     chip_smoke.write_tf_checkpoint(prefix, tensors)
-    return prefix, tensors
+    yield prefix, tensors
+    shutil.rmtree(ckdir, ignore_errors=True)
 
 
 def _loop_argv(tmp_path, task, ckpt, **over):

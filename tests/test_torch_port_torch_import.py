@@ -15,6 +15,7 @@ convolution and reduction order); loaded weights bitwise equal.
 """
 
 import jax
+import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +44,16 @@ FAMILIES = {"r21d": ("r21d_byol", 1), "c3d": ("c3d_byol", 1),
             "r3d": ("r3d_byol", 18), "s3d": ("s3d_byol", 1),
             "i3d": ("i3d_byol", 1)}
 PORTED = ("r21d", "c3d", "r3d")
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's own directory, removed when the test ends, passed or
+    failed: its checkpoints, .pth files and CLI outputs are read back
+    inside the test, and left behind they would fill the disk over a
+    whole run of the suite."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _flat(tree):
@@ -109,7 +120,8 @@ def reference_files(tmp_path_factory):
         path = str(d / f"{fam}_{kind}.pth")
         jti.save_torch_checkpoint(path, tree, _arch(fam, kind), epoch=300)
         out[fam, kind] = (tree, path)
-    return out
+    yield out
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.mark.parametrize("fam, kind", TREE_CASES,
