@@ -153,10 +153,38 @@ Phases:
      cstp_tpu_torch.cli.main_byol`` (``python -m torch.distributed.run``)
      for one epoch of 3 steps with ``--ntxent_weight 0.5`` on the first 48
      videos of phase 12's CSTPack data, finite CSV rows.
+  19. quant_serve (``ops/quant.py``, ``serve/``; R(2+1)D depth 1, 16 x
+     112^2 from 128x171 frames, bf16, batch 64 unless named): (a) K6
+     (``csrc/int8_conv.cu``) against its float64 plain version at every
+     distinct conv shape of the int8_static eval forward (22 shapes, 24
+     sites: the Cin-3 stem, the strided downsamples) and at an I3D TF-SAME
+     stem (pads (2, 3)) and an I3D 1x1x1 site: int32 accumulators and bf16
+     outputs bitwise at batch 4, their hashes, then at batch 64 K6's ms,
+     its bound (int8 operations at 1,979 TOPS against the bytes at 3.35
+     TB/s), the plain version's ms and cuDNN's bf16 conv3d of the same
+     shape; at the 1x1x1 site ``torch._int_mm`` on the same s8 matrices
+     (equal int32 result, its ms); (b) ``serve.quantize`` on a float
+     finetune checkpoint written here, over 16 of phase 12's videos
+     (CSTPack), then ``main_test --quant int8_static`` on 8 test videos
+     (24 K6 launches a video), the int8 backbone output map's cosine to
+     the float model's, each channel centred (>= Q_BACKBONE_COS, and a
+     control with every act_scale at 0.05 below it), and the float
+     checkpoint refused by
+     ``check_int8_calibrated``; (c) ``serve.export`` of both checkpoints,
+     both artifacts loaded in one fresh process (this script with
+     ``--serve-check``) that predicts 3 and 8 windows and one video,
+     against the live logits step; (d) ``bench_step --mode eval`` and
+     ``--mode serve``, float and ``--quant int8_static``, at 64, and one
+     eval step of each under torch.profiler; (e) the
+     ``--quant int8`` pretrain step at per-view 16 (K5 on) against the
+     same step with the plain int8 conv in K6's place (loss terms equal,
+     update cosine >= 0.9999; 1 K5 and 48 K6 launches), then
+     ``--quant_scope target`` (24 K6).
 Then one JSON line describing the kernels (``launches`` null with
-``--kernels-only``; the slice phase's launches plus those of phase 16's
-K5 and ``--legacy_pace`` steps and of phase 18's main-path steps), the
-card's name and power limit, and a last JSON line
+``--kernels-only``, which runs phase 19 (a) too; the slice phase's
+launches plus those of phase 16's K5 and ``--legacy_pace`` steps, of
+phase 18's main-path steps and of phase 19's int8 test run and pretrain
+steps), the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Imports nothing of JAX.
 """
@@ -177,6 +205,7 @@ import torch
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
+PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core operations/s
 
 B_VIEW = 16             # per-view batch of the slice; the towers see 2b clips
 T, S, H0, W0 = 16, 112, 128, 171
@@ -760,7 +789,7 @@ def phase_slice(dev, card: str, steps: int = 3, profile: bool = True):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
     want = {"conv21d_stats": 10 * steps, "conv21d_fwd": 10 * steps,
             "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
-            "augment": steps}
+            "augment": steps, "int8_conv": 0}
     if counts != want:
         raise SystemExit(f"launch counts {counts}, expected {want}")
     if not bool(torch.isfinite(losses).all()) or moved <= 0.0:
@@ -1093,7 +1122,7 @@ def phase_finetune(dev, card: str, steps: int = 3):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
     want = {"conv21d_stats": FT_LAUNCHES * steps,
             "conv21d_fwd": FT_LAUNCHES * steps, "conv21d_taps9_stats": 0,
-            "conv21d_taps9_fwd": 0, "augment": 0}
+            "conv21d_taps9_fwd": 0, "augment": 0, "int8_conv": 0}
     if counts != want:
         raise SystemExit(f"finetune launch counts {counts}, expected {want}")
     if not bool(torch.isfinite(losses).all()) or moved <= 0.0:
@@ -1317,7 +1346,7 @@ def phase_grad_accum(dev, card: str, steps: int = 2):
         f" launches {counts}")
     want = {"conv21d_stats": 20 * steps, "conv21d_fwd": 20 * steps,
             "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
-            "augment": steps}
+            "augment": steps, "int8_conv": 0}
     if counts != want or not bool(torch.isfinite(losses).all()):
         raise SystemExit(f"grad-accum launch counts {counts} (expected "
                          f"{want}) or non-finite losses")
@@ -1748,9 +1777,9 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
 
 # ------------------------------------------------------------ step flags
 
-def _per_step(c2, c3, c5):
+def _per_step(c2, c3, c5, c6=0):
     return {"conv21d_stats": c2, "conv21d_fwd": c3, "conv21d_taps9_stats": 0,
-            "conv21d_taps9_fwd": 0, "augment": c5}
+            "conv21d_taps9_fwd": 0, "augment": c5, "int8_conv": c6}
 
 
 # phase 13's runs at per-view B_VIEW: name -> (config flags over the kernel
@@ -2912,9 +2941,7 @@ def _dp_two_ranks(one, world: int = 2):
     def cos(a, b):
         return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
 
-    kernel_want = {"conv21d_stats": 10, "conv21d_fwd": 10,
-                   "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
-                   "augment": 1}
+    kernel_want = _per_step(10, 10, 1)
     ok = True
     for name, run in one.items():
         got = [r[name] for r in ranks]
@@ -3031,8 +3058,7 @@ def phase_data_parallel(dev, card: str, slice_ms: float):
     loss_err = _loss_err(grouped, alone)
     cos = _cos(grouped, alone)
     diff = float((grouped["update"] - alone["update"]).abs().max())
-    want = {"conv21d_stats": 10, "conv21d_fwd": 10, "conv21d_taps9_stats": 0,
-            "conv21d_taps9_fwd": 0, "augment": 1}
+    want = _per_step(10, 10, 1)
     log(f"[dp] (a) world size 1 over {backend}, r21d depth 1, {T}x{S}^2 "
         f"bf16, per-view {B_VIEW}, fused_conv=1 pallas_augment=on "
         f"ntxent_weight=0.5, against the same step without a process group: "
@@ -3064,15 +3090,585 @@ def phase_data_parallel(dev, card: str, slice_ms: float):
     return counts
 
 
-def kernels_line(conv, aug_err, aug_t, counts):
+Q_EVAL_BS = 64          # the int8_static eval forward's batch (bench.py's)
+Q_CHECK_BS = 4          # K6 against its float64 plain version, bitwise
+# I3D sites beside R(2+1)D's (16 x 224^2 clips): (name, input (T, H, W,
+# Cin), Cout, kernel, stride, low pads, high pads)
+Q_I3D_SITES = [
+    ("i3d conv3d_1a_7x7 (TF-SAME pads (2, 3))", (16, 224, 224, 3), 64,
+     (7, 7, 7), (2, 2, 2), (2, 2, 2), (3, 3, 3)),
+    ("i3d mixed_3b branch_0 (1x1x1)", (8, 28, 28, 192), 64, (1, 1, 1),
+     (1, 1, 1), (0, 0, 0), (0, 0, 0)),
+]
+Q_CALIB_VIDEOS = 16     # train videos the calibration draws from
+Q_TEST_VIDEOS = 8       # test videos of the int8_static main_test run
+Q_SERVE_BATCHES = (3, 8)  # the served program's window batches
+# the int8_static backbone output map's cosine to the float model's, each
+# channel centred (the post-ReLU maps share a large per-channel mean, so
+# their plain cosine is near 1 whatever the path; pooled over 98 positions
+# the windows of these videos barely differ). It read 0.988 on an H100
+# 80GB HBM3 at 700 W, and 0.000 with every act_scale at 0.05.
+Q_BACKBONE_COS = 0.95
+
+
+def _quant_config(quant: str = "", **over):
+    """The int8 phase's eval config: R(2+1)D depth 1, 16 x 112^2, bf16,
+    101 classes, no fused sites (``--fused_conv`` and ``--quant`` are
+    exclusive)."""
+    return _ft_config(fused=0, task="test", quant=quant, **over)
+
+
+def _int8_sites(dev):
+    """The distinct conv shapes of the int8_static R(2+1)D eval forward, in
+    order: {(input (T, H, W, Cin), Cout, kernel, stride, lo, hi): [site
+    names]}, from forward pre-hooks on one clip (24 K6 launches)."""
+    from cstp_tpu_torch.models.layers import Conv3d
+    from cstp_tpu_torch.perf.bench_step import fill_act_scales
+    from cstp_tpu_torch.train.finetune import create_classify_model
+
+    model = create_classify_model(_quant_config("int8_static"), N_FT_CLASSES,
+                                  device=dev)
+    fill_act_scales(model)
+    sites = {}
+
+    def hook(name):
+        def record(m, args):
+            lo = tuple(p[0] for p in m.pad_pairs)
+            hi = tuple(p[1] for p in m.pad_pairs)
+            key = (tuple(args[0].shape[1:]), m.weight.shape[0], m.kernel,
+                   m.stride, lo, hi)
+            sites.setdefault(key, []).append(name)
+        return record
+
+    handles = [m.register_forward_pre_hook(hook(n))
+               for n, m in model.named_modules() if isinstance(m, Conv3d)]
+    with torch.no_grad():
+        model(torch.zeros((1, T, S, S, 3), device=dev, dtype=torch.bfloat16),
+              train=False)
+    for h in handles:
+        h.remove()
+    del model
+    return sites
+
+
+def _read_extent(n_in: int, n_out: int, k: int, s: int, lo: int) -> int:
+    """The input positions along one axis that a conv's taps read: the
+    union of the ``n_out`` output positions' windows, inside the input (a
+    strided 1x1x1 conv reads every ``s``-th position only)."""
+    return len({o * s + j - lo for o in range(n_out) for j in range(k)}
+               & set(range(n_in)))
+
+
+def _k6_site(dev, gen, key):
+    """K6 at one conv shape: int32 accumulators and bf16 outputs against
+    the plain version at batch Q_CHECK_BS (bitwise), their hash, then at
+    batch Q_EVAL_BS K6's ms, the plain version's, cuDNN's bf16 conv3d of
+    the same shape (another precision: the float path int8 replaces) and
+    the bound (int8 operations at 1,979 TOPS against the bytes at 3.35
+    TB/s: the input positions the taps read, the weights, the scales and
+    the bf16 output)."""
+    import hashlib
+
+    import torch.nn.functional as F
+
+    from cstp_tpu_torch.ops import quant as Q
+
+    (t, h, w, cin), cout, k, stride, lo, hi = key
+    args = (list(stride), list(lo), list(hi))
+    xq = torch.randint(-127, 128, (Q_EVAL_BS, t, h, w, cin), generator=gen,
+                       device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin, *k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-5
+    xs = xq[:Q_CHECK_BS].contiguous()
+    acc = Q.int8_conv3d_cuda(xs, wq, scale, *args, torch.int32)
+    out = Q.int8_conv3d_cuda(xs, wq, scale, *args, torch.bfloat16)
+    acc_p = Q.int8_conv3d_plain(xs, wq, scale, *args, torch.int32)
+    out_p = Q.int8_conv3d_plain(xs, wq, scale, *args, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((out.float() - out_p.float()).abs().max())
+    bitwise = torch.equal(acc, acc_p) and torch.equal(out, out_p)
+    digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()
+                            ).hexdigest()[:16]
+    del acc, out, acc_p, out_p, xs
+    ms = time_ms(lambda: Q.int8_conv3d_cuda(xq, wq, scale, *args,
+                                            torch.bfloat16))
+    plain_ms = time_ms(lambda: Q.int8_conv3d_plain(xq, wq, scale, *args,
+                                                   torch.bfloat16),
+                       iters=1, warmup=1)
+    xb = torch.randn((Q_EVAL_BS, t, h, w, cin), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    if lo != hi:
+        xb = F.pad(xb, (0, 0, lo[2], hi[2], lo[1], hi[1], lo[0], hi[0]))
+    wb = torch.randn((cout, cin, *k), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    pad = (0, 0, 0) if lo != hi else lo
+    cudnn_ms = time_ms(lambda: F.conv3d(xb.permute(0, 4, 1, 2, 3), wb,
+                                        stride=stride, padding=pad))
+    shape = Q.out_shape(xq.shape, wq.shape, stride, lo, hi)
+    m = shape[0] * shape[1] * shape[2] * shape[3]
+    ops = 2.0 * m * cout * cin * k[0] * k[1] * k[2]
+    read = Q_EVAL_BS * cin * math.prod(
+        _read_extent(*a) for a in zip((t, h, w), shape[1:4], k, stride, lo))
+    nbytes = read + wq.numel() + 2 * m * cout + 4 * cout
+    bound, by = bound_ms(ops, nbytes, PEAK_INT8)
+    r = dict(ms=ms, plain_ms=plain_ms, cudnn_ms=cudnn_ms, bound=bound, by=by,
+             err=err, bitwise=bitwise, hash=digest, tops=ops / ms / 1e9)
+    if k == (1, 1, 1) and stride == (1, 1, 1):
+        # the same s8 product through PyTorch's int8 matmul (cuBLAS): the
+        # library call of the same function, timed only
+        a = xq.reshape(-1, cin)
+        b = wq.reshape(cout, cin).t()
+        got = torch._int_mm(a, b)
+        k6 = Q.int8_conv3d_cuda(xq, wq, scale, *args, torch.int32)
+        r["int_mm_equal"] = torch.equal(got, k6.reshape(-1, cout))
+        r["library_ms"] = time_ms(lambda: torch._int_mm(a, b))
+        del got, k6
+    del xq, wq, xb, wb
+    torch.cuda.empty_cache()
+    return r
+
+
+def _k6_sites(dev):
+    """Phase 19 (a): K6 at every distinct conv shape of the int8_static
+    eval forward and at the two I3D sites; returns (the per-step sums over
+    the eval forward's 24 launches, the I3D 1x1x1 site's record)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sites = _int8_sites(dev)
+    total = dict(ms=0.0, plain_ms=0.0, cudnn_ms=0.0, bound=0.0, launches=0)
+    ok = True
+    for key, names in sites.items():
+        r = _k6_site(dev, gen, key)
+        n = len(names)
+        for f in ("ms", "plain_ms", "cudnn_ms", "bound"):
+            total[f] += n * r[f]
+        total["launches"] += n
+        ok &= r["bitwise"]
+        (t, h, w, cin), cout, k, stride, lo, hi = key
+        log(f"[quant] K6 {names[0]}{f' (+{n - 1})' if n > 1 else ''}: x "
+            f"({Q_EVAL_BS}, {t}, {h}, {w}, {cin}) -> {cout}, kernel {k}, "
+            f"stride {stride}, pads {lo}/{hi}: int32 and bf16 vs plain at "
+            f"batch {Q_CHECK_BS} {'bitwise' if r['bitwise'] else 'DIFFER'} "
+            f"(hash {r['hash']}); at batch {Q_EVAL_BS}: K6 {r['ms']:.3f} ms "
+            f"({r['tops']:.1f} TOPS), bound {r['bound']:.3f} ms "
+            f"({r['by']}), plain (float64) {r['plain_ms']:.1f} ms, cuDNN bf16 "
+            f"conv3d {r['cudnn_ms']:.3f} ms (another precision)")
+    i3d = None
+    for name, shape, cout, k, stride, lo, hi in Q_I3D_SITES:
+        r = _k6_site(dev, gen, (shape, cout, k, stride, lo, hi))
+        ok &= r["bitwise"] and r.get("int_mm_equal", True)
+        extra = ""
+        if "library_ms" in r:
+            i3d = r
+            extra = (f"; torch._int_mm on the same s8 matrices "
+                     f"{r['library_ms']:.3f} ms, its int32 result "
+                     f"{'equal' if r['int_mm_equal'] else 'DIFFERENT'}")
+        log(f"[quant] K6 {name}: x ({Q_EVAL_BS}, {', '.join(map(str, shape))})"
+            f" -> {cout}, kernel {k}, stride {stride}, pads {lo}/{hi}: vs "
+            f"plain {'bitwise' if r['bitwise'] else 'DIFFER'} (hash "
+            f"{r['hash']}); K6 {r['ms']:.3f} ms ({r['tops']:.1f} TOPS), "
+            f"bound {r['bound']:.3f} ms ({r['by']}), plain {r['plain_ms']:.1f}"
+            f" ms, cuDNN bf16 {r['cudnn_ms']:.3f} ms{extra}")
+    log(f"[quant] K6 per int8_static eval forward at batch {Q_EVAL_BS} "
+        f"({total['launches']} launches, {len(sites)} shapes): K6 "
+        f"{total['ms']:.2f} ms, bound {total['bound']:.2f} ms, plain "
+        f"(float64) {total['plain_ms']:.1f} ms, cuDNN bf16 convs "
+        f"{total['cudnn_ms']:.2f} ms")
+    if not ok or i3d is None or total["launches"] != 24:
+        raise SystemExit("[quant] K6 differs from its plain version (or "
+                         "_int_mm from K6), or the eval forward did not "
+                         "have 24 int8 sites")
+    return total, i3d
+
+
+def _float_ft_checkpoint(dev, path: str):
+    """A float finetune checkpoint of the phase's model: 2 finetune steps
+    (bf16, batch B_FT) from seed 0, so the BN running statistics are off
+    their init."""
+    from cstp_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from cstp_tpu_torch.train import finetune as ft
+
+    cfg = _ft_config(fused=0)
+    model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                                device=dev)
+    step = ft.make_finetune_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for i in range(2):
+        state, _ = step(state, gen, _ft_batch(dev, seed=30 + i), 0.01)
+    ckpt_lib.save_checkpoint(path, ckpt_lib.state_tree(state),
+                             meta={"arch": cfg.arch, "epoch": 2})
+    del model, state, tx, step
+    torch.cuda.empty_cache()
+
+
+def _test_windows(test_path: str, n_videos: int):
+    """The sliding windows of the first ``n_videos`` test videos (numpy)."""
+    import numpy as np
+
+    from cstp_tpu_torch.data.packed import PackedDataset
+    from cstp_tpu_torch.train.finetune import sliding_window_indices
+
+    ds = PackedDataset(test_path)
+    out = []
+    for i in range(n_videos):
+        nframes, _ = ds.video_meta(i)
+        for idx in sliding_window_indices(nframes, T, 1):
+            out.append(ds.read_frames(i, idx))
+    video = ds.read_frames(0, range(ds.video_meta(0)[0]))
+    return np.stack(out), video
+
+
+def _live_logits(dev, quant: str, ckpt: str, windows, backbone=False,
+                 fill=None):
+    """``make_logits_step`` of the model restored from ``ckpt`` (by name,
+    as run_test restores) on ``windows``, with ``backbone`` also the
+    backbone's output map before its pooling (``online_net.conv5``'s, N x
+    2 x 7 x 7 x 512); float32 on the host. ``fill``: every ``act_scale``
+    set to this value after the restore."""
+    from cstp_tpu_torch.perf.bench_step import fill_act_scales
+    from cstp_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from cstp_tpu_torch.train import finetune as ft
+
+    cfg = _quant_config(quant)
+    model, state, _ = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                               device=dev)
+    tree, _ = ckpt_lib.restore_checkpoint(ckpt)
+    ckpt_lib.load_model_by_name(model, tree)
+    if fill is not None:
+        fill_act_scales(model, fill)
+    x = torch.from_numpy(windows).to(dev)
+    seen = []
+    hook = model.online_net.conv5.register_forward_hook(
+        lambda m, args, y: seen.append(y.float().cpu()))
+    out = ft.make_logits_step(model, cfg)(state, x).float().cpu()
+    hook.remove()
+    del model, state
+    return (out, seen[0]) if backbone else out
+
+
+def serve_check(data: str, out: str, *arts: str) -> None:
+    """Phase 19 (c) in a fresh process: for each artifact,
+    ``ServingModel.load`` on the card, ``predict`` at each of
+    Q_SERVE_BATCHES windows and ``predict_video`` on one video; writes the
+    logits, the prediction, the load seconds and K6's launches to
+    ``out.<i>.npz``."""
+    import numpy as np
+
+    from cstp_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cstp_tpu_torch.serve import ServingModel
+
+    arrays = np.load(data)
+    for i, art in enumerate(arts):
+        t0 = time.perf_counter()
+        served = ServingModel.load(art)
+        load_s = time.perf_counter() - t0
+        reset_launch_counts()
+        logits = [served.predict(arrays["windows"][:n])
+                  for n in Q_SERVE_BATCHES]
+        video = served.predict_video(arrays["video"], topk=5)
+        torch.cuda.synchronize()
+        np.savez(f"{out}.{i}.npz",
+                 **{f"logits{n}": v for n, v in zip(Q_SERVE_BATCHES, logits)},
+                 mean_logits=video["mean_logits"], top1=video["top1"],
+                 n_windows=video["n_windows"], load_s=load_s,
+                 k6=launch_counts()["int8_conv"], device=served.device.type)
+
+
+def _serve_in_subprocess(data: str, out: str, arts):
+    """``serve_check`` in a fresh process (this script with
+    ``--serve-check``): ``([result per artifact], seconds)``."""
+    import os
+
+    import numpy as np
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, __file__, "--serve-check", data,
+                           out, *arts], env=env, capture_output=True,
+                          text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        for line in (done.stdout + done.stderr).splitlines()[-20:]:
+            log(f"[quant]   serve-check: {line}")
+        raise SystemExit(f"[quant] the serving subprocess exited "
+                         f"{done.returncode}")
+    return [dict(np.load(f"{out}.{i}.npz")) for i in range(len(arts))], \
+        seconds
+
+
+def _quant_cli(dev, root: str, counts):
+    """Phase 19 (b) and (c): calibration, the int8_static test run, the
+    refused uncalibrated run, the two exports and the fresh-process
+    serving check. Adds the main-path launches to ``counts``."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from cstp_tpu_torch.cli import main_test
+    from cstp_tpu_torch.serve import export as serve_export
+    from cstp_tpu_torch.serve import quantize as serve_quantize
+    from cstp_tpu_torch.train.finetune import sliding_window_indices
+
+    train = os.path.join(root, "train.cstp")
+    test = os.path.join(root, "test.cstp")
+    first_test = CLI_TRAIN + CLI_EVAL     # phase 12's test videos
+    with ThreadPoolExecutor(8) as pool:
+        _pack_videos(train, _cli_videos(), range(Q_CALIB_VIDEOS), pool)
+        _pack_videos(test, _cli_videos(),
+                     range(first_test, first_test + Q_TEST_VIDEOS), pool)
+    float_ckpt = os.path.join(root, "save_2_max")
+    calib = os.path.join(root, "save_2_int8")
+    _float_ft_checkpoint(dev, float_ckpt)
+    common = ["--model_name", "r21d", "--model_depth", "1",
+              "--sample_duration", str(T), "--sample_size", str(S),
+              "--compute_dtype", "bfloat16", "--n_classes",
+              str(N_FT_CLASSES), "--n_finetune_classes", str(N_FT_CLASSES),
+              "--data_backend", "packed", "--lmdb_path", train,
+              "--dataset", "UCF101", "--n_workers", "6", "--result_path",
+              os.path.join(root, "results"), "--task", "test"]
+
+    t0 = time.perf_counter()
+    _, text = _cli_run(serve_quantize.main, common + [
+        "--out_path", calib, "--test_md_path", float_ckpt,
+        "--calib_batches", "2", "--calib_batch_size", "8"], {}, 1)
+    calib_s = time.perf_counter() - t0
+    if not text.startswith("calibrated 24 conv sites over 16 clips"):
+        raise SystemExit("[quant] serve.quantize did not calibrate 24 sites")
+    log(f"[quant] (b) serve.quantize: {text.splitlines()[0]} "
+        f"({calib_s:.1f} s)")
+
+    t0 = time.perf_counter()
+    out, text = _cli_run(main_test.main, common + [
+        "--quant", "int8_static", "--test_md_path", calib],
+        {"int8_conv": 24}, Q_TEST_VIDEOS)
+    counts["int8_conv"] += 24 * Q_TEST_VIDEOS
+    log(f"[quant] (b) main_test --quant int8_static on {out['n_videos']} "
+        f"videos: accuracy {out['accuracy']:.4f}, {24} K6 launches per "
+        f"video, {time.perf_counter() - t0:.1f} s")
+    windows, video = _test_windows(test, 2)
+    live, maps = {}, {}
+    for q, ck in (("", float_ckpt), ("int8_static", calib)):
+        live[q], maps[q] = _live_logits(dev, q, ck, windows, backbone=True)
+    # a wrong int8 path for the gate to tell apart: the calibrated model
+    # with every scale at bench_step's fill (0.05, far above the measured
+    # ones)
+    maps["control"] = _live_logits(dev, "int8_static", calib, windows,
+                                   backbone=True, fill=0.05)[1]
+
+    def cosine(d, q="int8_static", centre=False):
+        a, b = d[""], d[q]
+        if centre:   # each channel's deviation from its mean
+            a = a - a.flatten(0, -2).mean(0)
+            b = b - b.flatten(0, -2).mean(0)
+        return float(torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0))
+
+    cos = cosine(maps, centre=True)
+    cos_control = cosine(maps, "control", centre=True)
+    log(f"[quant] (b) int8_static vs float on {len(windows)} windows of 2 "
+        f"test videos: logits cosine {cosine(live):.5f}, max |diff| "
+        f"{float((live[''] - live['int8_static']).abs().max()):.4f} (float "
+        f"logits up to {float(live[''].abs().max()):.4f}, the head's "
+        f"bias); backbone output map cosine {cosine(maps):.5f}, each "
+        f"channel centred {cos:.5f} (tol {Q_BACKBONE_COS}); the control "
+        f"(every act_scale 0.05): {cosine(maps, 'control'):.5f}, centred "
+        f"{cos_control:.5f} (must be below the tol)")
+    try:
+        _cli_run(main_test.main, common + [
+            "--quant", "int8_static", "--test_md_path", float_ckpt])
+    except ValueError as e:
+        if "uncalibrated" not in str(e):
+            raise
+        log(f"[quant] (b) main_test --quant int8_static on the float "
+            f"checkpoint refused: {str(e).splitlines()[0]}")
+    else:
+        raise SystemExit("[quant] an uncalibrated int8_static test ran")
+    if not cos >= Q_BACKBONE_COS > cos_control:
+        raise SystemExit("[quant] int8_static backbone output far from the "
+                         "float model's, or the wrong-scale control near it")
+
+    data = os.path.join(root, "windows.npz")
+    np.savez(data, windows=windows[:max(Q_SERVE_BATCHES)], video=video)
+    runs = (("", float_ckpt), ("int8_static", calib))
+    arts, export_s = [], []
+    for quant, ckpt in runs:
+        arts.append(os.path.join(root, f"model{quant}.cstps"))
+        t0 = time.perf_counter()
+        _cli_run(serve_export.main, [
+            "--ckpt", ckpt, "--out", arts[-1], "--model_name", "r21d",
+            "--model_depth", "1", "--num_classes", str(N_FT_CLASSES),
+            "--sample_size", str(S), "--sample_duration", str(T),
+            "--input_hw", *map(str, windows.shape[2:4]), "--compute_dtype",
+            "bfloat16", "--quant", quant], {}, 1)
+        export_s.append(time.perf_counter() - t0)
+    served, seconds = _serve_in_subprocess(
+        data, os.path.join(root, "served"), arts)
+    log(f"[quant] (c) both artifacts served by one fresh process: "
+        f"{seconds:.1f} s with its start")
+    for (quant, ckpt), art, ex_s, got in zip(runs, arts, export_s, served):
+        ref = live[quant]
+        diffs = [float((torch.from_numpy(got[f"logits{n}"]) - ref[:n]
+                        ).abs().max()) for n in Q_SERVE_BATCHES]
+        live_top1 = int(_live_logits(
+            dev, quant, ckpt, video[sliding_window_indices(len(video), T, 1)]
+        ).mean(0).argmax())
+        scale = float(ref.abs().max())
+        log(f"[quant] (c) serve.export {quant or 'float'}: "
+            f"{os.path.getsize(art) / 1e6:.1f} MB in {ex_s:.1f} s; the "
+            f"fresh process (load {float(got['load_s']):.1f} s, on "
+            f"{got['device']}) predicts {list(Q_SERVE_BATCHES)} "
+            f"windows: max |diff| to the live logits step "
+            f"{', '.join(f'{d:.3e}' for d in diffs)} (logits up to "
+            f"{scale:.3f}); predict_video top-1 {int(got['top1'])} over "
+            f"{int(got['n_windows'])} windows, live {live_top1}; K6 launches "
+            f"{int(got['k6'])}")
+        want_k6 = (24 * (len(Q_SERVE_BATCHES) + 1)) if quant else 0
+        if (max(diffs) > 1e-2 * max(scale, 1e-3)
+                or int(got["top1"]) != live_top1
+                or int(got["k6"]) != want_k6):
+            raise SystemExit("[quant] the served program differs from the "
+                             "live logits step")
+
+
+def _quant_bench(dev):
+    """Phase 19 (d): bench_step --mode eval and serve, float and
+    --quant int8_static, at per-chip batch Q_EVAL_BS, 2 steps after 1."""
+    from cstp_tpu_torch.perf import bench_step
+
+    out = {}
+    for mode in ("eval", "serve"):
+        for quant in ("", "int8_static"):
+            r = bench_step.main(["--mode", mode, "--quant", quant,
+                                 "--per-chip-bs", str(Q_EVAL_BS),
+                                 "--steps", "2", "--warmup", "1"])
+            k6 = r["launches_per_step"]["int8_conv"]
+            extra = (f", artifact {r['artifact_mb']:.1f} MB exported in "
+                     f"{r['export_s']:.1f} s" if mode == "serve" else "")
+            log(f"[quant] (d) bench_step --mode {mode} "
+                f"{'--quant int8_static ' if quant else ''}at {Q_EVAL_BS}: "
+                f"{r['step_ms']:.2f} ms/step, {r['clips_per_s']:.1f} clips/s, "
+                f"peak {r['peak_mem_gib']:.2f} GiB, K6 launches per step "
+                f"{k6:g}{extra}")
+            if k6 != (24 if quant else 0) or not math.isfinite(r["loss"]):
+                raise SystemExit(f"[quant] bench_step {mode} {quant}: K6 "
+                                 f"{k6} per step or a non-finite loss")
+            out[(mode, quant)] = r
+            torch.cuda.empty_cache()
+    return out
+
+
+def _quant_profile(dev):
+    """Phase 19 (d): one eval step at batch B_FT under torch.profiler,
+    float and int8_static (act scales 0.05): the device's busy share, its
+    time by kernel and K6's share, beside the float step's convolutions."""
+    from cstp_tpu_torch.perf.bench_step import fill_act_scales
+    from cstp_tpu_torch.train import finetune as ft
+
+    batch = _ft_batch(dev, seed=19)
+    for quant in ("", "int8_static"):
+        cfg = _quant_config(quant)
+        model, state, _ = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                                   device=dev)
+        fill_act_scales(model)
+        step = ft.make_eval_step(model, cfg)
+        step(state, batch)                                    # warm-up
+        log(f"[quant] (d) one eval step at {B_FT}, {quant or 'float'}, "
+            "under torch.profiler:")
+        prof = profile_step(lambda: step(state, batch), top=8)
+        if prof:
+            k6 = sum(v for k, v in prof["ms_by_kernel"].items()
+                     if "int8_conv_kernel" in k)
+            log(f"[quant] (d) {quant or 'float'}: K6 {k6:.2f} ms of "
+                f"{prof['busy_ms']:.2f} ms busy")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
+def _quant_pretrain(dev, card: str, slice_ms: float, counts):
+    """Phase 19 (e): the --quant int8 pretrain step at per-view B_VIEW
+    (fused_conv 0, K5 on) with K6 against the same step with the plain
+    int8 conv (float64) in its place: loss terms equal, update cosine >=
+    0.9999; then --quant_scope target."""
+    from cstp_tpu_torch.ops import quant as Q
+
+    batch = _slice_batch(dev, seed=4)
+    cfg = _slice_config(False, quant="int8", pallas_augment="on")
+    k6 = _one_step_run(dev, cfg, batch)
+    real = Q.int8_conv3d_cuda
+    Q.int8_conv3d_cuda = Q.int8_conv3d_plain
+    try:
+        plain = _one_step_run(dev, cfg, batch, timed_steps=1)
+    finally:
+        Q.int8_conv3d_cuda = real
+    target = _one_step_run(dev, _slice_config(
+        False, quant="int8", quant_scope="target", pallas_augment="on"),
+        batch)
+    same = all(k6["metrics"][k] == plain["metrics"][k]
+               for k in k6["metrics"] if k.startswith("loss"))
+    cos = _cos(k6, plain)
+    log(f"[quant] (e) --quant int8 pretrain step, per-view {B_VIEW}, "
+        f"fused_conv 0, K5 on: K6 vs the plain int8 conv: loss terms "
+        f"{'equal' if same else 'DIFFER'} (loss {k6['metrics']['loss']:.5f}"
+        f" vs {plain['metrics']['loss']:.5f}), update cosine {cos:.6f} (tol "
+        f"0.9999); step ms: K6 {k6['ms']:.1f}, plain int8 conv "
+        f"{plain['ms']:.1f}, phase 3's kernel step {slice_ms:.1f} ({card}); "
+        f"launches {k6['counts']}")
+    log(f"[quant] (e) --quant_scope target: loss "
+        f"{target['metrics']['loss']:.5f}, {target['ms']:.1f} ms/step, "
+        f"launches {target['counts']}")
+    if (not same or cos < 0.9999 or k6["counts"] != _per_step(0, 0, 1, 48)
+            or plain["counts"] != _per_step(0, 0, 1, 0)
+            or target["counts"] != _per_step(0, 0, 1, 24)):
+        raise SystemExit("[quant] the int8 pretrain step with K6 differs "
+                         "from the plain int8 conv's, or launched other "
+                         "than 1 K5 and 48 (24 for scope target) K6")
+    for run in (k6, target):
+        for k, v in run["counts"].items():
+            counts[k] += v
+    return dict(k6_ms=k6["ms"], plain_ms=plain["ms"], target_ms=target["ms"])
+
+
+def phase_quant_serve(dev, card: str, slice_ms: float):
+    """Phase 19: int8 quantization and serving (R(2+1)D depth 1, 16 x
+    112^2 from 128x171 frames, bf16): (a) K6 at every conv shape of the
+    int8_static eval forward and two I3D sites; (b) serve.quantize ->
+    main_test --quant int8_static, and the uncalibrated run refused; (c)
+    serve.export of the float and calibrated checkpoints served from a
+    fresh process; (d) bench_step eval and serve, float and int8_static;
+    (e) the --quant int8 pretrain step. Returns the K6 record for the
+    kernels line and the main-path launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in _per_step(0, 0, 0)}
+    total, i3d = _k6_sites(dev)
+    with tempfile.TemporaryDirectory(prefix="cstp_quant_") as root:
+        _quant_cli(dev, root, counts)
+    torch.cuda.empty_cache()
+    bench = _quant_bench(dev)
+    _quant_profile(dev)
+    _quant_pretrain(dev, card, slice_ms, counts)
+    log(f"[quant] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(total=total, i3d=i3d, bench=bench), counts
+
+
+def kernels_line(conv, aug_err, aug_t, counts, k6):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
     launch, with launches from the slice phase plus phase 16's main-path
     runs (K5 in the two SlowFast pretrain steps, K2/K3 in the
-    ``--legacy_pace`` finetune step) and phase 18's (the world-1 step and
-    each gloo rank's kernel step); K4a/K4b are one launch at the
-    benchmark's default shape, with launches from its taps9 run.
-    ``counts`` is None when no step ran."""
+    ``--legacy_pace`` finetune step), phase 18's (the world-1 step and
+    each gloo rank's kernel step) and phase 19's (K6 in the int8_static
+    test run and the --quant int8 pretrain steps, K5 in those steps);
+    K4a/K4b are one launch at the benchmark's default shape, with launches
+    from its taps9 run; K6's numbers are one launch at the I3D 1x1x1 site
+    at batch Q_EVAL_BS, where ``torch._int_mm`` computes the same product
+    (``library_ms``), while its launches are R(2+1)D's, which has no
+    stride-1 1x1x1 conv: that path's own per-shape times are phase 19
+    (a)'s lines. ``counts`` is None when no step ran."""
     pallas = "cstp_tpu/ops/pallas"
     rows = [
         ("conv21d_stats", "cstp_tpu_torch/csrc/conv21d.cu",
@@ -3085,13 +3681,16 @@ def kernels_line(conv, aug_err, aug_t, counts):
          f"{pallas}/conv21d.py:238", conv["fwd_taps9"]),
         ("augment", "cstp_tpu_torch/csrc/augment.cu",
          f"{pallas}/augment.py:244", dict(aug_t, err=aug_err)),
+        # no Pallas call: the int8 lax.conv_general_dilated of --quant
+        ("int8_conv", "cstp_tpu_torch/csrc/int8_conv.cu",
+         "cstp_tpu/ops/quant.py:53", k6),
     ]
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": None if counts is None else counts[name],
          "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
-         "bound_by": r["by"], "library_ms": None}
+         "bound_by": r["by"], "library_ms": r.get("library_ms")}
         for name, src, rep, r in rows]}
 
 
@@ -3102,10 +3701,15 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-rank", nargs=4, metavar=("RANK", "WORLD", "PORT",
                                                     "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--serve-check", nargs="+",
+                    metavar="DATA OUT ART", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_rank:    # one rank of phase 18 (b), started by that phase
         r, w, port, out = args.dp_rank
         dp_rank(int(r), int(w), int(port), out)
+        return 0
+    if args.serve_check:    # phase 19 (c)'s fresh serving process
+        serve_check(*args.serve_check)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3135,7 +3739,9 @@ def main(argv=None) -> int:
     aug_err, aug_t = phase_augment(dev)
     phase_hashes(dev)
     counts = None
-    if not args.kernels_only:
+    if args.kernels_only:
+        k6 = _k6_sites(dev)[1]
+    else:
         sl = phase_slice(dev, card)
         counts = dict(sl["counts"])
         phase_parity(dev)
@@ -3159,7 +3765,12 @@ def main(argv=None) -> int:
         phase_ingest(dev, card, sl["step_ms"], reader_build)
         for k, v in phase_data_parallel(dev, card, sl["step_ms"]).items():
             counts[k] += v
-    print(json.dumps(kernels_line(conv, aug_err, aug_t, counts)), flush=True)
+        quant, quant_counts = phase_quant_serve(dev, card, sl["step_ms"])
+        for k, v in quant_counts.items():
+            counts[k] += v
+        k6 = quant["i3d"]
+    print(json.dumps(kernels_line(conv, aug_err, aug_t, counts, k6)),
+          flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

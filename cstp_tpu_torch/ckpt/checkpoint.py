@@ -93,6 +93,14 @@ def _merge_by_name(target, restored):
     return restored
 
 
+def load_model_by_name(model, tree) -> None:
+    """Load ``tree["model"]`` (a checkpoint's state dict) into ``model`` by
+    name: names only the model has (a new head, an uncalibrated
+    ``act_scale``) keep their values, names only the checkpoint has are
+    dropped."""
+    model.load_state_dict(_merge_by_name(model.state_dict(), tree["model"]))
+
+
 def check_arch(path: str, meta: Dict[str, Any], config: Config) -> None:
     """Refuse a checkpoint whose arch tag and ``config.arch`` contain
     neither the other (the JAX package's check; a tagless one passes)."""
@@ -110,8 +118,7 @@ def load_pretrained(state, path: str, config: Config):
     package's check). Returns ``state``."""
     tree, meta = restore_checkpoint(path)
     check_arch(path, meta, config)
-    own = state.model.state_dict()
-    state.model.load_state_dict(_merge_by_name(own, tree["model"]))
+    load_model_by_name(state.model, tree)
     return state
 
 

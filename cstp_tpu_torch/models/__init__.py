@@ -83,7 +83,7 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
                   remat: bool = False, remat_policy: str = "",
                   shortcut: str = "B", gating: bool = True,
                   slow: bool = False, conv_head: bool = False,
-                  num_classes: int = 0, alpha: int = 4):
+                  num_classes: int = 0, alpha: int = 4, quant: str = ""):
     """The backbone module for ``arch`` ('r21d_byol', 'c3d', 'r3d_classify',
     ...); ``remat`` / ``remat_policy`` are ``--remat`` / ``--remat_policy``
     and ``shortcut`` is ``--resnet_shortcut``. An r3d or slowfast depth
@@ -92,30 +92,32 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
     (``gating``, as the reference's ``s3d_byol``) and the stem's temporal
     stride 2 unless ``slow``; ``conv_head`` gives I3D the reference
     classifier of ``num_classes`` outputs; ``alpha`` is SlowFast's
-    fast/slow frame-rate ratio."""
+    fast/slow frame-rate ratio. ``quant`` (``--quant``) reaches every
+    family's conv sites (``models/layers.py Conv3d``)."""
     base = _family(arch)
     if base.startswith("slowfast"):
         from cstp_tpu_torch.models.slowfast import SlowFastNet
 
         return SlowFastNet(depth, alpha, dtype=dtype, bn_groups=bn_groups,
-                           gen=gen)
+                           gen=gen, quant=quant)
     if base == "s3d":
         from cstp_tpu_torch.models.s3dg import S3D
 
-        return S3D(gating, slow, proj_flag, dtype, bn_groups, gen)
+        return S3D(gating, slow, proj_flag, dtype, bn_groups, gen, quant)
     if base == "i3d":
         from cstp_tpu_torch.models.i3d import I3D
 
-        return I3D(dtype, bn_groups, conv_head, num_classes, gen)
+        return I3D(dtype, bn_groups, conv_head, num_classes, gen, quant)
     if base == "c3d":
         from cstp_tpu_torch.models.c3d import C3D
 
-        return C3D(dtype, bn_groups, gen)
+        return C3D(dtype, bn_groups, gen, quant)
     if base == "r3d":
         from cstp_tpu_torch.models.r3d import R3D_LAYERS, ResNet3D
 
         block, layers, _ = R3D_LAYERS.get(depth, R3D_LAYERS[18])
-        return ResNet3D(block, layers, shortcut, dtype, bn_groups, gen)
+        return ResNet3D(block, layers, shortcut, dtype, bn_groups, gen,
+                        quant)
     from cstp_tpu_torch.models.r21d import (
         LAYER_SIZES,
         R2Plus1DNet,
@@ -124,7 +126,7 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
 
     return R2Plus1DNet(LAYER_SIZES.get(depth, (1, 1, 1, 1)), proj_flag, dtype,
                        bn_groups, fused_conv, gen,
-                       remat_mode(remat, remat_policy))
+                       remat_mode(remat, remat_policy), quant)
 
 
 def __getattr__(name):

@@ -7,7 +7,10 @@ Port module names follow the Flax names, so the map is a path rename:
 * ``a/b/bias`` (dense) -> ``a.b.bias``;
 * BatchNorm leaves ``a/bn/{scale, bias}`` (params) and ``a/bn/{mean, var}``
   (batch_stats) -> ``a.{scale, bias, mean, var}``: every Flax BatchNorm of
-  the JAX package nests its body under an inner module named ``bn``.
+  the JAX package nests its body under an inner module named ``bn``;
+* a quantized conv's calibrated scale ``a/conv/act_scale`` (batch_stats,
+  ``--quant int8_static`` / ``int8_calib``) -> the buffer
+  ``a.conv.act_scale``.
 
 Every leaf maps to exactly one port tensor; a leaf left unused or a port
 tensor left unset raises.
@@ -121,8 +124,9 @@ def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> Dict:
 def export_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     """A port ``state_dict`` as ``{'params', 'batch_stats'}``, Flax-layout
     nested dicts of numpy arrays. The BatchNorm modules are those holding
-    both running statistics (``mean`` and ``var`` buffers), the port's only
-    buffers."""
+    both running statistics (``mean`` and ``var`` buffers); those and the
+    quantized convs' ``act_scale`` are the port's only buffers, and the
+    batch stats."""
     def split(n):
         return tuple(n.rsplit(".", 1)) if "." in n else ("", n)
 
@@ -131,8 +135,8 @@ def export_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for n, t in sd.items():
         owner, leaf = split(n)
-        col = ("batch_stats" if owner in owners and leaf in _BN_STATS
-               else "params")
+        col = ("batch_stats" if (owner in owners and leaf in _BN_STATS)
+               or leaf == "act_scale" else "params")
         tree[col][jax_path(n, owners)] = to_jax_layout(
             t.detach().float().cpu().numpy())
     return {k: _nest(v) for k, v in tree.items()}

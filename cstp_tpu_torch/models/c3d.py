@@ -3,7 +3,8 @@
 The port of ``cstp_tpu/models/c3d.py`` (reference ``models/pace/c3d_byol.py``):
 conv (with bias) -> BN -> ReLU stages, max pools (1,2,2) then (2,2,2) x 3,
 global average pool in float32 to a 512-d feature. No projector. NDHWC
-activations, ``dtype`` compute, f32 parameters and BN.
+activations, ``dtype`` compute, f32 parameters and BN; ``quant``
+(``--quant``) reaches every conv.
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ class _ConvBNReLU(nn.Module):
     """3x3x3 conv (stride 1, padding 1, with bias) -> BN -> ReLU."""
 
     def __init__(self, in_ch: int, features: int, dtype=torch.bfloat16,
-                 bn_groups: int = 1, gen: Optional[torch.Generator] = None):
+                 bn_groups: int = 1, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         self.dtype = dtype
         self.conv = Conv3d(in_ch, features, 3, 1, 1, dtype, gen,
-                           use_bias=True)
+                           use_bias=True, quant=quant)
         self.bn = BatchNorm(features, bn_groups, gen)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -41,12 +43,13 @@ class C3D(nn.Module):
     """Returns the 512-d pooled feature (reference ``c3d_byol.py:70-107``)."""
 
     def __init__(self, dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         self.dtype = dtype
         in_ch = 3
         for name, ch, _ in STAGES:
-            setattr(self, name, _ConvBNReLU(in_ch, ch, dtype, bn_groups, gen))
+            setattr(self, name, _ConvBNReLU(in_ch, ch, dtype, bn_groups, gen,
+                                            quant))
             in_ch = ch
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:

@@ -6,7 +6,8 @@ pools, ``Mixed`` Inception blocks, global average pool in float32 to a
 1024-d feature (the BYOL engine L2-normalises it: ``BackboneSpec.l2_feat``).
 The module names are the JAX package's, so ``models/bridge.py`` maps
 weights by rename. NDHWC activations, ``dtype`` compute, f32 parameters
-and BN.
+and BN. ``quant`` (``--quant``) reaches every conv but the conv head's, as
+in the JAX package.
 
 TF SAME pads are bottom-heavy: the stem's 7^3 stride-2 conv pads (2, 3)
 per axis, which ``Conv3d`` writes into the NDHWC tensor before the conv.
@@ -37,12 +38,12 @@ class Unit3D(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel=1, stride=1,
                  use_bn: bool = True, activation: bool = True,
                  dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         self.dtype = dtype
         self.activation = activation
         self.conv = Conv3d(in_ch, features, kernel, stride,
-                           same_pads(kernel, stride), dtype, gen)
+                           same_pads(kernel, stride), dtype, gen, quant=quant)
         self.bn = BatchNorm(features, bn_groups, gen) if use_bn else None
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -60,10 +61,10 @@ class Mixed(nn.Module):
 
     def __init__(self, in_ch: int, out_channels: Sequence[int],
                  dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         c = out_channels
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
         self.branch_0 = Unit3D(in_ch, c[0], **kw)
         self.branch_1_0 = Unit3D(in_ch, c[1], **kw)
         self.branch_1_1 = Unit3D(c[1], c[2], 3, **kw)
@@ -104,10 +105,10 @@ class I3D(nn.Module):
 
     def __init__(self, dtype=torch.bfloat16, bn_groups: int = 1,
                  conv_head: bool = False, num_classes: int = 0,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
         self.conv3d_1a_7x7 = Unit3D(3, 64, 7, 2, **kw)
         self.conv3d_2b_1x1 = Unit3D(64, 64, **kw)
         self.conv3d_2c_3x3 = Unit3D(64, 192, 3, **kw)

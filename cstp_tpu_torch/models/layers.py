@@ -23,6 +23,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from cstp_tpu_torch.ops.conv21d import fused_st_conv
+from cstp_tpu_torch.ops.quant import (
+    FIXED_SCALE,
+    QUANT_MODES,
+    STATIC_FLOOR,
+    activation_absmax_scale,
+    int8_conv,
+)
 from cstp_tpu_torch.parallel.mesh import global_moments
 
 BN_MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
@@ -174,27 +181,54 @@ class Conv3d(nn.Module):
     written into the NDHWC tensor first (so cuDNN still gets a
     ``channels_last_3d`` view) and the conv then pads nothing.
     ``use_bias`` adds a float32 bias, initialised to zeros, to the
-    ``dtype`` output (the JAX package's ``out + bias.astype(dtype)``)."""
+    ``dtype`` output (the JAX package's ``out + bias.astype(dtype)``).
+
+    ``quant`` (``--quant``; ``ops/quant.py``): '' runs the float conv;
+    'int8' the int8 conv with a dynamic activation scale, 'int8_fixed'
+    with the scale 0.05, 'int8_static' with ``max(act_scale, 1e-8)``;
+    'int8_calib' runs the float conv and raises the site's ``act_scale`` to
+    the input's ``absmax / 127 + 1e-12`` (no gradient). The last two keep
+    ``act_scale`` as a float32 buffer (0 until calibrated), where the JAX
+    package keeps a batch-stats leaf of the same name. The int8 conv takes
+    the ``(lo, hi)`` pads itself."""
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16,
                  gen: Optional[torch.Generator] = None,
-                 use_bias: bool = False):
+                 use_bias: bool = False, quant: str = ""):
         super().__init__()
+        if quant not in ("",) + QUANT_MODES:
+            raise ValueError(f"Conv3d quant {quant!r} not in {QUANT_MODES}")
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
-        pads = _pad_pairs(padding)
+        pads = self.pad_pairs = _pad_pairs(padding)
         symmetric = all(lo == hi for lo, hi in pads)
         self.pads = None if symmetric else pads
         self.padding = tuple(lo for lo, _ in pads) if symmetric else (0, 0, 0)
         self.dtype = dtype
+        self.quant = quant
         self.weight = nn.Parameter(glorot_init(
             torch.empty(features, in_ch, *self.kernel), gen))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
+        if quant in ("int8_static", "int8_calib"):
+            self.register_buffer("act_scale", torch.zeros(()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.quant == "int8_calib":
+            with torch.no_grad():
+                self.act_scale.copy_(torch.maximum(
+                    self.act_scale, activation_absmax_scale(x)))
+        elif self.quant:
+            sa = {"int8": None, "int8_fixed": FIXED_SCALE}.get(self.quant)
+            if self.quant == "int8_static":
+                sa = torch.clamp(self.act_scale, min=STATIC_FLOOR)
+            y = int8_conv(x, self.weight, self.stride, self.pad_pairs,
+                          self.dtype, act_scale=sa)
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype)
+            return y
         if self.pads is not None:
             x = _ndhwc_pad(x, self.pads)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3),
@@ -252,12 +286,14 @@ class SpatioTemporalConv(nn.Module):
     with padding 1, "same" spatial padding) runs the whole chain through
     :func:`cstp_tpu_torch.ops.conv21d.fused_st_conv`, which launches the
     CUDA kernels for CUDA tensors and runs their plain version on the CPU.
-    The parameters are the same either way.
+    The parameters are the same either way. ``quant`` reaches both convs
+    (``Conv3d``).
     """
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16, bn_groups: int = 1,
-                 fused: bool = False, gen: Optional[torch.Generator] = None):
+                 fused: bool = False, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         kt, kh, kw = self.kernel = _triple(kernel)
         st, sh, sw = self.stride = _triple(stride)
@@ -266,10 +302,10 @@ class SpatioTemporalConv(nn.Module):
         self.fused = fused
         mid = r21d_intermediate_channels(in_ch, features, self.kernel)
         self.spatial_conv = Conv3d(in_ch, mid, (1, kh, kw), (1, sh, sw),
-                                   (0, ph, pw), dtype, gen)
+                                   (0, ph, pw), dtype, gen, quant=quant)
         self.bn = BatchNorm(mid, bn_groups, gen)
         self.temporal_conv = Conv3d(mid, features, (kt, 1, 1), (st, 1, 1),
-                                    (pt, 0, 0), dtype, gen)
+                                    (pt, 0, 0), dtype, gen, quant=quant)
 
     def fused_eligible(self, train: bool) -> bool:
         kt, kh, kw = self.kernel

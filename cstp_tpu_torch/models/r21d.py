@@ -4,7 +4,8 @@ The port of ``cstp_tpu/models/r21d.py`` (reference ``R2Plus1DNet``,
 ``models/pace/r21d_byol.py:184-229``): a 5-stage ResNet of factorized (2+1)D
 convolutions, ``layer_sizes`` blocks per stage, global average pool to a
 512-d feature. NDHWC activations, ``dtype`` compute, f32 parameters and BN.
-``bn_groups`` and ``fused_conv`` reach every block.
+``bn_groups``, ``fused_conv`` and ``quant`` (``--quant``, every conv site,
+the stem's too, as in the JAX package) reach every block.
 
 ``remat`` recomputes the residual stages ``conv2`` .. ``conv5`` (not the
 stem) in the backward pass instead of keeping their activations, as the JAX
@@ -46,12 +47,12 @@ class SpatioTemporalResBlock(nn.Module):
     def __init__(self, in_ch: int, features: int, downsample: bool = False,
                  dtype=torch.bfloat16, bn_groups: int = 1,
                  fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         self.dtype = dtype
         self.downsample = downsample
         stride = (2, 2, 2) if downsample else (1, 1, 1)
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
         self.conv1 = SpatioTemporalConv(in_ch, features, 3, stride, 1,
                                         fused=fused_conv, **kw)
         self.bn1 = BatchNorm(features, bn_groups, gen)
@@ -80,10 +81,10 @@ class SpatioTemporalResLayer(nn.Module):
     def __init__(self, in_ch: int, features: int, layer_size: int,
                  downsample: bool = False, dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         kw = dict(dtype=dtype, bn_groups=bn_groups, fused_conv=fused_conv,
-                  gen=gen)
+                  gen=gen, quant=quant)
         self.block1 = SpatioTemporalResBlock(in_ch, features, downsample, **kw)
         for i in range(layer_size - 1):
             setattr(self, f"block{i + 2}",
@@ -136,7 +137,8 @@ class R2Plus1DNet(nn.Module):
     def __init__(self, layer_sizes: Tuple[int, int, int, int] = (1, 1, 1, 1),
                  proj_flag: bool = False, dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None, remat: str = ""):
+                 gen: Optional[torch.Generator] = None, remat: str = "",
+                 quant: str = ""):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
@@ -145,10 +147,10 @@ class R2Plus1DNet(nn.Module):
         self.remat = remat
         self.conv1 = SpatioTemporalConv(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3),
                                         dtype=dtype, bn_groups=bn_groups,
-                                        gen=gen)
+                                        gen=gen, quant=quant)
         self.bn1 = BatchNorm(64, bn_groups, gen)
         kw = dict(dtype=dtype, bn_groups=bn_groups, fused_conv=fused_conv,
-                  gen=gen)
+                  gen=gen, quant=quant)
         self.conv2 = SpatioTemporalResLayer(64, 64, layer_sizes[0], False, **kw)
         self.conv3 = SpatioTemporalResLayer(64, 128, layer_sizes[1], True, **kw)
         self.conv4 = SpatioTemporalResLayer(128, 256, layer_sizes[2], True,

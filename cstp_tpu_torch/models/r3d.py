@@ -7,7 +7,8 @@ padding 1, four stages of ``layers`` blocks (the first of stages 2-4 with
 stride 2), global average pool in float32 to ``512 * expansion``. The
 shortcut of a block that changes shape is "A" (strided subsample, then the
 channels zero-padded; no parameters) or "B" (1x1x1 conv with the stride,
-then BN). No projector. ``bn_groups`` reaches every block.
+then BN). No projector. ``bn_groups`` reaches every block and ``quant``
+(``--quant``) every conv.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ class _Block(nn.Module):
         self.shortcut = shortcut
         if shortcut == "B" and (stride != 1 or in_ch != out_ch):
             self.downsample_conv = Conv3d(in_ch, out_ch, 1, stride, 0,
-                                          self.dtype, gen)
+                                          self.dtype, gen, quant=self.quant)
             self.downsample_bn = BatchNorm(out_ch, bn_groups, gen)
 
     def _shortcut(self, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -64,12 +65,13 @@ class _BasicBlock(_Block):
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
                  shortcut: str = "B", dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
-        self.dtype = dtype
-        self.conv1 = Conv3d(in_ch, planes, 3, stride, 1, dtype, gen)
+        self.dtype, self.quant = dtype, quant
+        self.conv1 = Conv3d(in_ch, planes, 3, stride, 1, dtype, gen,
+                            quant=quant)
         self.bn1 = BatchNorm(planes, bn_groups, gen)
-        self.conv2 = Conv3d(planes, planes, 3, 1, 1, dtype, gen)
+        self.conv2 = Conv3d(planes, planes, 3, 1, 1, dtype, gen, quant=quant)
         self.bn2 = BatchNorm(planes, bn_groups, gen)
         self._init_shortcut(in_ch, planes, stride, shortcut, bn_groups, gen)
 
@@ -84,14 +86,16 @@ class _Bottleneck(_Block):
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
                  shortcut: str = "B", dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
-        self.dtype = dtype
-        self.conv1 = Conv3d(in_ch, planes, 1, 1, 0, dtype, gen)
+        self.dtype, self.quant = dtype, quant
+        self.conv1 = Conv3d(in_ch, planes, 1, 1, 0, dtype, gen, quant=quant)
         self.bn1 = BatchNorm(planes, bn_groups, gen)
-        self.conv2 = Conv3d(planes, planes, 3, stride, 1, dtype, gen)
+        self.conv2 = Conv3d(planes, planes, 3, stride, 1, dtype, gen,
+                            quant=quant)
         self.bn2 = BatchNorm(planes, bn_groups, gen)
-        self.conv3 = Conv3d(planes, planes * 4, 1, 1, 0, dtype, gen)
+        self.conv3 = Conv3d(planes, planes * 4, 1, 1, 0, dtype, gen,
+                            quant=quant)
         self.bn3 = BatchNorm(planes * 4, bn_groups, gen)
         self._init_shortcut(in_ch, planes * 4, stride, shortcut, bn_groups,
                             gen)
@@ -111,14 +115,15 @@ class ResNet3D(nn.Module):
     def __init__(self, block: str = "basic",
                  layers: Tuple[int, int, int, int] = (2, 2, 2, 2),
                  shortcut: str = "B", dtype=torch.bfloat16,
-                 bn_groups: int = 1, gen: Optional[torch.Generator] = None):
+                 bn_groups: int = 1, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         if shortcut not in ("A", "B"):
             raise ValueError(f"--resnet_shortcut must be A or B, got "
                              f"{shortcut!r}")
         self.dtype = dtype
         block_cls = _BasicBlock if block == "basic" else _Bottleneck
-        self.conv1 = Conv3d(3, 64, 7, (1, 2, 2), 3, dtype, gen)
+        self.conv1 = Conv3d(3, 64, 7, (1, 2, 2), 3, dtype, gen, quant=quant)
         self.bn1 = BatchNorm(64, bn_groups, gen)
         self.names = []
         in_ch = 64
@@ -128,7 +133,7 @@ class ResNet3D(nn.Module):
                 stride = 2 if (li > 0 and bi == 0) else 1
                 name = f"layer{li + 1}_block{bi + 1}"
                 setattr(self, name, block_cls(in_ch, planes, stride, shortcut,
-                                              dtype, bn_groups, gen))
+                                              dtype, bn_groups, gen, quant))
                 self.names.append(name)
                 in_ch = planes * block_cls.expansion
 

@@ -8,7 +8,8 @@ blocks with an optional ``SelfGating`` per branch, and the stem with
 temporal stride 2 (1 with ``slow``). Global average pool in float32 to a
 1024-d feature; with ``proj_flag`` a 1024 -> h1024 -> 1024 projector. The
 module names are the JAX package's, so ``models/bridge.py`` maps weights by
-rename. NDHWC activations, ``dtype`` compute, f32 parameters and BN.
+rename. NDHWC activations, ``dtype`` compute, f32 parameters and BN;
+``quant`` (``--quant``) reaches every conv.
 
 ``STConv3d`` is a spatial -> BN -> ReLU -> temporal chain like R(2+1)D's,
 but the JAX package never sends it through ``fused_st_conv`` (``fused_conv``
@@ -50,11 +51,11 @@ class BasicConv3d(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel=1, stride=1,
                  padding=0, dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         self.dtype = dtype
         self.conv = Conv3d(in_ch, features, kernel, stride, padding, dtype,
-                           gen)
+                           gen, quant=quant)
         self.bn = BatchNorm(features, bn_groups, gen)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -68,16 +69,17 @@ class STConv3d(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  stride=(1, 1), padding: int = 0, dtype=torch.bfloat16,
-                 bn_groups: int = 1, gen: Optional[torch.Generator] = None):
+                 bn_groups: int = 1, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         k, p = kernel, padding
         ts, ss = stride
         self.dtype = dtype
         self.conv1 = Conv3d(in_ch, features, (1, k, k), (1, ss, ss),
-                            (0, p, p), dtype, gen)
+                            (0, p, p), dtype, gen, quant=quant)
         self.bn1 = BatchNorm(features, bn_groups, gen)
         self.conv2 = Conv3d(features, features, (k, 1, 1), (ts, 1, 1),
-                            (p, 0, 0), dtype, gen)
+                            (p, 0, 0), dtype, gen, quant=quant)
         self.bn2 = BatchNorm(features, bn_groups, gen)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -91,10 +93,11 @@ class SepInception(nn.Module):
 
     def __init__(self, in_ch: int, out_planes: Sequence[int],
                  gating: bool = False, dtype=torch.bfloat16,
-                 bn_groups: int = 1, gen: Optional[torch.Generator] = None):
+                 bn_groups: int = 1, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         p0, p1a, p1b, p2a, p2b, p3b = out_planes
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
         self.branch0 = BasicConv3d(in_ch, p0, **kw)
         self.branch1_0 = BasicConv3d(in_ch, p1a, **kw)
         self.branch1_1 = STConv3d(p1a, p1b, 3, (1, 1), 1, **kw)
@@ -132,10 +135,11 @@ class S3D(nn.Module):
 
     def __init__(self, gating: bool = True, slow: bool = False,
                  proj_flag: bool = False, dtype=torch.bfloat16,
-                 bn_groups: int = 1, gen: Optional[torch.Generator] = None):
+                 bn_groups: int = 1, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
         self.Conv_1a = STConv3d(3, 64, 7, (1 if slow else 2, 2), 3, **kw)
         self.Conv_2b = BasicConv3d(64, 64, **kw)
         self.Conv_2c = STConv3d(64, 192, 3, (1, 1), 1, **kw)

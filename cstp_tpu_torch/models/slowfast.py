@@ -22,7 +22,8 @@ pathways are pooled in float32 and concatenated slow first: ``576``
 features at depth 18/34, ``2304`` at 50/101.
 
 Blocks sum their residual and take the ReLU in float32, then cast to
-``dtype``. ``bn_groups`` reaches every BatchNorm, the laterals' too. The
+``dtype``. ``bn_groups`` reaches every BatchNorm, the laterals' too, and
+``quant`` (``--quant``) every conv of both pathways and the laterals. The
 module names are the JAX package's (``slow_conv1``, ``fast_bn1``,
 ``lateral_pool1``, ``slow_layer{i}_block{j}``, ``lateral_res{i}``), so
 ``models/bridge.py`` maps weights by rename; ``_Lateral``'s norm is itself
@@ -65,7 +66,7 @@ class _SFBlock(nn.Module):
         if self.project:
             self.downsample_conv = Conv3d(in_ch, out_ch, 1,
                                           (1, stride, stride), 0, self.dtype,
-                                          gen)
+                                          gen, quant=self.quant)
             self.downsample_bn = BatchNorm(out_ch, bn_groups, gen)
 
     def _residual(self, out, x, train: bool) -> torch.Tensor:
@@ -81,15 +82,15 @@ class _SFBasic(_SFBlock):
 
     def __init__(self, in_ch: int, planes: int, t_kernel: int = 1,
                  stride: int = 1, dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.quant = dtype, quant
         kt, pt = t_kernel, t_kernel // 2
         self.conv1 = Conv3d(in_ch, planes, (kt, 3, 3), (1, stride, stride),
-                            (pt, 1, 1), dtype, gen)
+                            (pt, 1, 1), dtype, gen, quant=quant)
         self.bn1 = BatchNorm(planes, bn_groups, gen)
         self.conv2 = Conv3d(planes, planes, (1, 3, 3), 1, (0, 1, 1), dtype,
-                            gen)
+                            gen, quant=quant)
         self.bn2 = BatchNorm(planes, bn_groups, gen)
         self._init_shortcut(in_ch, planes, stride, bn_groups, gen)
 
@@ -106,17 +107,18 @@ class _SFBottleneck(_SFBlock):
 
     def __init__(self, in_ch: int, planes: int, t_kernel: int = 1,
                  stride: int = 1, dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.quant = dtype, quant
         kt, pt = t_kernel, t_kernel // 2
         self.conv1 = Conv3d(in_ch, planes, (kt, 1, 1), 1, (pt, 0, 0), dtype,
-                            gen)
+                            gen, quant=quant)
         self.bn1 = BatchNorm(planes, bn_groups, gen)
         self.conv2 = Conv3d(planes, planes, (1, 3, 3), (1, stride, stride),
-                            (0, 1, 1), dtype, gen)
+                            (0, 1, 1), dtype, gen, quant=quant)
         self.bn2 = BatchNorm(planes, bn_groups, gen)
-        self.conv3 = Conv3d(planes, planes * 4, 1, 1, 0, dtype, gen)
+        self.conv3 = Conv3d(planes, planes * 4, 1, 1, 0, dtype, gen,
+                            quant=quant)
         self.bn3 = BatchNorm(planes * 4, bn_groups, gen)
         self._init_shortcut(in_ch, planes * 4, stride, bn_groups, gen)
 
@@ -132,11 +134,12 @@ class _Lateral(nn.Module):
     (pad 2) to twice the fast width, BN, ReLU."""
 
     def __init__(self, fast_ch: int, alpha: int, dtype=torch.bfloat16,
-                 bn_groups: int = 1, gen: Optional[torch.Generator] = None):
+                 bn_groups: int = 1, gen: Optional[torch.Generator] = None,
+                 quant: str = ""):
         super().__init__()
         self.dtype = dtype
         self.conv = Conv3d(fast_ch, 2 * fast_ch, (5, 1, 1), (alpha, 1, 1),
-                           (2, 0, 0), dtype, gen)
+                           (2, 0, 0), dtype, gen, quant=quant)
         self.bn = BatchNorm(2 * fast_ch, bn_groups, gen)
 
     def forward(self, fast: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -151,19 +154,19 @@ class SlowFastNet(nn.Module):
 
     def __init__(self, depth: int = 18, alpha: int = 4,
                  dtype=torch.bfloat16, bn_groups: int = 1,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, quant: str = ""):
         super().__init__()
         block, counts, _ = SLOWFAST_LAYERS.get(depth, SLOWFAST_LAYERS[18])
         block_cls = _SFBasic if block == "basic" else _SFBottleneck
         self.alpha = alpha
         self.dtype = dtype
         cf = FAST_WIDTH
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
         self.slow_conv1 = Conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3),
-                                 dtype, gen)
+                                 dtype, gen, quant=quant)
         self.slow_bn1 = BatchNorm(64, bn_groups, gen)
         self.fast_conv1 = Conv3d(3, cf, (5, 7, 7), (1, 2, 2), (2, 3, 3),
-                                 dtype, gen)
+                                 dtype, gen, quant=quant)
         self.fast_bn1 = BatchNorm(cf, bn_groups, gen)
         self.lateral_pool1 = _Lateral(cf, alpha, **kw)
         slow_ch, fast_ch = 64 + 2 * cf, cf

@@ -6,18 +6,21 @@ def launch_counts():
     kernel names of ``chip_smoke.py``'s record."""
     from cstp_tpu_torch.ops import augment as A
     from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.ops import quant as Q
 
     return {"conv21d_stats": C.launches["stats"],
             "conv21d_fwd": C.launches["fwd"],
             "conv21d_taps9_stats": C.launches["stats_taps9"],
             "conv21d_taps9_fwd": C.launches["fwd_taps9"],
-            "augment": A.launches}
+            "augment": A.launches, "int8_conv": Q.launches}
 
 
 def reset_launch_counts():
     """Set every kernel's launch count to 0."""
     from cstp_tpu_torch.ops import augment as A
     from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.ops import quant as Q
 
     C.launches.update(dict.fromkeys(C.launches, 0))
     A.launches = 0
+    Q.launches = 0

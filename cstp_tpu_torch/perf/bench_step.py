@@ -1,10 +1,10 @@
 """Step benchmark of the port: the counterpart of the JAX benchmark
-``bench.py`` for its modes ``pretrain``, ``ft`` and ``eval``, at its
-default shape.
+``bench.py`` for its modes ``pretrain``, ``ft``, ``eval`` and ``serve``, at
+its default shape.
 
-    python -m cstp_tpu_torch.perf.bench_step [--mode pretrain|ft|eval]
+    python -m cstp_tpu_torch.perf.bench_step [--mode pretrain|ft|eval|serve]
         [--per-chip-bs 64] [--steps 10] [--warmup 3] [--model r21d]
-        [--depth 1]
+        [--depth 1] [--quant ''|int8_static]
         [--fused-conv 0|1|2] [--pallas-augment auto|on|off]
         [--grad-accum 1] [--remat] [--remat-policy ''|bnrelu]
         [--concat-views 1|0] [--device cuda|cpu]
@@ -27,7 +27,16 @@ in the JAX package). The modes:
 * ``ft``: ``train/finetune.py make_finetune_step`` (finetune augment +
   ``CSTPClassify`` + SGD), ``task="ft_all"``, 101 classes;
 * ``eval``: ``train/finetune.py make_eval_step`` (eval augment + eval-mode
-  forward), ``task="test"``.
+  forward), ``task="test"``;
+* ``serve``: the same model exported (``serve/export.py``: eval augment +
+  eval-mode forward + weights in one ``torch.export`` program), loaded in
+  process and called on the staged windows (``ServingModel.call``), as
+  ``bench.py``'s serve mode times its artifact.
+
+``--quant int8_static`` (``eval`` and ``serve``) builds the model with
+static int8 convs (K6) and fills every ``act_scale`` with 0.05, as
+``bench.py``'s ``_fill_act_scales`` does: the bench has no calibrated
+checkpoint, and the time does not depend on the scale's value.
 
 Batches are drawn on the device from a seeded generator, three of them used
 in turn. The step time is the host clock around the timed steps, which end
@@ -49,17 +58,19 @@ import torch
 from cstp_tpu_torch import resolve_device
 from cstp_tpu_torch.ops import launch_counts, reset_launch_counts
 from cstp_tpu_torch.perf.bench_conv21d import device_line
+from cstp_tpu_torch.ssl.byol import cross_entropy
 
 T, S = 16, 112          # bench.py's clips
 H0, W0 = 128, 171       # bench.py's synthetic source frames
 N_BATCHES = 3
 LR = 0.03               # bench.py's learning rate
+FILL_SCALE = 0.05       # bench.py's _fill_act_scales value
 
 
 def _config(args):
     from cstp_tpu_torch.config import Config
 
-    task = {"pretrain": "loss_com", "ft": "ft_all", "eval": "test"}[args.mode]
+    task = {"pretrain": "loss_com", "ft": "ft_all"}.get(args.mode, "test")
     return Config(model_name=args.model, model_depth=args.depth,
                   sample_duration=T, sample_size=S,
                   batch_size=args.per_chip_bs, compute_dtype="bfloat16",
@@ -67,7 +78,8 @@ def _config(args):
                   pallas_augment=args.pallas_augment,
                   grad_accum=args.grad_accum, remat=args.remat,
                   remat_policy=args.remat_policy,
-                  concat_views=args.concat_views).finalize()
+                  concat_views=args.concat_views, quant=args.quant
+                  ).finalize()
 
 
 def _batches(mode, b, t, n_classes, dev, seed: int = 0):
@@ -88,7 +100,40 @@ def _batches(mode, b, t, n_classes, dev, seed: int = 0):
             for _ in range(N_BATCHES)]
 
 
-def _step_fn(mode, cfg, dev):
+def fill_act_scales(model, value: float = FILL_SCALE) -> int:
+    """Every ``act_scale`` buffer of ``model`` set to ``value``; returns
+    how many there are."""
+    n = 0
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith("act_scale"):
+                b.fill_(value)
+                n += 1
+    return n
+
+
+def _serving_fn(model, cfg, dev, extra):
+    """``model`` exported (``serve/export.py``) and loaded in process:
+    ``fn(frames) -> logits``; the artifact's size and the export and load
+    seconds go into ``extra``."""
+    from cstp_tpu_torch.serve.export import (
+        ServingModel,
+        export_serving_artifact,
+    )
+
+    t0 = time.perf_counter()
+    art = export_serving_artifact(
+        model, num_classes=cfg.n_finetune_classes,
+        sample_size=cfg.sample_size, sample_duration=cfg.sample_duration,
+        input_hw=(H0, W0), norm_method=cfg.norm_method)
+    t1 = time.perf_counter()
+    served = ServingModel.load(art, device=dev)
+    extra.update(artifact_mb=len(art) / 1e6, export_s=t1 - t0,
+                 load_s=time.perf_counter() - t1)
+    return served.call
+
+
+def _step_fn(mode, cfg, dev, extra):
     """``run(i) -> loss tensor`` for step ``i``, state kept inside."""
     gen = torch.Generator(device=dev).manual_seed(1)
     if mode == "pretrain":
@@ -106,6 +151,10 @@ def _step_fn(mode, cfg, dev):
         n_classes = cfg.n_finetune_classes
         model, state, tx = ft.create_finetune_state(cfg, n_classes, seed=0,
                                                     device=dev)
+        if cfg.quant:
+            extra["act_scales"] = fill_act_scales(model)
+        if mode == "serve":
+            serve = _serving_fn(model, cfg, dev, extra)
         step = (ft.make_finetune_step(model, tx, cfg) if mode == "ft"
                 else ft.make_eval_step(model, cfg))
     batches = _batches(mode, cfg.batch_size, cfg.sample_duration, n_classes,
@@ -114,6 +163,8 @@ def _step_fn(mode, cfg, dev):
 
     def run(i):
         batch = batches[i % N_BATCHES]
+        if mode == "serve":
+            return cross_entropy(serve(batch["frames"]), batch["labels"])
         if mode == "eval":
             return step(box[0], batch)["loss"]
         box[0], metrics = step(box[0], gen, batch, LR)
@@ -130,7 +181,7 @@ def _sync(dev):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="pretrain",
-                    choices=["pretrain", "ft", "eval"])
+                    choices=["pretrain", "ft", "eval", "serve"])
     ap.add_argument("--per-chip-bs", type=int, default=64)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
@@ -146,14 +197,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--remat-policy", default="", choices=["", "bnrelu"],
                     help="selective remat: recompute only BN/ReLU in bwd")
     ap.add_argument("--concat-views", type=int, default=1, choices=[0, 1])
+    ap.add_argument("--quant", default="", choices=["", "int8_static"],
+                    help="eval and serve: static int8 convs (K6), every "
+                    "act_scale filled with 0.05")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.quant and args.mode not in ("eval", "serve"):
+        ap.error("--quant int8_static takes --mode eval or serve")
     dev = resolve_device(args.device)
     cfg = _config(args)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    run = _step_fn(args.mode, cfg, dev)
+    extra = {}
+    run = _step_fn(args.mode, cfg, dev, extra)
     for i in range(args.warmup):
         run(i)
     _sync(dev)
@@ -171,7 +228,7 @@ def main(argv=None) -> dict:
         "grad_accum": args.grad_accum, "remat": args.remat,
         "remat_policy": args.remat_policy,
         "concat_views": args.concat_views, "model": args.model,
-        "depth": args.depth,
+        "depth": args.depth, "quant": args.quant,
         "clip": [T, S, S], "frames": [H0, W0],
         "dtype": cfg.compute_dtype, "fused_conv": args.fused_conv,
         "pallas_augment": args.pallas_augment, "steps": args.steps,
@@ -180,7 +237,7 @@ def main(argv=None) -> dict:
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                          if dev.type == "cuda" else None),
         "launches_per_step": counts, "loss": loss,
-        "device": device_line(dev),
+        "device": device_line(dev), **extra,
     }
     print(json.dumps(out), flush=True)
     return out

@@ -85,8 +85,11 @@ class CSTPPretrain(nn.Module):
     tower, 0 = one call per view. ``remat`` / ``remat_policy``: the
     towers' ``--remat`` / ``--remat_policy`` (``models/r21d.py``).
     ``shortcut``: ``--resnet_shortcut`` of the 3D ResNet; ``alpha``:
-    SlowFast's ``--alpha``. The predictor takes the projection, or the
-    feature where the family has no projector.
+    SlowFast's ``--alpha``. ``quant`` (``--quant`` int8 or int8_fixed)
+    reaches the target tower's conv sites always and the online tower's
+    under ``quant_scope`` 'all' (``--quant_scope target``: the EMA tower
+    alone). The predictor takes the projection, or the feature where the
+    family has no projector.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
@@ -94,7 +97,7 @@ class CSTPPretrain(nn.Module):
                  gen: Optional[torch.Generator] = None,
                  concat_views: bool = True, remat: bool = False,
                  remat_policy: str = "", shortcut: str = "B",
-                 alpha: int = 4):
+                 alpha: int = 4, quant: str = "", quant_scope: str = "all"):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.concat_views = bool(concat_views)
@@ -103,10 +106,12 @@ class CSTPPretrain(nn.Module):
         tower = dict(dtype=dtype, proj_flag=use_proj, bn_groups=g2, gen=gen,
                      remat=remat, remat_policy=remat_policy,
                      shortcut=shortcut, alpha=alpha)
-        self.online_net = make_backbone(backbone, depth,
-                                        fused_conv=fused_conv == 1, **tower)
+        self.online_net = make_backbone(
+            backbone, depth, fused_conv=fused_conv == 1,
+            quant=quant if quant_scope == "all" else "", **tower)
         self.target_net = make_backbone(backbone, depth,
-                                        fused_conv=fused_conv >= 1, **tower)
+                                        fused_conv=fused_conv >= 1,
+                                        quant=quant, **tower)
         self.predictor = MLPHead(spec.proj_dim or spec.feat_dim,
                                  spec.pred_hidden,
                                  spec.pred_dim, dtype, g2, gen)
@@ -175,7 +180,7 @@ class CSTPClassify(nn.Module):
     (I3D's is L2-normalised there). ``fused_conv`` reaches the backbone's
     stride-1 (2+1)D sites, which fuse in train mode only; ``shortcut`` is
     the 3D ResNet's ``--resnet_shortcut`` and ``alpha`` SlowFast's
-    ``--alpha``.
+    ``--alpha``; ``quant`` (``--quant``) reaches the backbone's conv sites.
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
@@ -183,9 +188,10 @@ class CSTPClassify(nn.Module):
                  head_style: str = "linear", dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
                  gen: Optional[torch.Generator] = None, shortcut: str = "B",
-                 alpha: int = 4):
+                 alpha: int = 4, quant: str = ""):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
+        self.backbone, self.depth, self.quant = backbone, depth, quant
         self.head_style = head_style
         head = {}
         if head_style == "i3d_conv":
@@ -197,7 +203,7 @@ class CSTPClassify(nn.Module):
                                         proj_flag=False, bn_groups=bn_groups,
                                         fused_conv=fused_conv, gen=gen,
                                         shortcut=shortcut, alpha=alpha,
-                                        **head)
+                                        quant=quant, **head)
         f = spec.feat_dim
         if head_style == "mlp":
             self.classify = MLPHead(f, f, num_classes, dtype, bn_groups, gen)

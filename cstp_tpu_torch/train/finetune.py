@@ -43,6 +43,7 @@ from cstp_tpu_torch.train.accum import accumulated_grads, microbatches
 from cstp_tpu_torch.train.pretrain import (
     TrainState,
     all_reduce_step,
+    check_trainable_quant,
     compute_dtype,
     double_bias_lr,
     local_bn_groups,
@@ -73,7 +74,8 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
                          dtype=compute_dtype(config),
                          bn_groups=local_bn_groups(config),
                          fused_conv=bool(config.fused_conv), gen=gen,
-                         shortcut=config.resnet_shortcut, alpha=config.alpha)
+                         shortcut=config.resnet_shortcut, alpha=config.alpha,
+                         quant=config.quant)
     mesh.set_cross_rank_bn(model, bool(config.sync_bn))
     return model.to(dev)
 
@@ -131,6 +133,7 @@ def create_finetune_state(config: Config, num_classes: int, seed: int = 0,
 
 def _build_finetune_train(model: CSTPClassify, tx: optim.Optimizer,
                           config: Config):
+    check_trainable_quant(config, "finetune")
     config.check_ported()
     accum = config.grad_accum
     lr_mult = double_bias_lr(config)

@@ -44,6 +44,7 @@ from cstp_tpu_torch.data.loader import (
 )
 from cstp_tpu_torch.models import torch_import
 from cstp_tpu_torch.models.i3d_tf_import import load_tf_i3d
+from cstp_tpu_torch.ops.quant import check_int8_calibrated
 from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.train import optim
 from cstp_tpu_torch.train.finetune import (
@@ -226,11 +227,6 @@ def _restore_state(state, tree, dev) -> None:
     state.model.load_state_dict(tree["model"])
     state.opt_state = _to_device(tree["opt_state"], dev)
     state.step = int(tree["step"])
-
-
-def _load_model_by_name(state, tree) -> None:
-    own = state.model.state_dict()
-    state.model.load_state_dict(ckpt_lib._merge_by_name(own, tree["model"]))
 
 
 def _load_reference_pth(state, config: Config, check_arch: bool) -> None:
@@ -662,7 +658,9 @@ def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
         raise ValueError(f"checkpoint {md_path} holds arch "
                          f"{meta.get('arch')!r}, the config asks for "
                          f"{config.arch!r}")
-    _load_model_by_name(state, tree)
+    ckpt_lib.load_model_by_name(state.model, tree)
+    if config.quant == "int8_static":
+        check_int8_calibrated(state.model.state_dict(), "test")
     logits_fn = make_logits_step(model, config)
 
     result_dir = os.path.join(config.result_path, config.dataset)
@@ -738,7 +736,7 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
         _load_reference_pth(state, config, check_arch=False)
     elif config.pretrained_path:
         tree, _ = ckpt_lib.restore_checkpoint(config.pretrained_path)
-        _load_model_by_name(state, tree)
+        ckpt_lib.load_model_by_name(state.model, tree)
     else:
         md_path = config.test_md_path or ckpt_lib.find_best_checkpoint(
             os.path.join(config.result_path, config.dataset,
@@ -748,7 +746,9 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
             raise ValueError(f"checkpoint {md_path} holds arch "
                              f"{meta.get('arch')!r}, the config asks for "
                              f"{config.arch!r}")
-        _load_model_by_name(state, tree)
+        ckpt_lib.load_model_by_name(state.model, tree)
+    if config.quant == "int8_static":
+        check_int8_calibrated(state.model.state_dict(), "retrieval")
 
     feats_fn = make_features_step(model, config)
     gallery_ds = build_dataset(config, "train")

@@ -110,7 +110,8 @@ def create_pretrain_model(config: Config, seed: int = 0,
                          concat_views=bool(config.concat_views),
                          remat=config.remat,
                          remat_policy=config.remat_policy,
-                         shortcut=config.resnet_shortcut, alpha=config.alpha)
+                         shortcut=config.resnet_shortcut, alpha=config.alpha,
+                         quant=config.quant, quant_scope=config.quant_scope)
     mesh.set_cross_rank_bn(model, bool(config.sync_bn))
     return model.to(dev)
 
@@ -182,8 +183,24 @@ def _loss_and_metrics(model: CSTPPretrain, views_labels, w,
     return total, metrics
 
 
+def check_trainable_quant(config: Config, context: str) -> None:
+    """Refuse the eval-only ``--quant`` modes on a training step (the JAX
+    package's ``_check_trainable_quant``): ``int8_static`` would quantize
+    with the zero-initialised ``act_scale`` and ``int8_calib`` observes
+    scales instead of quantizing. Training takes '' / int8 / int8_fixed.
+    ``Config.finalize`` refuses them on training tasks already; this guards
+    a config that skipped it."""
+    if config.quant in ("int8_static", "int8_calib"):
+        raise ValueError(
+            f"--quant {config.quant} is an eval/serve/calibration mode and "
+            f"cannot drive the {context} TRAINING step (see "
+            "serve/quantize.py). Use --quant '' (float), int8, or "
+            "int8_fixed for training.")
+
+
 def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
                              config: Config):
+    check_trainable_quant(config, "pretrain")
     config.check_ported()
     w = (config.loss_weight if config.task != "r_byol"
          else (1.0, 0.0, 0.0, 0.0, 0.0))

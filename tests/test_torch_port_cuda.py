@@ -642,3 +642,118 @@ def test_a_reference_pth_loads_on_the_card_bitwise(dev, tmp_path,
     assert online and all(got[n].device.type == "cuda" for n in online)
     for n in online:
         assert torch.equal(got[n], want[n]), n
+
+
+# K6 (csrc/int8_conv.cu): (Cin, Cout, kernel, stride, (lo pads), (hi pads)):
+# the R(2+1)D stem's spatial conv (Cin 3), its odd mid widths, the strided
+# (2+1)D downsample, an I3D TF-SAME stem (asymmetric pads), a 1x1x1 conv
+# and a wide C3D-like 3x3x3 conv (the 16-byte gather path)
+K6_CASES = [
+    (3, 83, (1, 7, 7), (1, 2, 2), (0, 3, 3), (0, 3, 3)),
+    (83, 64, (3, 1, 1), (1, 1, 1), (1, 0, 0), (1, 0, 0)),
+    (64, 42, (1, 1, 1), (1, 2, 2), (0, 0, 0), (0, 0, 0)),
+    (42, 128, (1, 1, 1), (2, 1, 1), (0, 0, 0), (0, 0, 0)),
+    (128, 230, (1, 3, 3), (1, 2, 2), (0, 1, 1), (0, 1, 1)),
+    (3, 64, (7, 7, 7), (2, 2, 2), (2, 2, 2), (3, 3, 3)),
+    (192, 96, (1, 1, 1), (1, 1, 1), (0, 0, 0), (0, 0, 0)),
+    (256, 256, (3, 3, 3), (1, 1, 1), (1, 1, 1), (1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("case", K6_CASES, ids=[
+    "stem-cin3", "temporal-cin83", "down-spatial", "down-temporal",
+    "spatial-stride2", "i3d-stem-asym", "i3d-1x1", "c3d-3x3x3"])
+def test_k6_matches_its_plain_version_bitwise(dev, case):
+    """K6's int32 accumulators and its bf16 and f32 outputs equal the plain
+    version's bitwise (the sums are exact, the epilogue rounds once); one
+    launch per call."""
+    from cstp_tpu_torch.ops import quant as Q
+
+    cin, cout, k, stride, lo, hi = case
+    rng = np.random.default_rng(cin + cout)
+    xq = _t(rng.integers(-127, 128, (2, 6, 15, 15, cin)), dev, torch.int8)
+    wq = _t(rng.integers(-127, 128, (cout, cin, *k)), dev, torch.int8)
+    scale = _t(rng.uniform(1e-5, 1e-3, cout), dev, torch.float32)
+    for out_dtype in (torch.int32, torch.bfloat16, torch.float32):
+        before = Q.launches
+        got = torch.ops.cstp.int8_conv3d(xq, wq, scale, list(stride),
+                                         list(lo), list(hi), out_dtype)
+        torch.cuda.synchronize()
+        assert Q.launches == before + 1
+        want = Q.int8_conv3d_plain(xq, wq, scale, list(stride), list(lo),
+                                   list(hi), out_dtype)
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert torch.equal(got, want), out_dtype
+
+
+def test_k6_refuses_what_it_does_not_take(dev):
+    from cstp_tpu_torch.ops import quant as Q
+
+    xq = torch.zeros((1, 2, 4, 4, 3), dtype=torch.int8, device=dev)
+    wq = torch.zeros((5, 3, 1, 3, 3), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        Q.int8_conv3d_cuda(xq.float(), wq, torch.ones(5, device=dev),
+                           [1, 1, 1], [0, 1, 1], [0, 1, 1])
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.int8_conv3d_cuda(xq, wq.cpu(), torch.ones(5), [1, 1, 1],
+                           [0, 1, 1], [0, 1, 1])
+
+
+def test_int8_static_classify_on_the_card_matches_the_plain_path(dev):
+    """An R(2+1)D ``int8_static`` eval forward in bf16: through K6 on the
+    card (24 launches) and through the plain version on the same bf16
+    inputs on the CPU, bitwise at every site's accumulator, so the logits
+    agree to float rounding of the float ops between the convs."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.ops import quant as Q
+    from cstp_tpu_torch.perf.bench_step import fill_act_scales
+    from cstp_tpu_torch.train.finetune import create_classify_model
+
+    cfg = Config(model_name="r21d", sample_duration=8, sample_size=32,
+                 quant="int8_static", task="test").finalize()
+    model = create_classify_model(cfg, 11, device=dev)
+    assert fill_act_scales(model) == 24
+    x = _t(np.random.default_rng(0).uniform(-1, 1, (4, 8, 32, 32, 3)), dev,
+           torch.bfloat16)
+    before = Q.launches
+    with torch.no_grad():
+        got = model(x, train=False).float()
+    torch.cuda.synchronize()
+    assert Q.launches == before + 24
+    assert torch.isfinite(got).all()
+    cpu = create_classify_model(cfg, 11, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu(x.cpu(), train=False).float()
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+
+
+def test_int8_pretrain_step_on_the_card_runs_k6(dev):
+    """A ``--quant int8`` pretrain step at 8 x 32^2: K6 in both towers'
+    forward (24 sites each), finite losses, a moved online tower."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    cfg = Config(model_name="r21d", sample_duration=8, sample_size=32,
+                 batch_size=4, quant="int8", pallas_augment="on").finalize()
+    model, state, tx = create_pretrain_state(cfg, device=dev)
+    before = [p.detach().clone() for p in model.online_net.parameters()]
+    step = make_pretrain_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    batch = {k: _t(rng.integers(0, 256, (4, 8, 64, 80, 3)), dev, torch.uint8)
+             for k in ("frames1", "frames2")}
+    batch.update({k: _t(rng.integers(0, 4, (4,)), dev, torch.int64)
+                  for k in ("rot1", "rot2", "tem", "pb")})
+    reset_launch_counts()
+    state, metrics = step(state, gen, batch, 0.03)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["int8_conv"] == 48 and counts["augment"] == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert any(not torch.equal(p, b) for p, b in
+               zip(model.online_net.parameters(), before))

@@ -154,14 +154,68 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     dict(model_name="s3d", s2d_stem=True), dict(s2d_stem=True),
-    dict(t_fold=1), dict(quant="int8"), dict(mid_round=128),
+    dict(t_fold=1), dict(quant="int8_store"), dict(mid_round=128),
     dict(shard_spatial=1, mesh_shape=(1, 2)), dict(shard_opt_state=1),
+    dict(quant="int8_store_fz"),
 ])
 def test_config_refuses_unported_flags(flag):
     from cstp_tpu_torch.config import Config
 
     with pytest.raises(NotImplementedError):
         Config(**flag).finalize()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_fixed", "int8_static",
+                                   "int8_calib"])
+def test_config_takes_the_int8_modes(quant):
+    """The int8 modes (refused until ``ops/quant.py`` was ported) build a
+    config (the eval-only ones on an eval task) and a classify model whose
+    conv sites carry the mode."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.models.layers import Conv3d
+    from cstp_tpu_torch.train.finetune import create_classify_model
+
+    cfg = Config(model_name="r21d", sample_duration=4, sample_size=32,
+                 quant=quant, task="test").finalize()
+    model = create_classify_model(cfg, 5, device="cpu")
+    modes = {m.quant for m in model.modules() if isinstance(m, Conv3d)}
+    assert modes == {quant}
+
+
+def test_quant_and_serve_modules_stand_alone_and_want_the_card(tmp_path):
+    """``ops/quant.py``, ``serve/quantize.py`` and ``serve/export.py`` are
+    among the port's modules (imported by the JAX-free walk above); their
+    entry points want CUDA unless ``device="cpu"``, and K6's wrapper takes
+    no CPU tensor."""
+    import pkgutil
+
+    import cstp_tpu_torch
+    from cstp_tpu_torch.ops import quant
+    from cstp_tpu_torch.serve import ServingModel
+    from cstp_tpu_torch.serve import export as serve_export
+    from cstp_tpu_torch.serve import quantize as serve_quantize
+
+    names = {m.name for m in pkgutil.walk_packages(cstp_tpu_torch.__path__,
+                                                   "cstp_tpu_torch.")}
+    assert {"cstp_tpu_torch.ops.quant", "cstp_tpu_torch.serve.quantize",
+            "cstp_tpu_torch.serve.export"} <= names
+    xq = torch.zeros((1, 2, 4, 4, 3), dtype=torch.int8)
+    wq = torch.zeros((5, 3, 1, 3, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.int8_conv3d_cuda(xq, wq, torch.ones(5), [1, 1, 1], [0, 1, 1],
+                               [0, 1, 1])
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingModel.load(b"", device=None)
+    argv = ["--ckpt", str(tmp_path), "--out", str(tmp_path / "m.cstps"),
+            "--num_classes", "5"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_export.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_quantize.main(["--out_path", str(tmp_path / "q"),
+                             "--test_md_path", str(tmp_path),
+                             "--model_name", "r21d", "--task", "test"])
 
 
 def test_config_takes_ntxent_weight():
