@@ -180,11 +180,31 @@ Phases:
      same step with the plain int8 conv in K6's place (loss terms equal,
      update cosine >= 0.9999; 1 K5 and 48 K6 launches), then
      ``--quant_scope target`` (24 K6).
+  20. store_chain (the s8 storage chain, ``--quant int8_store`` /
+     ``int8_store_fz``; R(2+1)D depth 1, 16 x 112^2 from 128x171 frames,
+     bf16): (a) K6 with its storage epilogue and K7
+     (``csrc/int8_store.cu``) at the 12 chain sites of a tower at
+     per-view 16 (32 clips a tower call), each against its plain version
+     (bitwise: s8 mid, int64 sums, absmax; s8 output, maximum), its ms,
+     the plain version's and its bound; (b) the int8_store and
+     int8_store_fz pretrain steps at per-view 16 with K5 (the first step
+     bootstraps the scales) against the same steps with the chain's plain
+     versions on the card (loss terms equal, update cosine >= 0.999, all
+     72 scales positive, 24 + 24 K6, 24 K7 and 1 K5 launches a step), with
+     their ms beside phase 3's and phase 19's int8 step, then one
+     int8_store step under torch.profiler; (c)
+     ``bench_step --mode pretrain --quant int8_store`` and
+     ``int8_store_fz`` at per-view 64 with K5 (step ms, peak GiB) beside
+     phase 13's plain ``--remat`` runs: each must fit, without remat, in
+     less memory than the plain ``--remat`` step;
+     (d) one ``main_byol --quant int8_store`` epoch of 3 steps at per-view
+     16 on phase 12's CSTPack data.
 Then one JSON line describing the kernels (``launches`` null with
-``--kernels-only``, which runs phase 19 (a) too; the slice phase's
-launches plus those of phase 16's K5 and ``--legacy_pace`` steps, of
-phase 18's main-path steps and of phase 19's int8 test run and pretrain
-steps), the card's name and power limit, and a last JSON line
+``--kernels-only``, which runs phase 19 (a) and 20 (a) too; the slice
+phase's launches plus those of phase 16's K5 and ``--legacy_pace`` steps,
+of phase 18's main-path steps, of phase 19's int8 test run and pretrain
+steps and of phase 20's steps and epoch), the card's name and power
+limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Imports nothing of JAX.
 """
@@ -192,6 +212,7 @@ line. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import logging
@@ -787,9 +808,7 @@ def phase_slice(dev, card: str, steps: int = 3, profile: bool = True):
         f"{[round(v, 4) for v in losses.tolist()]}; max |online param change|"
         f" {moved:.3e}; launches {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
-    want = {"conv21d_stats": 10 * steps, "conv21d_fwd": 10 * steps,
-            "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
-            "augment": steps, "int8_conv": 0}
+    want = _per_step(10 * steps, 10 * steps, steps)
     if counts != want:
         raise SystemExit(f"launch counts {counts}, expected {want}")
     if not bool(torch.isfinite(losses).all()) or moved <= 0.0:
@@ -1120,9 +1139,7 @@ def phase_finetune(dev, card: str, steps: int = 3):
         f"{[round(v, 4) for v in losses.tolist()]}; max |param change| "
         f"{moved:.3e}; launches {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
-    want = {"conv21d_stats": FT_LAUNCHES * steps,
-            "conv21d_fwd": FT_LAUNCHES * steps, "conv21d_taps9_stats": 0,
-            "conv21d_taps9_fwd": 0, "augment": 0, "int8_conv": 0}
+    want = _per_step(FT_LAUNCHES * steps, FT_LAUNCHES * steps, 0)
     if counts != want:
         raise SystemExit(f"finetune launch counts {counts}, expected {want}")
     if not bool(torch.isfinite(losses).all()) or moved <= 0.0:
@@ -1344,9 +1361,7 @@ def phase_grad_accum(dev, card: str, steps: int = 2):
         f"(microbatches of {B_VIEW // 2}), kernels on: {dt * 1e3:.1f} "
         f"ms/step ({card}); losses {[round(v, 4) for v in losses.tolist()]};"
         f" launches {counts}")
-    want = {"conv21d_stats": 20 * steps, "conv21d_fwd": 20 * steps,
-            "conv21d_taps9_stats": 0, "conv21d_taps9_fwd": 0,
-            "augment": steps, "int8_conv": 0}
+    want = _per_step(20 * steps, 20 * steps, steps)
     if counts != want or not bool(torch.isfinite(losses).all()):
         raise SystemExit(f"grad-accum launch counts {counts} (expected "
                          f"{want}) or non-finite losses")
@@ -1777,9 +1792,12 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
 
 # ------------------------------------------------------------ step flags
 
-def _per_step(c2, c3, c5, c6=0):
+def _per_step(c2, c3, c5, c6=0, c6s=0, c7=0):
+    """Launches of every kernel: K2, K3, K5, K6 (dequantizing), K6 with the
+    storage epilogue, K7."""
     return {"conv21d_stats": c2, "conv21d_fwd": c3, "conv21d_taps9_stats": 0,
-            "conv21d_taps9_fwd": 0, "augment": c5, "int8_conv": c6}
+            "conv21d_taps9_fwd": 0, "augment": c5, "int8_conv": c6,
+            "int8_conv_store": c6s, "int8_bn_relu": c7}
 
 
 # phase 13's runs at per-view B_VIEW: name -> (config flags over the kernel
@@ -1821,7 +1839,8 @@ def phase_flags(dev, card: str, slice_ms: float):
     --double_bias_lr, and SGD with dampening 0.1 and nesterov each held
     against their plain bf16 step by phase 4's rule. Then bench_step
     --mode pretrain at per-view 64 (1 warm-up, 2 timed steps) under
-    FLAG_BENCH_RUNS: step ms, pairs/s, peak GiB and launches per step."""
+    FLAG_BENCH_RUNS: step ms, pairs/s, peak GiB and launches per step;
+    returns those runs by their flags (None where out of memory)."""
     from cstp_tpu_torch.perf import bench_step
 
     t_phase = time.perf_counter()
@@ -1868,10 +1887,12 @@ def phase_flags(dev, card: str, slice_ms: float):
                       (dict(dampening=0.1, nesterov=True),
                        "flags sgd dampening nesterov parity")):
         phase_parity(dev, over=over, tag=tag)
+    benches = {}
     for flags, want, must_fit in FLAG_BENCH_RUNS:
         try:
-            r = bench_step.main(["--mode", "pretrain", "--steps", "2",
-                                 "--warmup", "1", *flags])
+            r = benches[" ".join(flags)] = bench_step.main(
+                ["--mode", "pretrain", "--steps", "2", "--warmup", "1",
+                 *flags])
         except torch.cuda.OutOfMemoryError as e:
             if must_fit:
                 raise
@@ -1892,6 +1913,7 @@ def phase_flags(dev, card: str, slice_ms: float):
             raise SystemExit(f"bench_step {flags} launched {got} per step "
                              f"(expected {want}) or lost its loss")
     log(f"[flags] phase {time.perf_counter() - t_phase:.1f} s")
+    return benches
 
 
 # ------------------------------------------------------------ families
@@ -3650,12 +3672,326 @@ def phase_quant_serve(dev, card: str, slice_ms: float):
     torch.cuda.empty_cache()
     bench = _quant_bench(dev)
     _quant_profile(dev)
-    _quant_pretrain(dev, card, slice_ms, counts)
+    pre = _quant_pretrain(dev, card, slice_ms, counts)
     log(f"[quant] phase {time.perf_counter() - t_phase:.1f} s")
-    return dict(total=total, i3d=i3d, bench=bench), counts
+    return dict(total=total, i3d=i3d, bench=bench,
+                int8_step_ms=pre["k6_ms"]), counts
 
 
-def kernels_line(conv, aug_err, aug_t, counts, k6):
+# ------------------------------------------------------------ storage chain
+
+STORE_QUANTS = ("int8_store", "int8_store_fz")
+# the storage chain's launches per pretrain step, both towers (12 sites
+# each): K5, dequantizing K6, K6 with the storage epilogue, K7
+STORE_PER_STEP = _per_step(0, 0, 1, 24, 24, 24)
+STORE_CLI_STEPS = 3     # steps of phase 20 (d)'s main_byol epoch
+# the chain's own plain step at per-view 64 does not exist; these are the
+# references phase 13 measures in the same run
+STORE_BENCH_REF = ("--fused-conv 0 --remat", "--fused-conv 0 --remat-policy "
+                   "bnrelu")
+
+
+def _store_site(dev, gen, site):
+    """Phase 20 (a) at one chain site at per-view B_VIEW (2 B_VIEW clips a
+    tower call): K6 with the storage epilogue and K7 on its mid against
+    their plain versions (bitwise), their ms, the plain versions' ms (K6's:
+    the float64 conv) and the bounds: K6's int8 operations at 1,979 TOPS
+    against the bytes it must move (the input positions its taps read,
+    the weights, the s8 mid, the int64 sums, the scales), K7's f32
+    operations (8 an element) at 67 TFLOP/s against one s8 read and one s8
+    write an element and its (N, M) operands."""
+    from cstp_tpu_torch.models.layers import r21d_intermediate_channels
+    from cstp_tpu_torch.ops import quant as Q
+
+    _, shape, cout, k, stride, pad = site
+    n, t, h, w, cin = shape
+    m = r21d_intermediate_channels(cin, cout, k)
+    xq = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (m, cin, 1, k[1], k[2]), generator=gen,
+                       device=dev, dtype=torch.int8)
+    scale = torch.rand(m, generator=gen, device=dev) * 1e-3 + 1e-5
+    geo = ([1, stride[1], stride[2]], [0, pad[1], pad[2]],
+           [0, pad[1], pad[2]])
+    one = torch.ones((), device=dev)
+    # a mid scale that clips every value above half the absmax
+    s_mid = (Q.int8_conv3d_store_cuda(xq, wq, scale, one, *geo)[3]
+             / 254.0).reshape(())
+
+    def k6():
+        return Q.int8_conv3d_store_cuda(xq, wq, scale, s_mid, *geo)
+
+    def k6_plain():
+        return Q.int8_conv3d_store_plain(xq, wq, scale, s_mid, *geo)
+
+    got, want = k6(), k6_plain()
+    torch.cuda.synchronize()
+    ok6 = all(torch.equal(a, b) for a, b in zip(got, want))
+    err6 = max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want))
+    hq = got[0]
+    del got, want
+    ms6 = time_ms(k6)
+    plain6 = time_ms(k6_plain, iters=1, warmup=0)
+    rows = math.prod(hq.shape[:4])
+    kk = k[1] * k[2] * cin
+    read = n * t * cin * math.prod(
+        _read_extent(*a) for a in zip((h, w), hq.shape[2:4], k[1:],
+                                      stride[1:], pad[1:]))
+    bound6, by6 = bound_ms(2.0 * rows * m * kk,
+                           read + wq.numel() + hq.numel() + 16 * n * m
+                           + 4 * m + 4, PEAK_INT8)
+    del xq
+    torch.cuda.empty_cache()
+    mean = torch.randn((n, m), generator=gen, device=dev) * 0.1
+    inv = torch.rand((n, m), generator=gen, device=dev) * 1.5 + 0.5
+    gamma = torch.randn(m, generator=gen, device=dev) * 0.2 + 1.0
+    beta = torch.randn(m, generator=gen, device=dev) * 0.2
+    s_act = torch.full((), 0.011, device=dev)
+    args = (hq, s_mid, mean, inv, gamma, beta, s_act)
+    got = Q.bn_relu_requant_cuda(*args)
+    want = Q.bn_relu_requant_plain(*args)
+    torch.cuda.synchronize()
+    ok7 = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err7 = max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want))
+    del got, want
+    ms7 = time_ms(lambda: Q.bn_relu_requant_cuda(*args))
+    plain7 = time_ms(lambda: Q.bn_relu_requant_plain(*args), iters=3,
+                     warmup=1)
+    bound7, by7 = bound_ms(8.0 * hq.numel(), 2 * hq.numel() + 8 * n * m
+                           + 8 * m + 8, PEAK_F32)
+    mid = tuple(hq.shape)
+    del hq, wq, args
+    torch.cuda.empty_cache()
+    return dict(mid=mid, store=dict(ms=ms6, plain_ms=plain6, bound=bound6,
+                                    by=by6, err=err6, ok=ok6,
+                                    tops=2.0 * rows * m * kk / ms6 / 1e9),
+                k7=dict(ms=ms7, plain_ms=plain7, bound=bound7, by=by7,
+                        err=err7, ok=ok7))
+
+
+def _store_sites(dev):
+    """Phase 20 (a): K6's storage epilogue and K7 at the 12 chain sites of
+    an R(2+1)D depth 1 tower at per-view B_VIEW (2 B_VIEW clips of T x
+    S^2); returns each kernel's per-pretrain-step sums (24 launches: 12
+    sites x 2 towers) for the kernels line."""
+    from cstp_tpu_torch.models.r21d import chain_sites
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    total = {k: dict(ms=0.0, plain_ms=0.0, bound=0.0, err=0.0, ok=True,
+                     by_ms={"bytes": 0.0, "operations": 0.0})
+             for k in ("store", "k7")}
+    for site in chain_sites(2 * B_VIEW, T, S):
+        r = _store_site(dev, gen, site)
+        for k in ("store", "k7"):
+            for f in ("ms", "plain_ms", "bound"):
+                total[k][f] += TOWERS * r[k][f]
+            total[k]["by_ms"][r[k]["by"]] += r[k]["bound"]
+            total[k]["err"] = max(total[k]["err"], r[k]["err"])
+            total[k]["ok"] &= r[k]["ok"]
+        st, k7 = r["store"], r["k7"]
+        log(f"[store] {site[0]}: x {site[1]} -> mid {r['mid']}: K6 storage "
+            f"epilogue vs plain {'bitwise' if st['ok'] else 'DIFFER'}; "
+            f"{st['ms']:.3f} ms "
+            f"({st['tops']:.1f} TOPS), bound {st['bound']:.3f} ms "
+            f"({st['by']}), plain (float64) {st['plain_ms']:.1f} ms | K7 vs "
+            f"plain {'bitwise' if k7['ok'] else 'DIFFER'}; {k7['ms']:.3f} "
+            f"ms, bound {k7['bound']:.3f} ms ({k7['by']}), plain "
+            f"{k7['plain_ms']:.2f} ms")
+    for k, name in (("store", "K6 storage epilogue"), ("k7", "K7")):
+        r = total[k]
+        # the bound that sets most of the summed bound
+        r["by"] = max(r["by_ms"], key=r["by_ms"].get)
+        log(f"[store] {name} per pretrain step (24 launches): "
+            f"{r['ms']:.2f} ms, bound {r['bound']:.2f} ms (mostly "
+            f"{r['by']}), plain "
+            f"{r['plain_ms']:.1f} ms, max |kernel - plain| {r['err']}")
+    if not (total["store"]["ok"] and total["k7"]["ok"]):
+        raise SystemExit("[store] the storage epilogue or K7 differs from "
+                         "its plain version")
+    return total
+
+
+@contextlib.contextmanager
+def _plain_chain():
+    """The chain's plain versions in the kernels' place (K6 both kinds,
+    K7); no launch is counted inside."""
+    from cstp_tpu_torch.ops import quant as Q
+
+    real = (Q.int8_conv3d_cuda, Q.int8_conv3d_store_cuda,
+            Q.bn_relu_requant_cuda)
+    Q.int8_conv3d_cuda = Q.int8_conv3d_plain
+    Q.int8_conv3d_store_cuda = Q.int8_conv3d_store_plain
+    Q.bn_relu_requant_cuda = Q.bn_relu_requant_plain
+    try:
+        yield
+    finally:
+        (Q.int8_conv3d_cuda, Q.int8_conv3d_store_cuda,
+         Q.bn_relu_requant_cuda) = real
+
+
+def _store_steps(dev, card: str, slice_ms: float, int8_ms: float, counts):
+    """Phase 20 (b): the int8_store and int8_store_fz pretrain steps at
+    per-view B_VIEW with K5 (the first step bootstraps the scales), against
+    the same steps with the chain's plain versions on the card: loss terms
+    equal, update cosine >= 0.999, all 72 scales positive, launches per
+    step STORE_PER_STEP; then each one's ms over 2 steps and peak GiB."""
+    batch = _slice_batch(dev, seed=4)
+    for quant in STORE_QUANTS:
+        cfg = _slice_config(False, quant=quant, pallas_augment="on")
+        k = _one_step_run(dev, cfg, batch)
+        with _plain_chain():
+            p = _one_step_run(dev, cfg, batch, timed_steps=1)
+        same = all(k["metrics"][n] == p["metrics"][n]
+                   for n in k["metrics"] if n.startswith("loss"))
+        cos = _cos(k, p)
+        scales = [v for n, v in k["stats"].items() if "act_scale" in n]
+        pos = len(scales) == 72 and all(float(v) > 0 for v in scales)
+        log(f"[store] (b) --quant {quant} pretrain step, per-view {B_VIEW}, "
+            f"K5 on: kernels vs the chain's plain versions: loss terms "
+            f"{'equal' if same else 'DIFFER'} (loss "
+            f"{k['metrics']['loss']:.5f} vs {p['metrics']['loss']:.5f}), "
+            f"update cosine {cos:.6f} (tol 0.999); {len(scales)} scales "
+            f"after the bootstrap and step, all > 0: {pos}; step ms: kernels "
+            f"{k['ms']:.1f}, plain chain {p['ms']:.1f}, phase 3's kernel "
+            f"step {slice_ms:.1f}, phase 19's --quant int8 step "
+            f"{int8_ms:.1f} ({card}); peak {k['peak_gib']:.2f} GiB; "
+            f"launches {k['counts']}")
+        if (not same or cos < 0.999 or not pos
+                or k["counts"] != STORE_PER_STEP
+                or p["counts"] != _per_step(0, 0, 1)):
+            raise SystemExit(f"[store] the {quant} step with the kernels "
+                             "differs from its plain chain's, left a scale "
+                             "at 0, or launched other than "
+                             f"{STORE_PER_STEP}")
+        for n, v in k["counts"].items():
+            counts[n] += v
+    _store_profile(dev, batch)
+
+
+def _store_profile(dev, batch):
+    """Phase 20 (b): one int8_store step at per-view B_VIEW under
+    torch.profiler (after the bootstrap and a warm-up step): the device's
+    busy share and its time by kernel."""
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    cfg = _slice_config(False, quant="int8_store", pallas_augment="on")
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    step = make_pretrain_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(2):
+        state, _ = step(state, gen, batch, cfg.learning_rate)
+    log("[store] (b) one --quant int8_store step under torch.profiler:")
+    profile_step(lambda: step(state, gen, batch, cfg.learning_rate), top=16)
+    del model, state, tx, step
+    torch.cuda.empty_cache()
+
+
+def _store_bench(flag_benches):
+    """Phase 20 (c): bench_step --mode pretrain --quant int8_store (and
+    int8_store_fz) at per-view BENCH_STEP_BS with K5, beside phase 13's
+    plain remat steps (the plain step without remat does not fit). Both
+    chain steps must fit, without remat, in less memory than phase 13's
+    plain ``--remat`` step: the chain's reason to exist. An out-of-memory
+    error propagates."""
+    from cstp_tpu_torch.perf import bench_step
+
+    for flags in STORE_BENCH_REF:
+        r = flag_benches.get(flags)
+        log(f"[store] (c) reference, phase 13's bench_step {flags}: "
+            + (f"{r['step_ms']:.1f} ms/step, peak {r['peak_mem_gib']:.2f} "
+               "GiB" if r else "not measured (out of memory)"))
+    # phase 13 holds this run to fit (FLAG_BENCH_RUNS)
+    remat_gib = flag_benches[STORE_BENCH_REF[0]]["peak_mem_gib"]
+    out = {}
+    for quant in STORE_QUANTS:
+        r = bench_step.main(["--mode", "pretrain", "--steps", "2",
+                             "--warmup", "1", "--pallas-augment", "on",
+                             "--quant", quant])
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = {k: v for k, v in r["launches_per_step"].items() if v}
+        log(f"[store] (c) bench_step --mode pretrain --quant {quant} at "
+            f"per-view {BENCH_STEP_BS}, K5 on: {r['step_ms']:.1f} ms/step, "
+            f"{r['pairs_per_s']:.1f} pairs/s, peak {r['peak_mem_gib']:.2f} "
+            f"GiB (the plain --remat step's {remat_gib:.2f}), launches per "
+            f"step {got}")
+        want = {k: v for k, v in STORE_PER_STEP.items() if v}
+        if got != want or not math.isfinite(r["loss"]):
+            raise SystemExit(f"[store] bench_step --quant {quant} launched "
+                             f"{got} (expected {want}) or lost its loss")
+        if not r["peak_mem_gib"] < remat_gib:
+            raise SystemExit(f"[store] bench_step --quant {quant} peaked at "
+                             f"{r['peak_mem_gib']:.2f} GiB, not below the "
+                             f"plain --remat step's {remat_gib:.2f}")
+        out[quant] = r
+    return out
+
+
+def _store_cli(dev, card: str, counts):
+    """Phase 20 (d): one ``main_byol --quant int8_store`` epoch of
+    STORE_CLI_STEPS steps at per-view B_VIEW with K5 on phase 12's CSTPack
+    data (its first videos, written here): STORE_PER_STEP launches a step
+    (the first step's bootstrap launches none), finite CSV rows, the
+    loop's step ms."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cstp_tpu_torch.cli import main_byol
+
+    with tempfile.TemporaryDirectory(prefix="cstp_store_cli_") as root:
+        train = os.path.join(root, "train.cstp")
+        with ThreadPoolExecutor(8) as pool:
+            _pack_videos(train, _cli_videos(),
+                         range(STORE_CLI_STEPS * B_VIEW), pool)
+        res = os.path.join(root, "results")
+        out, _ = _cli_run(main_byol.main, [
+            "--model_name", "r21d_byol", "--model_depth", "1",
+            "--sample_duration", str(T), "--sample_size", str(S),
+            "--compute_dtype", "bfloat16", "--quant", "int8_store",
+            "--pallas_augment", "on", "--task", "loss_com", "--batch_size",
+            str(B_VIEW), "--n_epochs", "1", "--steps_per_epoch",
+            str(STORE_CLI_STEPS), "--log_every", "1", "--n_workers", "6",
+            "--data_backend", "packed", "--lmdb_path", train, "--dataset",
+            "UCF101", "--result_path", res], STORE_PER_STEP,
+            STORE_CLI_STEPS)
+        rows = _check_rows(os.path.join(
+            res, "UCF101", "loss_com",
+            f"UCF101_train_clip{T}modelr21d_byol1.log"))
+    t = _loop_times(out, B_VIEW)
+    log(f"[store] (d) main_byol --quant int8_store, 1 epoch of "
+        f"{STORE_CLI_STEPS} steps at per-view {B_VIEW} on "
+        f"{STORE_CLI_STEPS * B_VIEW} videos of phase 12's CSTPack data: "
+        f"{rows} finite CSV row(s), loop step {t['step_ms']:.1f} ms, data "
+        f"wait {t['wait_ms']:.1f} ms ({card})")
+    for k, v in STORE_PER_STEP.items():
+        counts[k] += v * STORE_CLI_STEPS
+
+
+def phase_store_chain(dev, card: str, slice_ms: float, int8_ms: float,
+                      flag_benches):
+    """Phase 20: the s8 storage chain (``--quant int8_store`` /
+    ``int8_store_fz``; R(2+1)D depth 1, 16 x 112^2, bf16): (a) K6's
+    storage epilogue and K7 at the 12 chain sites, (b) the pretrain steps
+    against the chain's plain versions, (c) bench_step at per-view 64,
+    (d) one main_byol epoch. Returns the kernels' per-step records and the
+    main-path launches."""
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in _per_step(0, 0, 0)}
+    total = _store_sites(dev)
+    _store_steps(dev, card, slice_ms, int8_ms, counts)
+    _store_bench(flag_benches)
+    _store_cli(dev, card, counts)
+    log(f"[store] phase {time.perf_counter() - t_phase:.1f} s")
+    return total, counts
+
+
+def kernels_line(conv, aug_err, aug_t, counts, k6, store):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
     launch, with launches from the slice phase plus phase 16's main-path
@@ -3668,7 +4004,10 @@ def kernels_line(conv, aug_err, aug_t, counts, k6):
     at batch Q_EVAL_BS, where ``torch._int_mm`` computes the same product
     (``library_ms``), while its launches are R(2+1)D's, which has no
     stride-1 1x1x1 conv: that path's own per-shape times are phase 19
-    (a)'s lines. ``counts`` is None when no step ran."""
+    (a)'s lines. The storage epilogue's and K7's numbers are per pretrain
+    step (their 24 launches each at the 12 sites of both towers, per-view
+    B_VIEW; phase 20 (a)), with launches from phase 20's int8_store
+    steps and CLI epoch. ``counts`` is None when no step ran."""
     pallas = "cstp_tpu/ops/pallas"
     rows = [
         ("conv21d_stats", "cstp_tpu_torch/csrc/conv21d.cu",
@@ -3684,6 +4023,11 @@ def kernels_line(conv, aug_err, aug_t, counts, k6):
         # no Pallas call: the int8 lax.conv_general_dilated of --quant
         ("int8_conv", "cstp_tpu_torch/csrc/int8_conv.cu",
          "cstp_tpu/ops/quant.py:53", k6),
+        # no Pallas call: the XLA fusion of --quant int8_store's chain
+        ("int8_conv_store", "cstp_tpu_torch/csrc/int8_conv.cu",
+         "cstp_tpu/ops/quant.py:187", store["store"]),
+        ("int8_bn_relu", "cstp_tpu_torch/csrc/int8_store.cu",
+         "cstp_tpu/ops/quant.py:187", store["k7"]),
     ]
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3741,6 +4085,7 @@ def main(argv=None) -> int:
     counts = None
     if args.kernels_only:
         k6 = _k6_sites(dev)[1]
+        store = _store_sites(dev)
     else:
         sl = phase_slice(dev, card)
         counts = dict(sl["counts"])
@@ -3757,7 +4102,7 @@ def main(argv=None) -> int:
         phase_grad_accum(dev, card)
         bench = phase_bench_step(dev)
         phase_cli(dev, card, sl["step_ms"], bench["pretrain"]["step_ms"])
-        phase_flags(dev, card, sl["step_ms"])
+        flag_benches = phase_flags(dev, card, sl["step_ms"])
         phase_families(dev, card, sl["step_ms"])
         phase_inception(dev, card, sl["step_ms"])
         for k, v in phase_slowfast_legacy(dev, card, sl["step_ms"]).items():
@@ -3769,7 +4114,11 @@ def main(argv=None) -> int:
         for k, v in quant_counts.items():
             counts[k] += v
         k6 = quant["i3d"]
-    print(json.dumps(kernels_line(conv, aug_err, aug_t, counts, k6)),
+        store, store_counts = phase_store_chain(
+            dev, card, sl["step_ms"], quant["int8_step_ms"], flag_benches)
+        for k, v in store_counts.items():
+            counts[k] += v
+    print(json.dumps(kernels_line(conv, aug_err, aug_t, counts, k6, store)),
           flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

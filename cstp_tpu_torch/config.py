@@ -231,9 +231,6 @@ class Config:
         unported = {
             "s2d_stem": bool(self.s2d_stem),
             "t_fold": bool(self.t_fold),
-            # the s8 storage chain (ROADMAP item 15c)
-            "quant int8_store": self.quant == "int8_store",
-            "quant int8_store_fz": self.quant == "int8_store_fz",
             "mid_round > 1": self.mid_round > 1,
             "shard_opt_state": bool(self.shard_opt_state),
             "shard_spatial": bool(self.shard_spatial),

@@ -41,6 +41,23 @@
 // gathers its 16 bytes one by one into registers, issued before the step's
 // mma and stored to shared memory after it. No wgmma, TMA or fused
 // quantize prologue yet: that is the redesign's work (ROADMAP).
+//
+// The storage epilogue (cstp_int8_conv3d_store; --quant int8_store, the
+// s8 storage chain of ops/quant.py, whose JAX counterpart is the XLA fusion
+// at cstp_tpu/ops/quant.py:187-227 and no Pallas call) keeps the chain's
+// f32 mid out of device memory: per element h = acc * scale[c] as above,
+// then hq = clip(rint(h / s_mid), -127, 127) (an IEEE division, as PyTorch
+// divides by a 0-d tensor), written as s8; while observing, max |h| into
+// one f32 (atomicMax on the bits of a non-negative float: exact and
+// order-free); and per (sample, channel) the exact int64 sums of hq and
+// hq^2. The block stages its 64 x 64 s8 tile in the A ring's shared memory;
+// each of its 128 threads then walks 32 rows of one column, summing in
+// int32 (|sum| <= 32 * 127^2) and adding to the (N, Cout) int64 sums with
+// one atomicAdd per sample its rows touch; the tile leaves as rows of
+// bytes, consecutive threads on consecutive addresses. The sums are
+// integers and the absmax a maximum, so any order gives the same result:
+// bitwise the plain version (ops/quant.py int8_conv3d_store_plain). What
+// bounds it is K6's bound with a 1-byte output instead of 2 or 4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,11 +168,24 @@ __device__ __forceinline__ void store16(int8_t* dst, const uint32_t* v) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-template <bool VEC>
+// The storage epilogue's outputs (out is hq, s8): the (N, Cout) int64 sums
+// of hq and hq^2, zeroed by the caller, and max |h| as float bits, zeroed
+// too (written only when observe).
+struct Store {
+  const float* s_mid;
+  unsigned long long* sum1;
+  unsigned long long* sum2;
+  unsigned int* amax;
+  int observe;
+};
+
+constexpr int TS = BN + 4;  // the staged s8 tile's row stride, bytes
+
+template <bool VEC, bool STORE>
 __global__ void __launch_bounds__(THREADS)
     int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ scale, void* __restrict__ out, Shape s,
-                     int out_kind) {
+                     int out_kind, Store st) {
   __shared__ __align__(16) int8_t As[2][BM * LDS];
   __shared__ __align__(16) int8_t Bs[2][BN * LDS];
 
@@ -239,6 +269,80 @@ __global__ void __launch_bounds__(THREADS)
 
   // epilogue: fragment element e of (mi, ni) is row g + 8 * (e / 2), column
   // 2 * tq + e % 2 of the m16 x n8 tile
+  if (STORE) {
+    // the mainloop ended on a barrier: the A ring is free for the s8 tile
+    int8_t* tile = &As[0][0];
+    const float smid = *st.s_mid;
+    float amax = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm + mi * 16 + g + half * 8;
+        const bool row_ok = m0 + r < s.m;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int cl = wn + ni * 8 + tq * 2 + j;
+            const int c = n0 + cl;
+            int q = 0;
+            if (row_ok && c < s.cout) {
+              const float h = __fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + j]), scale[c]);
+              amax = fmaxf(amax, fabsf(h));
+              const float v = fminf(fmaxf(rintf(__fdiv_rn(h, smid)), -127.f), 127.f);
+              q = (int)v;
+            }
+            tile[r * TS + cl] = (int8_t)q;
+          }
+        }
+      }
+    }
+    if (st.observe) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      if (lane == 0) atomicMax(st.amax, __float_as_uint(amax));
+    }
+    __syncthreads();
+
+    // per-(sample, channel) sums: thread tid walks rows 32 * (tid / 64) ..
+    // + 31 of column tid % 64, one atomicAdd pair per sample it touches
+    const int col = tid & (BN - 1);
+    const int c = n0 + col;
+    const int r0 = (tid >> 6) * 32;
+    const long long per = (long long)s.to * s.ho * s.wo;
+    if (c < s.cout && m0 + r0 < s.m) {
+      const long long left = s.m - (m0 + r0);
+      const int nr = left < 32 ? (int)left : 32;
+      long long n = (m0 + r0) / per;
+      long long pos = (m0 + r0) - n * per;
+      int a1 = 0, a2 = 0;
+      for (int i = 0; i < nr; ++i) {
+        const int q = tile[(r0 + i) * TS + col];
+        a1 += q;
+        a2 += q * q;
+        if (++pos == per || i == nr - 1) {
+          if (a2 != 0) {
+            const long long o = n * s.cout + c;
+            atomicAdd(st.sum1 + o, (unsigned long long)(long long)a1);
+            atomicAdd(st.sum2 + o, (unsigned long long)(long long)a2);
+          }
+          a1 = a2 = 0;
+          pos = 0;
+          ++n;
+        }
+      }
+    }
+    // the tile's rows, byte by byte, consecutive threads on consecutive
+    // columns
+    int8_t* hq = static_cast<int8_t*>(out);
+    for (int idx = tid; idx < BM * BN; idx += THREADS) {
+      const int r = idx / BN, cl = idx - r * BN;
+      const long long m = m0 + r;
+      if (m < s.m && n0 + cl < s.cout) hq[m * s.cout + n0 + cl] = tile[r * TS + cl];
+    }
+    return;
+  }
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -271,24 +375,26 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// x (N, T, H, W, Cin) s8; w (Cout, Kp) s8, K = kt*kh*kw*Cin in (dt, dh,
-// dw, ci) order then zeros; scale (Cout,) f32 (unread for out_kind 2);
-// out (N, To, Ho, Wo, Cout): out_kind 0 f32, 1 bf16, 2 the int32
-// accumulator. (pt, ph, pw) are the low pads; the high pads are implied by
-// To, Ho, Wo. Returns 0 or a CUDA error code (cudaErrorInvalidValue for
-// arguments the kernel does not take).
-extern "C" int cstp_int8_conv3d(const void* x, const void* w, const void* scale, void* out,
-                                int n, int t, int h, int wd, int cin, int to, int ho, int wo,
-                                int cout, int kt, int kh, int kw, int st, int sh, int sw,
-                                int pt, int ph, int pw, int kp, int out_kind, void* stream) {
+namespace {
+
+// Shared by both entries: checks the arguments and launches; returns 0 or a
+// CUDA error code.
+template <bool STORE>
+int launch(const void* x, const void* w, const void* scale, void* out, int n, int t, int h, int wd,
+           int cin, int to, int ho, int wo, int cout, int kt, int kh, int kw, int st, int sh,
+           int sw, int pt, int ph, int pw, int kp, int out_kind, Store store, void* stream) {
   const int dims[] = {n, t, h, wd, cin, to, ho, wo, cout, kt, kh, kw, st, sh, sw};
   for (int d : dims)
     if (d <= 0) return (int)cudaErrorInvalidValue;
-  if (pt < 0 || ph < 0 || pw < 0 || out_kind < 0 || out_kind > 2) return (int)cudaErrorInvalidValue;
+  if (pt < 0 || ph < 0 || pw < 0 || out_kind < 0 || out_kind > 3 || (out_kind == 3) != STORE)
+    return (int)cudaErrorInvalidValue;
   const long long k = (long long)kt * kh * kw * cin;
   if (kp % BK != 0 || kp < k || k > 133000) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)w & 15) != 0 || x == nullptr || out == nullptr ||
       (out_kind != 2 && scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (STORE && (store.s_mid == nullptr || store.sum1 == nullptr || store.sum2 == nullptr ||
+                store.amax == nullptr))
     return (int)cudaErrorInvalidValue;
   Shape s{n, t, h, wd, cin, to, ho, wo, cout, kt, kh, kw, st, sh, sw, pt, ph, pw, (int)k, kp,
           (long long)n * to * ho * wo};
@@ -301,9 +407,42 @@ extern "C" int cstp_int8_conv3d(const void* x, const void* w, const void* scale,
   const int8_t* ws = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
   if (cin % 16 == 0 && ((uintptr_t)x & 15) == 0) {
-    int8_conv_kernel<true><<<grid, THREADS, 0, st_>>>(xs, ws, sc, out, s, out_kind);
+    int8_conv_kernel<true, STORE><<<grid, THREADS, 0, st_>>>(xs, ws, sc, out, s, out_kind, store);
   } else {
-    int8_conv_kernel<false><<<grid, THREADS, 0, st_>>>(xs, ws, sc, out, s, out_kind);
+    int8_conv_kernel<false, STORE><<<grid, THREADS, 0, st_>>>(xs, ws, sc, out, s, out_kind, store);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (N, T, H, W, Cin) s8; w (Cout, Kp) s8, K = kt*kh*kw*Cin in (dt, dh,
+// dw, ci) order then zeros; scale (Cout,) f32 (unread for out_kind 2);
+// out (N, To, Ho, Wo, Cout): out_kind 0 f32, 1 bf16, 2 the int32
+// accumulator. (pt, ph, pw) are the low pads; the high pads are implied by
+// To, Ho, Wo. Returns 0 or a CUDA error code (cudaErrorInvalidValue for
+// arguments the kernel does not take).
+extern "C" int cstp_int8_conv3d(const void* x, const void* w, const void* scale, void* out,
+                                int n, int t, int h, int wd, int cin, int to, int ho, int wo,
+                                int cout, int kt, int kh, int kw, int st, int sh, int sw,
+                                int pt, int ph, int pw, int kp, int out_kind, void* stream) {
+  return launch<false>(x, w, scale, out, n, t, h, wd, cin, to, ho, wo, cout, kt, kh, kw, st, sh,
+                       sw, pt, ph, pw, kp, out_kind, Store{}, stream);
+}
+
+// The storage epilogue (out_kind 3): the same conv and scale; hq (N, To,
+// Ho, Wo, Cout) s8 at the 0-d f32 s_mid (a device pointer); sum1, sum2
+// (N, Cout) int64 sums of hq and hq^2, zeroed by the caller; amax one f32,
+// zeroed by the caller, max |h| when observe.
+extern "C" int cstp_int8_conv3d_store(const void* x, const void* w, const void* scale,
+                                      const void* s_mid, void* hq, void* sum1, void* sum2,
+                                      void* amax, int n, int t, int h, int wd, int cin, int to,
+                                      int ho, int wo, int cout, int kt, int kh, int kw, int st,
+                                      int sh, int sw, int pt, int ph, int pw, int kp, int observe,
+                                      void* stream) {
+  Store store{static_cast<const float*>(s_mid), static_cast<unsigned long long*>(sum1),
+              static_cast<unsigned long long*>(sum2), static_cast<unsigned int*>(amax),
+              observe};
+  return launch<true>(x, w, scale, hq, n, t, h, wd, cin, to, ho, wo, cout, kt, kh, kw, st, sh,
+                      sw, pt, ph, pw, kp, 3, store, stream);
 }

@@ -10,7 +10,9 @@ Port module names follow the Flax names, so the map is a path rename:
   the JAX package nests its body under an inner module named ``bn``;
 * a quantized conv's calibrated scale ``a/conv/act_scale`` (batch_stats,
   ``--quant int8_static`` / ``int8_calib``) -> the buffer
-  ``a.conv.act_scale``.
+  ``a.conv.act_scale``, and a storage-chain block's delayed scales
+  ``a/act_scale_{in,mid,act}`` (batch_stats, ``--quant int8_store``) ->
+  the buffers ``a.act_scale_{in,mid,act}``.
 
 Every leaf maps to exactly one port tensor; a leaf left unused or a port
 tensor left unset raises.
@@ -125,8 +127,8 @@ def export_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     """A port ``state_dict`` as ``{'params', 'batch_stats'}``, Flax-layout
     nested dicts of numpy arrays. The BatchNorm modules are those holding
     both running statistics (``mean`` and ``var`` buffers); those and the
-    quantized convs' ``act_scale`` are the port's only buffers, and the
-    batch stats."""
+    quantization scales (``act_scale``, ``act_scale_{in,mid,act}``) are the
+    port's only buffers, and the batch stats."""
     def split(n):
         return tuple(n.rsplit(".", 1)) if "." in n else ("", n)
 
@@ -136,7 +138,7 @@ def export_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     for n, t in sd.items():
         owner, leaf = split(n)
         col = ("batch_stats" if (owner in owners and leaf in _BN_STATS)
-               or leaf == "act_scale" else "params")
+               or leaf.startswith("act_scale") else "params")
         tree[col][jax_path(n, owners)] = to_jax_layout(
             t.detach().float().cpu().numpy())
     return {k: _nest(v) for k, v in tree.items()}

@@ -22,18 +22,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cstp_tpu_torch.ops.bn import BN_EPS, group_moments, per_sample
 from cstp_tpu_torch.ops.conv21d import fused_st_conv
 from cstp_tpu_torch.ops.quant import (
     FIXED_SCALE,
     QUANT_MODES,
     STATIC_FLOOR,
+    STORE_DECAY,
+    STORE_FLOOR,
+    STORE_MODES,
     activation_absmax_scale,
+    float_store_chain,
     int8_conv,
+    int8_store_chain,
 )
 from cstp_tpu_torch.parallel.mesh import global_moments
 
 BN_MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
-BN_EPS = 1e-5
 
 
 # ---------------------------------------------------------------- init laws
@@ -100,11 +105,7 @@ class BatchNorm(nn.Module):
         b, g = xf.shape[0], self.groups
         if b % g:
             raise ValueError(f"batch {b} not divisible by {g} BN groups")
-        axes = tuple(range(1, xf.dim() - 1))
-        pmean = xf.mean(dim=axes) if axes else xf               # (B, C)
-        psq = xf.square().mean(dim=axes) if axes else xf.square()
-        gmean, gsq = self._global(pmean.reshape(g, b // g, c).mean(1),
-                                  psq.reshape(g, b // g, c).mean(1))
+        gmean, gsq = self._global(*group_moments(xf, g))
         return gmean, gsq - gmean.square()
 
     def _global(self, mean, sq):
@@ -132,9 +133,8 @@ class BatchNorm(nn.Module):
             return (y + self.bias).to(out_dtype)
         b, g = xf.shape[0], self.groups
         shape = (b,) + (1,) * (xf.dim() - 2) + (xf.shape[-1],)
-        mean_b = gmean.repeat_interleave(b // g, 0).reshape(shape)
-        var_b = gvar.repeat_interleave(b // g, 0).reshape(shape)
-        y = (xf - mean_b) * torch.rsqrt(var_b + BN_EPS)
+        y = (xf - per_sample(gmean, b, shape)) * torch.rsqrt(
+            per_sample(gvar, b, shape) + BN_EPS)
         return (y * self.scale + self.bias).to(out_dtype)
 
 
@@ -287,7 +287,20 @@ class SpatioTemporalConv(nn.Module):
     :func:`cstp_tpu_torch.ops.conv21d.fused_st_conv`, which launches the
     CUDA kernels for CUDA tensors and runs their plain version on the CPU.
     The parameters are the same either way. ``quant`` reaches both convs
-    (``Conv3d``).
+    (``Conv3d``), except the storage chain's modes (``STORE_MODES``),
+    which the block runs whole (``ops/quant.py``), with the float block's
+    parameters and three float32 buffers ``act_scale_{in,mid,act}``, 0 at
+    init (the JAX package's batch-stats leaves of the same names):
+
+    * train with ``int8_store``: the int8 chain at the delayed scales
+      ``max(scale, 1e-6)``, then ``scale = max(0.999 * scale, obs)`` from
+      its exact observations; ``int8_store_fz``: the same with the scales
+      frozen (no observations);
+    * train with ``int8_store_calib`` (the pretrain step's bootstrap,
+      :func:`store_calibration`) and eval: the float chain; in train the
+      scales rise to the observations.
+
+    The running statistics move as a BatchNorm's, 0.9 / 0.1, in train.
     """
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
@@ -300,12 +313,17 @@ class SpatioTemporalConv(nn.Module):
         pt, ph, pw = self.padding = _triple(padding)
         self.dtype = dtype
         self.fused = fused
+        self.quant = quant
+        conv_quant = "" if quant in STORE_MODES else quant
         mid = r21d_intermediate_channels(in_ch, features, self.kernel)
         self.spatial_conv = Conv3d(in_ch, mid, (1, kh, kw), (1, sh, sw),
-                                   (0, ph, pw), dtype, gen, quant=quant)
+                                   (0, ph, pw), dtype, gen, quant=conv_quant)
         self.bn = BatchNorm(mid, bn_groups, gen)
         self.temporal_conv = Conv3d(mid, features, (kt, 1, 1), (st, 1, 1),
-                                    (pt, 0, 0), dtype, gen, quant=quant)
+                                    (pt, 0, 0), dtype, gen, quant=conv_quant)
+        if quant in STORE_MODES:
+            for k in ("in", "mid", "act"):
+                self.register_buffer(f"act_scale_{k}", torch.zeros(()))
 
     def fused_eligible(self, train: bool) -> bool:
         kt, kh, kw = self.kernel
@@ -315,6 +333,8 @@ class SpatioTemporalConv(nn.Module):
                 and (ph, pw) == (kh // 2, kw // 2))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if self.quant in STORE_MODES:
+            return self._store_forward(x, train)
         if self.fused_eligible(train):
             ws = self.spatial_conv.weight[:, :, 0].permute(2, 3, 1, 0)
             wt = self.temporal_conv.weight[:, :, :, 0, 0].permute(2, 1, 0)
@@ -327,6 +347,53 @@ class SpatioTemporalConv(nn.Module):
         x = self.bn(x, train)
         x = torch.relu(x).to(self.dtype)
         return self.temporal_conv(x)
+
+    def _store_forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        st, sh, sw = self.stride
+        pt, ph, pw = self.padding
+        geometry = ((1, sh, sw), (0, ph, pw), (st, 1, 1), (pt, 0, 0))
+        bn = self.bn
+        scales = (self.act_scale_in, self.act_scale_mid, self.act_scale_act)
+        ws, wt = self.spatial_conv.weight, self.temporal_conv.weight
+        if self.quant == "int8_store_calib" or not train:
+            out, gmean, gvar, obs = float_store_chain(
+                x, ws, wt, bn.scale, bn.bias, bn.groups, *geometry, train,
+                bn.mean, bn.var, self.dtype, cross_rank=bn.cross_rank)
+            if train:
+                with torch.no_grad():
+                    for s, a in zip(scales, obs):
+                        s.copy_(torch.maximum(s, a))
+                bn.update_running(gmean, gvar)
+            return out.to(self.dtype)
+        observe = self.quant == "int8_store"
+        out, gmean, gvar, *obs = int8_store_chain(
+            x, ws, wt, bn.scale, bn.bias,
+            *(torch.clamp(s, min=STORE_FLOOR) for s in scales), *geometry,
+            bn.groups, observe, bn.cross_rank)
+        if observe:
+            with torch.no_grad():
+                for s, a in zip(scales, obs):
+                    s.copy_(torch.maximum(STORE_DECAY * s, a))
+        bn.update_running(gmean, gvar)
+        return out
+
+
+@contextlib.contextmanager
+def store_calibration(module: nn.Module):
+    """Every storage-chain site of ``module`` (``int8_store`` /
+    ``int8_store_fz``) switched to ``int8_store_calib`` inside the block,
+    and back after it: the bootstrap forward of the pretrain step, on the
+    same parameters and buffers. Yields the number of sites."""
+    sites = [m for m in module.modules()
+             if isinstance(m, SpatioTemporalConv) and m.quant in STORE_MODES]
+    modes = [m.quant for m in sites]
+    try:
+        for m in sites:
+            m.quant = "int8_store_calib"
+        yield len(sites)
+    finally:
+        for m, q in zip(sites, modes):
+            m.quant = q
 
 
 # ---------------------------------------------------------------- heads

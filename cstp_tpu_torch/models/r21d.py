@@ -100,6 +100,27 @@ class SpatioTemporalResLayer(nn.Module):
 REMAT_MODES = ("", "full", "bnrelu")
 
 
+def chain_sites(n: int, t: int, s: int,
+                layer_sizes: Tuple[int, int, int, int] = (1, 1, 1, 1)):
+    """The (2+1)D sites of one R(2+1)D tower on ``n`` clips of ``t x s^2``,
+    in forward order: ``(name, input shape (N, T, H, W, Cin), Cout,
+    kernel, stride, padding)`` each, the shapes the storage chain's
+    kernels see (for their benchmarks and card checks), read off a tower
+    that runs on the meta device."""
+    with torch.device("meta"):
+        model = R2Plus1DNet(layer_sizes, dtype=torch.float32)
+    sites = []
+    for name, m in model.named_modules():
+        if isinstance(m, SpatioTemporalConv):
+            m.register_forward_pre_hook(
+                lambda m, a, name=name: sites.append((
+                    name, tuple(a[0].shape), m.temporal_conv.weight.shape[0],
+                    m.kernel, m.stride, m.padding)))
+    with torch.no_grad():
+        model(torch.zeros(n, t, s, s, 3, device="meta"), True)
+    return sites
+
+
 def remat_mode(remat: bool, remat_policy: str) -> str:
     """The JAX package's precedence: ``--remat`` (full) over
     ``--remat_policy``."""
@@ -110,13 +131,30 @@ def checkpointed(layer: nn.Module, x: torch.Tensor, train: bool,
                  mode: str) -> torch.Tensor:
     """``layer(x, train)`` under non-reentrant checkpointing (the steps take
     gradients with ``torch.autograd.grad``, which reentrant checkpointing
-    does not support). The recompute restores the layer's BN running
-    statistics, so they advance once per forward, as without remat."""
+    does not support). The recompute starts from the storage chain's
+    ``act_scale_*`` buffers as the forward found them (the delayed scales
+    quantize it; the BatchNorms read batch statistics, not their buffers)
+    and restores every buffer after, so the BN running statistics and the
+    scales advance once per forward, as without remat and as in the JAX
+    package's functional remat."""
+    scales = [b for n, b in layer.named_buffers()
+              if n.rsplit(".", 1)[-1].startswith("act_scale_")]
+    entry = []
+
+    @contextlib.contextmanager
+    def forwarding(inner):
+        entry[:] = [b.clone() for b in scales]
+        with inner:
+            yield
 
     @contextlib.contextmanager
     def recomputing(inner):
-        with running_stats_kept(layer), inner:
-            yield
+        with running_stats_kept(layer):
+            with torch.no_grad():
+                for b, v in zip(scales, entry):
+                    b.copy_(v)
+            with inner:
+                yield
 
     def contexts():
         if mode == "bnrelu":
@@ -124,7 +162,7 @@ def checkpointed(layer: nn.Module, x: torch.Tensor, train: bool,
                 [torch.ops.aten.convolution.default])
         else:
             fwd, inner = contextlib.nullcontext(), contextlib.nullcontext()
-        return fwd, recomputing(inner)
+        return forwarding(fwd), recomputing(inner)
 
     return checkpoint(lambda y: layer(y, train), x, use_reentrant=False,
                       context_fn=contexts)

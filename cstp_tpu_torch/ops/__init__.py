@@ -12,7 +12,9 @@ def launch_counts():
             "conv21d_fwd": C.launches["fwd"],
             "conv21d_taps9_stats": C.launches["stats_taps9"],
             "conv21d_taps9_fwd": C.launches["fwd_taps9"],
-            "augment": A.launches, "int8_conv": Q.launches}
+            "augment": A.launches, "int8_conv": Q.launches,
+            "int8_conv_store": Q.store_launches,
+            "int8_bn_relu": Q.bnrelu_launches}
 
 
 def reset_launch_counts():
@@ -23,4 +25,4 @@ def reset_launch_counts():
 
     C.launches.update(dict.fromkeys(C.launches, 0))
     A.launches = 0
-    Q.launches = 0
+    Q.launches = Q.store_launches = Q.bnrelu_launches = 0

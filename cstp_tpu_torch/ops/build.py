@@ -32,7 +32,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cstp_tpu_torch"
-SOURCES = ("conv21d", "augment", "int8_conv")
+SOURCES = ("conv21d", "augment", "int8_conv", "int8_store")
 HOST_SOURCES = ("cstpack_reader",)
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 HOST_LIBS = ("-lpthread",)

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from cstp_tpu_torch.ops import build
+from cstp_tpu_torch.ops.bn import per_sample
 from cstp_tpu_torch.parallel.mesh import global_moments, is_distributed
 
 # launches per wrapper (one per call on CUDA tensors)
@@ -104,9 +105,9 @@ def reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups: int,
     b = x.shape[0]
     g = bn_groups
     mid = _spatial_conv(x, ws, dtype)
-    mean_b = gmean.repeat_interleave(b // g, dim=0)[:, None, None, None, :]
-    rstd_b = torch.rsqrt(gvar.repeat_interleave(b // g, dim=0)
-                         + eps)[:, None, None, None, :]
+    shape = (b, 1, 1, 1, -1)
+    mean_b = per_sample(gmean, b, shape)
+    rstd_b = torch.rsqrt(per_sample(gvar, b, shape) + eps)
     y = (mid.float() - mean_b) * rstd_b * scale + bias
     y = torch.relu(y).to(dtype)
     wt_o = wt.to(dtype).permute(2, 1, 0)[:, :, :, None, None]   # (Cout,M,3,1,1)

@@ -19,7 +19,11 @@ rows ``[r B/N, (r+1) B/N)`` of each view:
 * under ``--sync_bn 0`` normalisation stays local (JAX's groups r and N + r
   of a ``data=N`` mesh are rank r's rows) and the BN running statistics,
   which move linearly in the group means, are averaged after the step
-  (:func:`average_buffers_`).
+  (:func:`average_buffers_`);
+* the s8 storage chain (``--quant int8_store``, ``ops/quant.py``) takes
+  its absmax observations as maxima over the ranks (:func:`all_reduce_max`;
+  JAX's are over the whole batch), and under ``--sync_bn 1`` its BN
+  moments from its int64 sums, all-reduced exactly.
 
 The collectives are ``all_reduce``, ``all_gather`` and ``broadcast`` only,
 which gloo also carries for CUDA tensors. Without a process group every
@@ -291,6 +295,17 @@ def global_moments(*moments: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 @torch.no_grad()
+def all_reduce_max(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Maxima over ranks of same-shaped tensors, in one all-reduce (the
+    identity without a group)."""
+    if not is_distributed():
+        return xs
+    t = torch.stack(xs)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return tuple(t.unbind(0))
+
+
+@torch.no_grad()
 def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> None:
     """Replace each tensor by its mean over ranks, in place, with one
     all-reduce of one flat buffer per dtype and device."""
@@ -323,8 +338,11 @@ def mean_metrics(metrics: Dict[str, torch.Tensor]
 def average_buffers_(module: nn.Module) -> None:
     """The module's floating-point buffers (BN running statistics) averaged
     over ranks, in place (``--sync_bn 0``: JAX's mean over the groups of
-    every rank)."""
-    all_reduce_mean_([b for b in module.buffers() if b.is_floating_point()])
+    every rank). The storage chain's ``act_scale_*`` are left out: they
+    move by maxima over the ranks and are equal on every rank already."""
+    all_reduce_mean_([b for n, b in module.named_buffers()
+                      if b.is_floating_point()
+                      and not n.rsplit(".", 1)[-1].startswith("act_scale_")])
 
 
 @torch.no_grad()

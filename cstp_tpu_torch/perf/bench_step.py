@@ -4,7 +4,7 @@ its default shape.
 
     python -m cstp_tpu_torch.perf.bench_step [--mode pretrain|ft|eval|serve]
         [--per-chip-bs 64] [--steps 10] [--warmup 3] [--model r21d]
-        [--depth 1] [--quant ''|int8_static]
+        [--depth 1] [--quant ''|int8_static|int8_store|int8_store_fz]
         [--fused-conv 0|1|2] [--pallas-augment auto|on|off]
         [--grad-accum 1] [--remat] [--remat-policy ''|bnrelu]
         [--concat-views 1|0] [--device cuda|cpu]
@@ -37,6 +37,9 @@ in the JAX package). The modes:
 static int8 convs (K6) and fills every ``act_scale`` with 0.05, as
 ``bench.py``'s ``_fill_act_scales`` does: the bench has no calibrated
 checkpoint, and the time does not depend on the scale's value.
+``--quant int8_store`` and ``int8_store_fz`` (``pretrain``, R(2+1)D) run
+the s8 storage chain (K6 with its storage epilogue, K7, K6), its scales
+bootstrapped in the first warm-up step, as bench.py's ``--quant`` does.
 
 Batches are drawn on the device from a seeded generator, three of them used
 in turn. The step time is the host clock around the timed steps, which end
@@ -197,14 +200,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--remat-policy", default="", choices=["", "bnrelu"],
                     help="selective remat: recompute only BN/ReLU in bwd")
     ap.add_argument("--concat-views", type=int, default=1, choices=[0, 1])
-    ap.add_argument("--quant", default="", choices=["", "int8_static"],
-                    help="eval and serve: static int8 convs (K6), every "
-                    "act_scale filled with 0.05")
+    ap.add_argument("--quant", default="",
+                    choices=["", "int8_static", "int8_store",
+                             "int8_store_fz"],
+                    help="eval and serve: int8_static, static int8 convs "
+                    "(K6), every act_scale filled with 0.05; pretrain: "
+                    "int8_store / int8_store_fz, the s8 storage chain")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.quant and args.mode not in ("eval", "serve"):
+    if args.quant == "int8_static" and args.mode not in ("eval", "serve"):
         ap.error("--quant int8_static takes --mode eval or serve")
+    if args.quant.startswith("int8_store") and args.mode != "pretrain":
+        ap.error(f"--quant {args.quant} takes --mode pretrain")
     dev = resolve_device(args.device)
     cfg = _config(args)
     if dev.type == "cuda":

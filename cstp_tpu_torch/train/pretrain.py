@@ -46,6 +46,7 @@ from cstp_tpu_torch.augment.pipeline import (
     pretrain_augment_batch_fused,
 )
 from cstp_tpu_torch.config import Config
+from cstp_tpu_torch.models.layers import store_calibration
 from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.ssl.byol import CSTPPretrain, cross_entropy, ema_update
 from cstp_tpu_torch.ssl.ntxent import cross_replica_ntxent
@@ -187,15 +188,21 @@ def check_trainable_quant(config: Config, context: str) -> None:
     """Refuse the eval-only ``--quant`` modes on a training step (the JAX
     package's ``_check_trainable_quant``): ``int8_static`` would quantize
     with the zero-initialised ``act_scale`` and ``int8_calib`` observes
-    scales instead of quantizing. Training takes '' / int8 / int8_fixed.
-    ``Config.finalize`` refuses them on training tasks already; this guards
-    a config that skipped it."""
+    scales instead of quantizing. Training takes '' / int8 / int8_fixed,
+    and on the r21d family int8_store / int8_store_fz. ``Config.finalize``
+    refuses the others already; this guards a config that skipped it."""
     if config.quant in ("int8_static", "int8_calib"):
         raise ValueError(
             f"--quant {config.quant} is an eval/serve/calibration mode and "
             f"cannot drive the {context} TRAINING step (see "
             "serve/quantize.py). Use --quant '' (float), int8, or "
             "int8_fixed for training.")
+    if (config.quant in ("int8_store", "int8_store_fz")
+            and not config.model_name.startswith("r21d")):
+        raise ValueError(
+            f"--quant {config.quant} is implemented for the r21d factorized "
+            f"chain only; got model '{config.model_name}'. Use --quant int8/"
+            "int8_fixed for other families.")
 
 
 def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
@@ -260,6 +267,20 @@ def split_pretrain_step(model: CSTPPretrain, tx: optim.Optimizer,
     return _build_pretrain_programs(model, tx, config)
 
 
+@torch.no_grad()
+def bootstrap_store_scales(model: CSTPPretrain, v1: torch.Tensor,
+                           v2: torch.Tensor) -> int:
+    """The ``--quant int8_store`` bootstrap: one train-mode forward of the
+    model on the views, without gradients, with its storage-chain sites
+    switched to ``int8_store_calib`` (float chain; the delayed
+    ``act_scale_*`` rise to the batch's exact observations and every BN
+    running statistic moves once, as in the JAX package's bootstrap
+    apply). Returns the number of sites."""
+    with store_calibration(model) as n:
+        model(v1, v2, train=True)
+    return n
+
+
 def make_pretrain_step(model: CSTPPretrain, tx: optim.Optimizer,
                        config: Config):
     """Returns ``step(state, generator, batch, lr) -> (state, metrics)``.
@@ -268,13 +289,23 @@ def make_pretrain_step(model: CSTPPretrain, tx: optim.Optimizer,
     ``rot1``/``rot2``/``tem``/``pb`` ``(B,)`` integer labels, on the model's
     device; ``generator`` is a ``torch.Generator`` on that device and draws
     the augmentation. Metrics are 0-d tensors on the device.
+
+    With ``--quant int8_store`` / ``int8_store_fz`` the step function's
+    first call runs :func:`bootstrap_store_scales` on its views between the
+    augment and the train program (before the target's EMA), so step 0
+    never quantizes at the zero-initialised scales; a resumed run, a new
+    step function, bootstraps again, as the JAX package's does.
     """
     augment, train = _build_pretrain_programs(model, tx, config)
+    pending = [config.quant in ("int8_store", "int8_store_fz")]
 
     def step(state: TrainState, generator: torch.Generator,
              batch: Dict[str, torch.Tensor], lr):
         v1, v2, spa = augment(generator, batch["frames1"], batch["frames2"],
                               batch["rot1"], batch["rot2"])
+        if pending[0]:
+            bootstrap_store_scales(state.model, v1, v2)
+            pending[0] = False
         return train(state, (v1, v2, spa, batch["tem"], batch["pb"],
                              batch["rot1"], batch["rot2"]), lr)
 

@@ -757,3 +757,181 @@ def test_int8_pretrain_step_on_the_card_runs_k6(dev):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert any(not torch.equal(p, b) for p, b in
                zip(model.online_net.parameters(), before))
+
+
+# The storage chain (--quant int8_store): its 12 sites per R(2+1)D tower at
+# 16 x 112^2, batch 4
+def _store_sites():
+    from cstp_tpu_torch.models.r21d import chain_sites
+
+    return chain_sites(4, 16, 112)
+
+
+def _site_ids():
+    return [s[0] for s in _store_sites()]
+
+
+def _store_inputs(dev, site, seed=0):
+    """Random s8 input and spatial weights of ``site``, its scale, and the
+    spatial conv's stride and pads."""
+    from cstp_tpu_torch.models.layers import r21d_intermediate_channels
+
+    _, shape, cout, k, stride, pad = site
+    m = r21d_intermediate_channels(shape[-1], cout, k)
+    rng = np.random.default_rng(seed)
+    xq = _t(rng.integers(-127, 128, shape), dev, torch.int8)
+    wq = _t(rng.integers(-127, 128, (m, shape[-1], 1, k[1], k[2])), dev,
+            torch.int8)
+    scale = _t(rng.uniform(1e-5, 1e-3, m), dev, torch.float32)
+    geo = ([1, stride[1], stride[2]], [0, pad[1], pad[2]],
+           [0, pad[1], pad[2]])
+    return xq, wq, scale, geo
+
+
+@pytest.mark.parametrize("site", range(12), ids=_site_ids())
+def test_k6_storage_epilogue_matches_its_plain_version_bitwise(dev, site):
+    """K6 with the storage epilogue at each chain site: hq, the int64 sums
+    of hq and hq^2 per (sample, channel) and the absmax equal the plain
+    version's bitwise (integers and a maximum); one launch per call, none
+    of the dequantizing kind; without observing, the absmax stays 0."""
+    from cstp_tpu_torch.ops import quant as Q
+
+    xq, wq, scale, geo = _store_inputs(dev, _store_sites()[site])
+    _, _, _, amax = Q.int8_conv3d_store_plain(xq, wq, scale,
+                                              torch.ones((), device=dev),
+                                              *geo)
+    # a mid scale that clips every value above half the absmax
+    s_mid = (amax / 254.0).reshape(())
+    for observe in (True, False):
+        before = (Q.launches, Q.store_launches)
+        got = Q.int8_conv3d_store(xq, wq, scale, s_mid, *geo, observe)
+        torch.cuda.synchronize()
+        assert (Q.launches, Q.store_launches) == (before[0], before[1] + 1)
+        want = Q.int8_conv3d_store_plain(xq, wq, scale, s_mid, *geo,
+                                         observe)
+        for name, a, b in zip(("hq", "sums", "sq_sums", "amax"), got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, b), (name, observe)
+        assert int(got[0].abs().max()) == 127
+
+
+@pytest.mark.parametrize("site", range(12), ids=_site_ids())
+def test_k7_matches_its_plain_version_bitwise(dev, site):
+    """K7 at each chain site's mid (N, T, Ho, Wo, M): yq and max y1 equal
+    the plain version's bitwise (every operation rounded on its own, in
+    the same order); one launch per call."""
+    from cstp_tpu_torch.models.layers import r21d_intermediate_channels
+    from cstp_tpu_torch.ops import quant as Q
+
+    _, shape, cout, k, stride, pad = _store_sites()[site]
+    m = r21d_intermediate_channels(shape[-1], cout, k)
+    n, t, h = shape[0], shape[1], shape[2]
+    ho = (h + 2 * pad[1] - k[1]) // stride[1] + 1
+    rng = np.random.default_rng(site)
+    hq = _t(rng.integers(-127, 128, (n, t, ho, ho, m)), dev, torch.int8)
+    mean = _t(rng.normal(size=(n, m)) * 0.1, dev, torch.float32)
+    inv = _t(rng.uniform(0.5, 2.0, (n, m)), dev, torch.float32)
+    gamma = _t(1 + 0.2 * rng.normal(size=m), dev, torch.float32)
+    beta = _t(0.2 * rng.normal(size=m), dev, torch.float32)
+    s_mid = torch.tensor(0.013, device=dev)
+    s_act = torch.tensor(0.011, device=dev)
+    for observe in (True, False):
+        before = Q.bnrelu_launches
+        got = Q.bn_relu_requant(hq, s_mid, mean, inv, gamma, beta, s_act,
+                                observe)
+        torch.cuda.synchronize()
+        assert Q.bnrelu_launches == before + 1
+        want = Q.bn_relu_requant_plain(hq, s_mid, mean, inv, gamma, beta,
+                                       s_act, observe)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[0].max()) == 127 and int(got[0].min()) == 0
+
+
+def test_k7_takes_unaligned_and_ragged_tensors(dev):
+    """A view 1 byte into its storage (no 16-byte vectors) and an element
+    count that is no multiple of 16: still bitwise the plain version."""
+    from cstp_tpu_torch.ops import quant as Q
+
+    rng = np.random.default_rng(1)
+    n, m = 3, 83
+    buf = _t(rng.integers(-127, 128, 1 + n * 5 * 7 * 7 * m), dev, torch.int8)
+    hq = buf[1:].view(n, 5, 7, 7, m)
+    args = (torch.tensor(0.02, device=dev),
+            _t(rng.normal(size=(n, m)) * 0.1, dev, torch.float32),
+            _t(rng.uniform(0.5, 2.0, (n, m)), dev, torch.float32),
+            torch.ones(m, device=dev), torch.zeros(m, device=dev),
+            torch.tensor(0.02, device=dev))
+    got = Q.bn_relu_requant_cuda(hq, *args)
+    want = Q.bn_relu_requant_plain(hq, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="K7"):
+        Q.bn_relu_requant_cuda(hq, args[0], args[1][:, :5], *args[2:])
+
+
+def test_int8_store_pretrain_step_on_the_card(dev):
+    """A ``--quant int8_store`` pretrain step at 8 x 32^2 with K5: the
+    bootstrap launches nothing, the step 24 K6 with the storage epilogue,
+    24 K7 and 24 dequantizing K6 (12 sites per tower); every scale is
+    positive and the losses finite. The same step with the plain versions
+    in the kernels' place gives bitwise the same forward (loss terms,
+    scales, running statistics: the kernels are bitwise their plain
+    versions) and the same update to cosine 0.9999 (cuDNN's bf16 backward
+    convs may sum in another order from run to run)."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.ops import launch_counts, reset_launch_counts
+    from cstp_tpu_torch.ops import quant as Q
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    cfg = Config(model_name="r21d", sample_duration=8, sample_size=32,
+                 batch_size=4, quant="int8_store",
+                 pallas_augment="on").finalize()
+    rng = np.random.default_rng(0)
+    batch = {k: _t(rng.integers(0, 256, (4, 8, 64, 80, 3)), dev, torch.uint8)
+             for k in ("frames1", "frames2")}
+    batch.update({k: _t(rng.integers(0, 4, (4,)), dev, torch.int64)
+                  for k in ("rot1", "rot2", "tem", "pb")})
+
+    def run():
+        model, state, tx = create_pretrain_state(cfg, device=dev)
+        sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        step = make_pretrain_step(model, tx, cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_launch_counts()
+        state, metrics = step(state, gen, batch, 0.03)
+        torch.cuda.synchronize()
+        sd = model.state_dict()
+        update = torch.cat([(v - sd0[k]).double().flatten()
+                            for k, v in sd.items() if v.is_floating_point()
+                            and v.dim() > 0 and k.startswith("online_net")
+                            and not k.endswith(("mean", "var"))])
+        return sd, metrics, launch_counts(), update
+
+    sd, metrics, counts, update = run()
+    assert (counts["int8_conv"], counts["int8_conv_store"],
+            counts["int8_bn_relu"], counts["augment"]) == (24, 24, 24, 1)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    scales = [v for k, v in sd.items() if "act_scale" in k]
+    assert len(scales) == 72 and all(float(v) > 0 for v in scales)
+    real = (Q.int8_conv3d_cuda, Q.int8_conv3d_store_cuda,
+            Q.bn_relu_requant_cuda)
+    try:
+        Q.int8_conv3d_cuda = Q.int8_conv3d_plain
+        Q.int8_conv3d_store_cuda = Q.int8_conv3d_store_plain
+        Q.bn_relu_requant_cuda = Q.bn_relu_requant_plain
+        sd_plain, metrics_plain, counts_plain, update_plain = run()
+    finally:
+        (Q.int8_conv3d_cuda, Q.int8_conv3d_store_cuda,
+         Q.bn_relu_requant_cuda) = real
+    assert counts_plain["int8_conv_store"] == counts_plain["int8_bn_relu"] \
+        == 0
+    for k, v in metrics.items():
+        if k.startswith("loss"):
+            assert torch.equal(v, metrics_plain[k]), k
+    for k, v in sd.items():
+        if k.endswith(("mean", "var")) or "act_scale" in k:
+            assert torch.equal(v, sd_plain[k]), k
+    assert float(torch.nn.functional.cosine_similarity(
+        update, update_plain, dim=0)) >= 0.9999

@@ -154,9 +154,8 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     dict(model_name="s3d", s2d_stem=True), dict(s2d_stem=True),
-    dict(t_fold=1), dict(quant="int8_store"), dict(mid_round=128),
+    dict(t_fold=1), dict(mid_round=128),
     dict(shard_spatial=1, mesh_shape=(1, 2)), dict(shard_opt_state=1),
-    dict(quant="int8_store_fz"),
 ])
 def test_config_refuses_unported_flags(flag):
     from cstp_tpu_torch.config import Config

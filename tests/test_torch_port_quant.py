@@ -411,16 +411,6 @@ def test_quant_scope_target_quantizes_the_target_tower_only():
                                mf.online_net(x, False)[0])
 
 
-@pytest.mark.parametrize("mode", ["int8_store", "int8_store_fz"])
-def test_int8_store_is_refused(mode):
-    """The s8 storage chain is not ported: the port refuses what JAX
-    builds."""
-    kw = dict(model_name="r21d", quant=mode)
-    JaxConfig(**kw).finalize()
-    with pytest.raises(NotImplementedError, match=mode):
-        Config(**kw).finalize()
-
-
 def test_eval_only_modes_refused_on_training_steps():
     """As JAX's: refused at ``finalize`` on a training task, and by the
     step factories for a config that skipped it."""
