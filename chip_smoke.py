@@ -199,12 +199,27 @@ Phases:
      less memory than the plain ``--remat`` step;
      (d) one ``main_byol --quant int8_store`` epoch of 3 steps at per-view
      16 on phase 12's CSTPack data.
+  21. model_axis (the 'model' mesh axis; R(2+1)D depth 1, 16 x 112^2,
+     bf16, global per-view batch 8, K5 and the fused sites on, two gloo
+     ranks on the one card, the world-1 kernel step and the float32 plain
+     step of the same weights and batch as references): (a) (1, 2)
+     ``--shard_spatial``: 10 K4a + 10 K4b + 1 K5 launches a step on each
+     rank, K4a/K4b held against their plain versions on every padded H
+     shard the step gave them (28, 14, 7 and 4 / 3 of the frame's rows),
+     with their times and bounds, and the step against world 1 by phase
+     4's rule, its ms and each rank's peak GiB beside world 1's; (b) (2, 1)
+     ``--shard_opt_state`` bitwise to (2, 1) without it (deterministic
+     cuDNN), each rank's optimizer-state bytes; (c) (1, 2) tensor-parallel
+     MLPs against world 1; (d) ``torchrun --nproc_per_node 2`` (gloo on
+     the one card) ``main_byol`` for one epoch of 3 steps on (1, 2)
+     ``--shard_spatial`` on CSTPack files it writes, then its checkpoint
+     resumed at world size 1.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``, which runs phase 19 (a) and 20 (a) too; the slice
 phase's launches plus those of phase 16's K5 and ``--legacy_pace`` steps,
 of phase 18's main-path steps, of phase 19's int8 test run and pretrain
-steps and of phase 20's steps and epoch), the card's name and power
-limit, and a last JSON line
+steps, of phase 20's steps and epoch and of phase 21's ranks' steps), the
+card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Imports nothing of JAX.
 """
@@ -316,12 +331,13 @@ def phase_build():
     return reader
 
 
-def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G):
+def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G, padded=False):
     """One tiling's kernel pair against the plain version on one input in
-    ``groups`` BN groups. Returns per pass its max abs error, kernel ms,
-    and the operations and bytes the pass must do: one spatial conv, plus
-    the temporal conv in pass B, each input read once and each output
-    written once."""
+    ``groups`` BN groups (``padded``: ``x`` is a padded H shard of
+    ``--shard_spatial``, taken by the taps9 pair as it is). Returns per
+    pass its max abs error, kernel ms, and the operations and bytes the
+    pass must do: one spatial conv, plus the temporal conv in pass B, each
+    input read once and each output written once."""
     from cstp_tpu_torch.ops import conv21d as C
 
     cin, m = ws.shape[2:]
@@ -331,7 +347,7 @@ def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G):
         wsk = ws.to(torch.bfloat16).reshape(9 * cin, m).contiguous()
         stats, fwd = C.run_stats, C.run_fwd
     else:
-        xk = C.pad_hw(x.contiguous())
+        xk = x.contiguous() if padded else C.pad_hw(x.contiguous())
         wsk = ws.to(torch.bfloat16).contiguous()
         stats, fwd = C.run_stats_taps9, C.run_fwd_taps9
     wtb = wt.to(torch.bfloat16).contiguous()
@@ -339,9 +355,10 @@ def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G):
     gm2, gv2 = stats(xk, wsk, groups)
     bitwise = torch.equal(gm, gm2) and torch.equal(gv, gv2)
     out = fwd(xk, wsk, wtb, gm, gv, scale, bias, groups)
-    pm, pv = C.reference_stats(x, ws, groups)
+    pm, pv = C.reference_stats(x, ws, groups, padded=padded)
     # pass B given the same statistics, so its check isolates pass B
-    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, groups)
+    pout = C.reference_chain(x, ws, wt, scale, bias, gm, gv, groups,
+                             padded=padded)
     torch.cuda.synchronize()
     e_stats = max((gm - pm).abs().max().item(), (gv - pv).abs().max().item())
     e_fwd = (out.float() - pout.float()).abs().max().item()
@@ -352,7 +369,8 @@ def _hold_pair(tiling, x, ws, wt, scale, bias, groups=G):
     ok = (torch.allclose(gm, pm, rtol=1e-2, atol=1e-3)
           and torch.allclose(gv, pv, rtol=1e-2, atol=1e-3)
           and torch.allclose(out.float(), pout.float(), rtol=0.1, atol=0.05))
-    npix = x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3]
+    npix = (x.shape[0] * x.shape[1] * (x.shape[2] - 2 * padded)
+            * (x.shape[3] - 2 * padded))
     ops_s = 2.0 * npix * 9 * cin * m
     bytes_s = xk.numel() * 2 + wsk.numel() * 2 + 2 * groups * m * 4
     ops_f = ops_s + 2.0 * npix * 3 * m * cout
@@ -3991,6 +4009,336 @@ def phase_store_chain(dev, card: str, slice_ms: float, int8_ms: float,
     return total, counts
 
 
+# ------------------------------------------------------- the 'model' axis
+
+MA_B_VIEW = 8           # phase 21's global per-view batch
+MA_TORCHRUN_STEPS = 3   # steps of phase 21's torchrun epoch
+# phase 21's rank runs: name -> the mesh flags over its kernel config
+MA_RUNS = {
+    "spatial": dict(mesh_shape=(1, 2), shard_spatial=1),
+    "tp": dict(mesh_shape=(1, 2)),
+    "zero": dict(mesh_shape=(2, 1), shard_opt_state=1),
+    "no_zero": dict(mesh_shape=(2, 1)),
+}
+
+
+def _ma_config(fused: bool = True, **over):
+    """Phase 4's configuration (kernels, or plain float32 with ``fused``
+    off) at per-view MA_B_VIEW, with ``over``'s mesh flags."""
+    from cstp_tpu_torch.config import Config
+
+    kw = (dict(fused_conv=1, pallas_augment="on", compute_dtype="bfloat16")
+          if fused else dict(fused_conv=0, pallas_augment="off",
+                             compute_dtype="float32"))
+    kw.update(over)
+    return Config(model_name="r21d", model_depth=1, sample_duration=T,
+                  sample_size=S, batch_size=MA_B_VIEW, task="loss_com",
+                  **kw).finalize()
+
+
+def _ma_batch(dev):
+    return {k: v[:MA_B_VIEW] for k, v in _slice_batch(dev, seed=6).items()}
+
+
+def _ma_step_run(dev, cfg, batch, record: bool = False):
+    """On a rank of phase 21: one step of ``cfg`` from seed-0 weights and a
+    generator seeded 5 on this rank's rows of ``batch``, with the whole
+    update (gathered where 'model' splits a head), the launches, the peak
+    of allocated memory and the optimizer state's bytes on this rank; then
+    2 steps on, their mean ms. ``record``: also the padded H shards and
+    weights each fused site's kernels took, one per shape."""
+    from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.parallel import mesh
+    from cstp_tpu_torch.train import optim
+    from cstp_tpu_torch.train.pretrain import (
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
+    names = list(optim.trainable(model))
+    p0 = {n: t.clone() for n, t in mesh.full_state_dict(model).items()
+          if n in names}
+    step = make_pretrain_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = mesh.shard_batch(batch)
+    shards, made = {}, C.fused_st_conv_cuda
+
+    def recording(*args):
+        # FusedSTConv's call: (x, ws, wt, scale, bias, groups, eps, tiling,
+        # cross_rank, spatial)
+        x, groups, spatial = args[0], args[5], args[9]
+        if spatial and tuple(x.shape) not in shards:
+            shards[tuple(x.shape)] = tuple(
+                t.detach().clone() for t in args[:5]) + (groups,)
+        return made(*args)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    C.fused_st_conv_cuda = recording if record else made
+    try:
+        state, m = step(state, gen, rows, cfg.learning_rate)
+    finally:
+        C.fused_st_conv_cuda = made
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    after = mesh.full_state_dict(model)
+    update = torch.cat([(after[n] - p0[n]).flatten().double()
+                        for n in names])
+    opt = (tx.gather_state(state.opt_state) if hasattr(tx, "gather_state")
+           else state.opt_state)
+    trace = torch.cat([t.flatten() for t in opt["trace"].values()])
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in state.opt_state["trace"].values())
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, _ = step(state, gen, rows, cfg.learning_rate)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    return dict(metrics={k: float(v) for k, v in m.items()}, update=update,
+                trace=trace, counts=counts, peak_gib=peak_gib,
+                opt_bytes=opt_bytes, ms=ms, shards=shards)
+
+
+def _ma_hold_shards(shards):
+    """K4a and K4b against their plain versions on each recorded padded H
+    shard (``_hold_pair`` on the padded input): one line each; returns the
+    per-shape records and whether all agreed."""
+    out, ok = [], True
+    for shape, (x, ws, wt, scale, bias, groups) in sorted(shards.items()):
+        good, bitwise, passes = _hold_pair("taps9", x, ws, wt, scale, bias,
+                                           groups, padded=True)
+        rec = dict(shape=shape, ok=good and bitwise)
+        for p, (kms, err, ops, nb) in passes.items():
+            b, by = bound_ms(ops, nb, PEAK_BF16)
+            rec[p] = dict(ms=kms, err=err, bound=b, by=by)
+        out.append(rec)
+        ok &= rec["ok"]
+    return out, ok
+
+
+def ma_rank(rank: int, world: int, port: int, out: str,
+            device: str = "cuda:0") -> None:
+    """One rank of phase 21 (a)-(c): each of MA_RUNS on this rank's share
+    of phase 21's batch, over gloo on card 0, then (after the spatial run)
+    K4a/K4b on the recorded shards; writes the records under ``out`` and
+    (rank 0) the updates."""
+    import os
+
+    from cstp_tpu_torch.parallel import mesh
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK="0")
+    dev = torch.device(device)
+    mesh.maybe_initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", device=dev, backend="gloo")
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        batch = _ma_batch(dev)
+        result = {}
+        for name, over in MA_RUNS.items():
+            # the ZeRO pair is compared bit for bit: deterministic cuDNN
+            torch.backends.cudnn.deterministic = name in ("zero", "no_zero")
+            run = _ma_step_run(dev, _ma_config(**over), batch,
+                               record=name == "spatial")
+            shards = run.pop("shards")
+            if shards:
+                run["shards"], run["shards_ok"] = _ma_hold_shards(shards)
+            del shards
+            if mesh.is_main():
+                torch.save(run["update"].float().cpu(), f"{out}.{name}.pt")
+            run["update_norm"] = float(run.pop("update").norm())
+            result[name] = run
+            gc.collect()
+            torch.cuda.empty_cache()
+        z, n = result["zero"], result["no_zero"]
+        for r in (z, n):
+            r["trace"] = r["trace"].cpu()
+        result["zero_bitwise"] = (torch.equal(z.pop("trace"),
+                                              n.pop("trace"))
+                                  and z["update_norm"] == n["update_norm"]
+                                  and z["metrics"] == n["metrics"])
+        for r in result.values():
+            if isinstance(r, dict):
+                r.pop("trace", None)
+        torch.save(result, f"{out}.{rank}.pt")
+    finally:
+        mesh.shutdown()
+
+
+def _ma_two_ranks(world1, f32):
+    """Phase 21 (a)-(c): two rank processes on the one card over gloo
+    (``ma_rank``); their records and updates against the world-1 kernel
+    step ``world1`` with ``f32`` as arbiter (phase 4's rule)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cstp_ma_") as d:
+        out, port = os.path.join(d, "rank"), _free_port()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CSTP_", "MASTER_"))}
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--ma-rank", str(r), "2", str(port),
+             out], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=480)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            for line in text.splitlines()[-12:]:
+                log(f"[model]   rank {r}: {line}")
+            if p.returncode != 0:
+                raise SystemExit(f"[model] rank {r} of 2 over gloo exited "
+                                 f"{p.returncode}")
+        ranks = [torch.load(f"{out}.{r}.pt", weights_only=False)
+                 for r in range(2)]
+        updates = {n: torch.load(f"{out}.{n}.pt").double().to(
+            world1["update"].device) for n in MA_RUNS}
+    return ranks, updates
+
+
+def _ma_torchrun(root: str) -> None:
+    """Phase 21 (d): ``torchrun --nproc_per_node 2`` over this script's
+    ``--ma-torchrun`` entry (gloo on card 0 for both ranks, then
+    ``cstp_tpu_torch.cli.main_byol.main``): one epoch of MA_TORCHRUN_STEPS
+    steps on (1, 2) ``--shard_spatial``; then its checkpoint resumed at
+    world size 1 in this process (``main_byol --task resume``, no mesh
+    flags) for one more epoch. Finite CSV rows from both."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cstp_tpu_torch.cli import main_byol
+
+    train = os.path.join(root, "train.cstp")
+    with ThreadPoolExecutor(8) as pool:
+        _pack_videos(train, _cli_videos(),
+                     range(MA_TORCHRUN_STEPS * MA_B_VIEW), pool)
+    res = os.path.join(root, "results")
+    argv = ["--model_name", "r21d_byol", "--model_depth", "1",
+            "--sample_duration", str(T), "--sample_size", str(S),
+            "--compute_dtype", "bfloat16", "--fused_conv", "1",
+            "--pallas_augment", "on", "--batch_size", str(MA_B_VIEW),
+            "--steps_per_epoch", str(MA_TORCHRUN_STEPS), "--log_every", "1",
+            "--ckpt_every_epochs", "1",
+            "--n_workers", "4", "--data_backend", "packed", "--lmdb_path",
+            train, "--dataset", "UCF101", "--result_path", res]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", __file__, "--ma-torchrun", *argv,
+           "--task", "loss_com", "--n_epochs", "1", "--mesh_shape", "1", "2",
+           "--shard_spatial", "1"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CSTP_", "MASTER_"))}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=420)
+    seconds = time.perf_counter() - t0
+    for line in (done.stdout + done.stderr).splitlines()[-10:]:
+        log(f"[model]   torchrun: {line}")
+    if done.returncode != 0:
+        raise SystemExit(f"[model] torchrun main_byol exited "
+                         f"{done.returncode}")
+    run_dir = os.path.join(res, "UCF101", "loss_com")
+    csv = os.path.join(run_dir, f"UCF101_train_clip{T}modelr21d_byol1.log")
+    rows = _check_rows(csv)
+    log(f"[model] (d) torchrun --nproc_per_node 2 main_byol on (1, 2) "
+        f"--shard_spatial, gloo on the one card, 1 epoch of "
+        f"{MA_TORCHRUN_STEPS} steps at per-view {MA_B_VIEW}: {rows} finite "
+        f"CSV row(s), {seconds:.1f} s with the processes' start")
+    t0 = time.perf_counter()
+    out, _ = _cli_run(main_byol.main, argv + [
+        "--task", "resume", "--resume_md_path",
+        os.path.join(run_dir, "save_1"), "--n_epochs", "2"],
+        _per_step(10, 10, 1), 2 * MA_TORCHRUN_STEPS)
+    rows = _check_rows(csv)
+    log(f"[model] (d) its save_1 resumed at world size 1 (no mesh flags): "
+        f"{len(out['history'])} epochs, {rows} finite CSV rows in all, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_model_axis(dev, card: str):
+    """Phase 21: the 'model' mesh axis with two gloo ranks on the one card,
+    R(2+1)D depth 1, 16 x 112^2, bf16, per-view MA_B_VIEW, K5 and the
+    fused sites on: (a) (1, 2) --shard_spatial, its fused sites on K4a/K4b
+    (10 + 10 a step) held against their plain versions on every padded
+    shard and the step against the world-1 kernel step by phase 4's rule;
+    (b) (2, 1) --shard_opt_state bitwise to (2, 1) without it; (c) (1, 2)
+    tensor-parallel MLPs against world 1; (d) a torchrun epoch on (1, 2)
+    --shard_spatial resumed at world 1. Returns the ranks' main-path
+    launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    batch = _ma_batch(dev)
+    world1 = _one_step_run(dev, _ma_config(), batch)
+    f32 = _one_step_run(dev, _ma_config(fused=False), batch)
+    log(f"[model] world 1, per-view {MA_B_VIEW}: kernel step "
+        f"{world1['ms']:.1f} ms, peak {world1['peak_gib']:.2f} GiB, "
+        f"launches {world1['counts']}; float32 plain step {f32['ms']:.1f} ms")
+    ranks, updates = _ma_two_ranks(world1, f32)
+    counts = {k: 0 for k in _per_step(0, 0, 0)}
+    spatial_want = dict(_per_step(0, 0, 1), conv21d_taps9_stats=10,
+                        conv21d_taps9_fwd=10)
+    ok = True
+    for name in MA_RUNS:
+        got = [r[name] for r in ranks]
+        want = spatial_want if name == "spatial" else _per_step(10, 10, 1)
+        ok &= all(g["counts"] == want for g in got)
+        for g in got:
+            for k, v in g["counts"].items():
+                counts[k] += v
+        run = dict(got[0], update=updates[name])
+        loss_err, acc_err, cos_run, cos_ref, agree = _agree(run, world1, f32)
+        if name in ("spatial", "tp"):
+            ok &= agree and len({g["update_norm"] for g in got}) == 1
+        part = {"spatial": "a", "tp": "c"}.get(name, "b")
+        log(f"[model] ({part}) {name} {MA_RUNS[name]}: against world 1, "
+            f"max rel loss-term err "
+            f"{loss_err:.3e}, max acc diff {acc_err:.4f}, update cosine to "
+            f"the float32 update {cos_run:.5f} (world 1 {cos_ref:.5f}; tol "
+            f"loss 2e-2, acc 0.125, cosine >= world 1 - 0.05); to world 1 "
+            f"{_cos(run, world1):.5f}; launches per rank "
+            f"{[g['counts'] for g in got]}; step ms per rank "
+            f"{[round(g['ms'], 1) for g in got]}; peak GiB per rank "
+            f"{[round(g['peak_gib'], 2) for g in got]} (world 1 "
+            f"{world1['peak_gib']:.2f}); optimizer state MiB per rank "
+            f"{[round(g['opt_bytes'] / 2**20, 1) for g in got]} ({card})")
+    for r, rank in enumerate(ranks):
+        for rec in rank["spatial"]["shards"]:
+            n, t, hp, wp, cin = rec["shape"]
+            log(f"[model] (a) rank {r} K4a/K4b on the padded shard "
+                f"{n}x{t}x{hp}x{wp}x{cin} ({hp - 2} of the frame's rows): "
+                + " | ".join(
+                    f"{p} err {rec[p]['err']:.3e} {rec[p]['ms']:.3f} ms, "
+                    f"bound {rec[p]['bound']:.3f} ms ({rec[p]['by']})"
+                    for p in ("stats", "fwd"))
+                + f" | agree and K4a bitwise twice: {rec['ok']}")
+        ok &= rank["spatial"]["shards_ok"]
+        ok &= rank["zero_bitwise"]
+    log(f"[model] (b) --shard_opt_state on (2, 1): update, metrics and "
+        f"gathered momentum bitwise those without it: "
+        f"{[r['zero_bitwise'] for r in ranks]}")
+    if not ok:
+        raise SystemExit("[model] a 'model' axis run disagrees, launched "
+                         "other kernels, or K4a/K4b disagree on a shard")
+    del world1, f32, updates
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cstp_ma_cli_") as root:
+        _ma_torchrun(root)
+    log(f"[model] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def kernels_line(conv, aug_err, aug_t, counts, k6, store):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
@@ -4000,7 +4348,9 @@ def kernels_line(conv, aug_err, aug_t, counts, k6, store):
     each gloo rank's kernel step) and phase 19's (K6 in the int8_static
     test run and the --quant int8 pretrain steps, K5 in those steps);
     K4a/K4b are one launch at the benchmark's default shape, with launches
-    from its taps9 run; K6's numbers are one launch at the I3D 1x1x1 site
+    from its taps9 run and phase 21's ``--shard_spatial`` ranks (10 each a
+    step, on the padded H shards, whose per-shape times are phase 21
+    (a)'s lines); K6's numbers are one launch at the I3D 1x1x1 site
     at batch Q_EVAL_BS, where ``torch._int_mm`` computes the same product
     (``library_ms``), while its launches are R(2+1)D's, which has no
     stride-1 1x1x1 conv: that path's own per-shape times are phase 19
@@ -4047,10 +4397,31 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--serve-check", nargs="+",
                     metavar="DATA OUT ART", help=argparse.SUPPRESS)
+    ap.add_argument("--ma-rank", nargs=4, metavar=("RANK", "WORLD", "PORT",
+                                                    "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ma-torchrun", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_rank:    # one rank of phase 18 (b), started by that phase
         r, w, port, out = args.dp_rank
         dp_rank(int(r), int(w), int(port), out)
+        return 0
+    if args.ma_rank:    # one rank of phase 21 (a)-(c), started by it
+        r, w, port, out = args.ma_rank
+        ma_rank(int(r), int(w), int(port), out)
+        return 0
+    if args.ma_torchrun is not None:   # a torchrun rank of phase 21 (d)
+        from cstp_tpu_torch.cli import main_byol
+        from cstp_tpu_torch.parallel import mesh
+
+        # both ranks on card 0, so gloo: NCCL takes one rank per card
+        mesh.maybe_initialize_distributed(device=torch.device("cuda", 0),
+                                          backend="gloo")
+        try:
+            main_byol.main(args.ma_torchrun)
+        finally:
+            mesh.shutdown()
         return 0
     if args.serve_check:    # phase 19 (c)'s fresh serving process
         serve_check(*args.serve_check)
@@ -4117,6 +4488,8 @@ def main(argv=None) -> int:
         store, store_counts = phase_store_chain(
             dev, card, sl["step_ms"], quant["int8_step_ms"], flag_benches)
         for k, v in store_counts.items():
+            counts[k] += v
+        for k, v in phase_model_axis(dev, card).items():
             counts[k] += v
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts, k6, store)),
           flush=True)

@@ -8,7 +8,9 @@ metadata). Names: ``save_{epoch}`` (pretrain), ``save_{epoch}_max`` (the
 best finetune epoch; the test step finds exactly one). Restoring into a
 target tree is by name (:func:`_merge_by_name`). A train state's tree is
 :func:`state_tree`: ``{"model": state_dict, "opt_state": ..., "step":
-...}``.
+...}``, with the whole tensors of a one-process run on any mesh (the
+tensor-parallel and ZeRO slices gathered), so a checkpoint crosses
+topologies both ways.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from cstp_tpu_torch.config import Config
+from cstp_tpu_torch.parallel.mesh import full_state_dict
 
 
 def _to_cpu(tree):
@@ -35,10 +38,16 @@ def _to_cpu(tree):
     return tree
 
 
-def state_tree(state) -> Dict[str, Any]:
+def state_tree(state, tx=None) -> Dict[str, Any]:
     """The tree of a ``TrainState``: model parameters and BN statistics,
-    the optimizer's state and the step count."""
-    return {"model": state.model.state_dict(), "opt_state": state.opt_state,
+    the optimizer's state and the step count, as whole tensors: on a mesh
+    that splits them (tensor-parallel heads; ``tx`` a
+    ``train.optim.MeshUpdate``) every rank calls it, a collective, before
+    rank 0 saves it."""
+    opt = state.opt_state
+    if hasattr(tx, "gather_state"):
+        opt = tx.gather_state(opt)
+    return {"model": full_state_dict(state.model), "opt_state": opt,
             "step": state.step}
 
 

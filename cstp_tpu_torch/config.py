@@ -232,14 +232,22 @@ class Config:
             "s2d_stem": bool(self.s2d_stem),
             "t_fold": bool(self.t_fold),
             "mid_round > 1": self.mid_round > 1,
-            "shard_opt_state": bool(self.shard_opt_state),
-            "shard_spatial": bool(self.shard_spatial),
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 "cstp_tpu_torch does not port these flag values yet: "
                 + ", ".join(bad))
+        if self.shard_spatial and base_model_name(self.model_name) != "r21d":
+            raise NotImplementedError(
+                f"--shard_spatial on {self.model_name!r}: the port splits H "
+                "over 'model' in the R(2+1)D tower only; other families "
+                "(pools, TF-SAME pads, SlowFast laterals) are ROADMAP item "
+                "17c-ii")
+        if self.shard_spatial and self.quant:
+            raise NotImplementedError(
+                f"--shard_spatial with --quant {self.quant} is ROADMAP item "
+                "17c-ii")
         if base_model_name(self.model_name) not in PORTED_FAMILIES:
             raise ValueError(f"unknown backbone {self.model_name!r}; have "
                              f"{sorted(PORTED_FAMILIES)}")

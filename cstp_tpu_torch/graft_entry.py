@@ -9,7 +9,7 @@ package's ``__graft_entry__.entry`` and ``dryrun_multichip``.
 so the BatchNorm running statistics are updated. It returns the BYOL loss
 and the six pretext logits ``(spa, tem, pb1, pb2, rot1, rot2)``.
 
-``dryrun_multichip(n)`` runs the data-parallel steps in ``n`` gloo
+``dryrun_multichip(n)`` runs the mesh-parallel steps in ``n`` gloo
 processes on the CPU at tiny shapes (``python -m
 cstp_tpu_torch.graft_entry --dryrun N``).
 """
@@ -28,10 +28,6 @@ import torch
 from cstp_tpu_torch import resolve_device
 from cstp_tpu_torch.config import Config
 from cstp_tpu_torch.train.pretrain import create_pretrain_model
-
-# JAX's variants that need a 'model' axis or sharded optimizer state
-WAITING_FOR_17C = ("shard_opt_state", "shard_spatial")
-
 
 def entry(device=None):
     """``(fn, example_args)``: the forward and ``(model, x, x)``, with the
@@ -52,8 +48,11 @@ def entry(device=None):
 
 def _dryrun_variants(n: int) -> None:
     """One rank's share of :func:`dryrun_multichip`: each variant's step on
-    this rank's rows of a seeded global batch (2 clips per rank); rank 0
-    prints one line per variant."""
+    this rank's rows of a seeded global batch (2 clips per rank), on the
+    JAX package's mesh: ``(n / 2, 2)`` where ``n`` is even and at least 4
+    (tensor-parallel MLPs), else ``(n, 1)``; ``--shard_spatial`` takes
+    ``(n / 2, 2)`` at every even ``n``. Rank 0 prints one line per
+    variant."""
     from cstp_tpu_torch.parallel import mesh
     from cstp_tpu_torch.train.finetune import (
         create_finetune_state,
@@ -73,8 +72,12 @@ def _dryrun_variants(n: int) -> None:
     def gen():
         return torch.Generator().manual_seed(1)
 
+    model_par = 2 if n % 2 == 0 and n >= 4 else 1
     small = dict(model_name="r21d", model_depth=1, sample_duration=4,
-                 sample_size=32, batch_size=2 * n, compute_dtype="float32")
+                 sample_size=32, batch_size=2 * n, compute_dtype="float32",
+                 mesh_shape=(n // model_par, model_par))
+    spatial = dict(shard_spatial=1,
+                   mesh_shape=(n // 2, 2) if n % 2 == 0 else (n, 1))
     rng = np.random.default_rng(0)
     b, t = 2 * n, small["sample_duration"]
 
@@ -85,20 +88,19 @@ def _dryrun_variants(n: int) -> None:
     def labels(k):
         return torch.from_numpy(rng.integers(0, k, (b,)).astype(np.int64))
 
-    batch = mesh.shard_batch({"frames1": frames(), "frames2": frames(),
-                              "rot1": labels(4), "rot2": labels(4),
-                              "tem": labels(5), "pb": labels(4)})
-    for name, over in (("default", {}), ("sync_bn=0", {"sync_bn": 0})):
-        cfg = Config(**small, **over).finalize()
+    batch = {"frames1": frames(), "frames2": frames(), "rot1": labels(4),
+             "rot2": labels(4), "tem": labels(5), "pb": labels(4)}
+    for name, over in (("default", {}), ("sync_bn=0", {"sync_bn": 0}),
+                       ("shard_opt_state", {"shard_opt_state": 1}),
+                       ("shard_spatial", spatial)):
+        cfg = Config(**dict(small, **over)).finalize()
         model, state, tx = create_pretrain_state(cfg, device="cpu")
         mesh.replicate(model)
         step = make_pretrain_step(model, tx, cfg)
-        state, metrics = step(state, gen(), batch, 0.01)
+        state, metrics = step(state, gen(), mesh.shard_batch(batch), 0.01)
         loss = float(metrics["loss"])
         assert np.isfinite(loss), loss
-        say(f"[{name}]: loss={loss:.4f} ok")
-    for name in WAITING_FOR_17C:
-        say(f"[{name}]: waits for ROADMAP item 17c, not ported; not run")
+        say(f"[{name}]: mesh {cfg.mesh_shape} loss={loss:.4f} ok")
 
     cfg = Config(**small, task="ft_all", n_finetune_classes=5).finalize()
     model, state, tx = create_finetune_state(cfg, 5, device="cpu")
@@ -122,11 +124,10 @@ def _dryrun_variants(n: int) -> None:
 def dryrun_multichip(n: int, timeout: float = 300.0) -> str:
     """The JAX package's ``dryrun_multichip`` over ``n`` gloo processes on
     the CPU (one per rank, rendezvous through a ``file://`` store): the
-    pretrain step with ``--sync_bn 1`` and ``0``, the finetune step with
-    the eval step, and the retrieval features, on tiny shapes. Prints and
-    returns rank 0's lines, one ``ok`` line per variant and one line for
-    each variant that waits for ROADMAP item 17c; raises if a rank
-    fails."""
+    pretrain step with ``--sync_bn 1`` and ``0``, ``--shard_opt_state`` and
+    ``--shard_spatial``, the finetune step with the eval step, and the
+    retrieval features, on tiny shapes. Prints and returns rank 0's lines,
+    one ``ok`` line per variant; raises if a rank fails."""
     with tempfile.TemporaryDirectory(prefix="cstp_dryrun_") as d:
         store = os.path.join(d, "store")
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

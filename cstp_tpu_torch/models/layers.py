@@ -36,7 +36,15 @@ from cstp_tpu_torch.ops.quant import (
     int8_conv,
     int8_store_chain,
 )
-from cstp_tpu_torch.parallel.mesh import global_moments
+from cstp_tpu_torch.parallel.mesh import (
+    SpatialShard,
+    copy_to_parallel,
+    cut_slice,
+    global_moments,
+    halo_rows,
+    reduce_to_replicated,
+    stats_axis,
+)
 
 BN_MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
 
@@ -80,9 +88,15 @@ class BatchNorm(nn.Module):
     averaged over the ranks, so every group takes the global batch's
     statistics (what flax computes over a 'data'-sharded batch); without a
     group it changes nothing.
+
+    ``spatial`` (``--shard_spatial``, set by ``R2Plus1DNet.shard_spatially``
+    on the tower's BatchNorms): each rank holds some rows of the frames, so
+    the moments are sums over the 'model' ranks (and over 'data' too under
+    ``cross_rank``), each rank's weighted by its positions.
     """
 
     cross_rank = False
+    spatial = False
 
     def __init__(self, channels: int, groups: int = 1,
                  gen: Optional[torch.Generator] = None):
@@ -99,18 +113,26 @@ class BatchNorm(nn.Module):
         c = xf.shape[-1]
         if self.groups == 1:
             flat = xf.reshape(-1, c)
-            mean, sq = self._global(flat.mean(0), flat.square().mean(0))
+            mean, sq = self._global(flat.mean(0), flat.square().mean(0),
+                                    flat.shape[0])
             var = torch.clamp(sq - mean.square(), min=0.0)
             return mean[None], var[None]
         b, g = xf.shape[0], self.groups
         if b % g:
             raise ValueError(f"batch {b} not divisible by {g} BN groups")
-        gmean, gsq = self._global(*group_moments(xf, g))
+        gmean, gsq = self._global(*group_moments(xf, g),
+                                  xf.numel() // (c * g))
         return gmean, gsq - gmean.square()
 
-    def _global(self, mean, sq):
-        """The moments over the ranks' rows under ``cross_rank``."""
-        return global_moments(mean, sq) if self.cross_rank else (mean, sq)
+    def _global(self, mean, sq, count: int):
+        """The moments over the ranks that hold the group's positions:
+        'data' under ``cross_rank``, 'model' under ``spatial`` (weighted by
+        ``count``, this rank's positions per group), both under both."""
+        axis = stats_axis(self.cross_rank, self.spatial)
+        if axis is None:
+            return mean, sq
+        return global_moments(mean, sq, axis=axis,
+                              count=count if self.spatial else None)
 
     @torch.no_grad()
     def update_running(self, gmean: torch.Tensor, gvar: torch.Tensor):
@@ -214,8 +236,13 @@ class Conv3d(nn.Module):
         if quant in ("int8_static", "int8_calib"):
             self.register_buffer("act_scale", torch.zeros(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h_halo: bool = False) -> torch.Tensor:
+        """``h_halo``: ``x`` already holds the rows the H padding would
+        give (``parallel.halo_rows``), so H is not padded again."""
         x = x.to(self.dtype)
+        if h_halo and (self.quant or self.pads is not None):
+            raise NotImplementedError("an H halo with --quant or TF-SAME "
+                                      "pads is ROADMAP item 17c-ii")
         if self.quant == "int8_calib":
             with torch.no_grad():
                 self.act_scale.copy_(torch.maximum(
@@ -231,9 +258,11 @@ class Conv3d(nn.Module):
             return y
         if self.pads is not None:
             x = _ndhwc_pad(x, self.pads)
+        pt, ph, pw = self.padding
         y = F.conv3d(x.permute(0, 4, 1, 2, 3),
                      self.weight.to(self.dtype), stride=self.stride,
-                     padding=self.padding).permute(0, 2, 3, 4, 1)
+                     padding=(pt, 0 if h_halo else ph, pw)
+                     ).permute(0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -301,7 +330,16 @@ class SpatioTemporalConv(nn.Module):
       scales rise to the observations.
 
     The running statistics move as a BatchNorm's, 0.9 / 0.1, in train.
+
+    ``shard`` (``--shard_spatial``; set by ``R2Plus1DNet`` at each forward):
+    ``(SpatialShard, stride)``, the H split and the total stride of this
+    block's input rows. The spatial conv then runs on the rows
+    ``parallel.halo_rows`` gives it, and a fused site on the padded shard
+    (the halo rows in H, zeros at the frame's top and bottom and in W),
+    with the taps9 kernels (K4a/K4b) on CUDA.
     """
+
+    shard: Optional[Tuple[SpatialShard, int]] = None
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16, bn_groups: int = 1,
@@ -332,18 +370,38 @@ class SpatioTemporalConv(nn.Module):
                 and (kt, self.padding[0]) == (3, 1)
                 and (ph, pw) == (kh // 2, kw // 2))
 
+    def _halo(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's input rows and the neighbours' rows the spatial
+        conv reads (its H padding included)."""
+        shard, stride = self.shard
+        _, kh, _ = self.kernel
+        return halo_rows(x, shard, stride, kh, self.stride[1],
+                         self.padding[1])
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         if self.quant in STORE_MODES:
+            if self.shard is not None:
+                raise NotImplementedError("--shard_spatial with --quant is "
+                                          "ROADMAP item 17c-ii")
             return self._store_forward(x, train)
         if self.fused_eligible(train):
             ws = self.spatial_conv.weight[:, :, 0].permute(2, 3, 1, 0)
             wt = self.temporal_conv.weight[:, :, :, 0, 0].permute(2, 1, 0)
+            x = x.to(self.dtype)
+            spatial = self.shard is not None
+            if spatial:
+                _, _, pw = self.padding
+                x = F.pad(self._halo(x), (0, 0, pw, pw))
             out, gmean, gvar = fused_st_conv(
-                x.to(self.dtype), ws, wt, self.bn.scale, self.bn.bias,
-                self.bn.groups, BN_EPS, cross_rank=self.bn.cross_rank)
+                x, ws, wt, self.bn.scale, self.bn.bias, self.bn.groups,
+                BN_EPS, tiling="taps9" if spatial else "clip",
+                cross_rank=self.bn.cross_rank, spatial=spatial)
             self.bn.update_running(gmean, gvar)
             return out
-        x = self.spatial_conv(x)
+        if self.shard is not None:
+            x = self.spatial_conv(self._halo(x.to(self.dtype)), h_halo=True)
+        else:
+            x = self.spatial_conv(x)
         x = self.bn(x, train)
         x = torch.relu(x).to(self.dtype)
         return self.temporal_conv(x)
@@ -418,20 +476,70 @@ class Dense(nn.Module):
 
 class MLPHead(nn.Module):
     """Linear -> BN1d -> ReLU -> Linear (reference Projector / Predictor and
-    the pretext heads, ``r21d_byol.py:232-291``)."""
+    the pretext heads, ``r21d_byol.py:232-291``).
+
+    ``tp`` (set by :meth:`shard`; a 4096-wide head under a 'model' axis
+    above 1, JAX's ``_model_spec``): ``(index, size)``, this rank holding
+    ``hidden / size`` hidden units: fc1's columns and bias, the hidden
+    BatchNorm's scale, bias and running statistics, and fc2's rows. The
+    input enters by :func:`parallel.copy_to_parallel` and fc2's partial
+    products (in float32) leave by :func:`parallel.reduce_to_replicated`,
+    fc2's bias added once after them. A state dict of the whole head loads
+    into a split one (each rank cuts its slice), so one-process
+    checkpoints load on any mesh.
+    """
+
+    tp: Optional[Tuple[int, int]] = None
 
     def __init__(self, in_dim: int, hidden: int, out: int,
                  dtype=torch.bfloat16, bn_groups: int = 1,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        self.hidden = hidden
         self.fc1 = Dense(in_dim, hidden, dtype, gen)
         self.bn = BatchNorm(hidden, bn_groups, gen)
         self.fc2 = Dense(hidden, out, dtype, gen)
 
+    def split_tensors(self):
+        """``(name, tensor, dim)`` of every tensor split under ``tp``."""
+        return [("fc1.weight", self.fc1.weight, 0),
+                ("fc1.bias", self.fc1.bias, 0),
+                ("bn.scale", self.bn.scale, 0), ("bn.bias", self.bn.bias, 0),
+                ("bn.mean", self.bn.mean, 0), ("bn.var", self.bn.var, 0),
+                ("fc2.weight", self.fc2.weight, 1)]
+
+    @torch.no_grad()
+    def shard(self, index: int, size: int) -> None:
+        """Keep slice ``index`` of ``size`` of the hidden units."""
+        if self.tp is not None or self.hidden % size:
+            raise ValueError(f"MLPHead: {self.hidden} hidden units over "
+                             f"{size} 'model' ranks (split: {self.tp})")
+        for name, t, dim in self.split_tensors():
+            owner, leaf = name.split(".")
+            part = cut_slice(t, dim, index, size).clone()
+            module = getattr(self, owner)
+            setattr(module, leaf, nn.Parameter(part) if isinstance(
+                t, nn.Parameter) else part)
+        self.tp = (index, size)
+        self._register_load_state_dict_pre_hook(self._cut_whole)
+
+    def _cut_whole(self, state_dict, prefix, *args):
+        index, size = self.tp
+        for name, t, dim in self.split_tensors():
+            v = state_dict.get(prefix + name)
+            if v is not None and v.shape[dim] == t.shape[dim] * size:
+                state_dict[prefix + name] = cut_slice(v, dim, index, size)
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x = self.bn(self.fc1(x), train)
-        return self.fc2(torch.relu(x).to(self.dtype))
+        if self.tp is None:
+            x = self.bn(self.fc1(x), train)
+            return self.fc2(torch.relu(x).to(self.dtype))
+        x = self.bn(self.fc1(copy_to_parallel(x, "model")), train)
+        y = F.linear(torch.relu(x).to(self.dtype),
+                     self.fc2.weight.to(self.dtype))
+        y = reduce_to_replicated(y.float(), "model")
+        return (y + self.fc2.bias).to(self.dtype)
 
 
 # The Inception-v1 plan that S3D-G and I3D share (reference s3dg.py:193-222,

@@ -37,6 +37,16 @@ all-reduces between the two launches (``global_stats``). The plain version
 and the backward's recompute average the first and second moments over the
 ranks (an autograd-aware all-reduce, as flax does over a sharded batch), so
 every rank issues its collectives in the same order.
+
+``spatial`` (``--shard_spatial``): ``x`` is this rank's H shard already
+padded, ``(B, T, h + 2, W + 2, Cin)``: its neighbours' halo rows in H,
+zeros at the frame's top and bottom and in W (``models/layers.py
+SpatioTemporalConv``). On CUDA the taps9 pair (K4a/K4b) runs on it, and
+the per-group moments of the shards are summed over the 'model' ranks
+(and 'data' under ``cross_rank``), each weighted by its positions, between
+the two launches; the plain version and the backward do the same on the
+same padded shard, whose gradient then returns the halo rows' to their
+owners.
 """
 
 from __future__ import annotations
@@ -49,7 +59,11 @@ import torch.nn.functional as F
 
 from cstp_tpu_torch.ops import build
 from cstp_tpu_torch.ops.bn import per_sample
-from cstp_tpu_torch.parallel.mesh import global_moments, is_distributed
+from cstp_tpu_torch.parallel.mesh import (
+    global_moments,
+    is_distributed,
+    stats_axis,
+)
 
 # launches per wrapper (one per call on CUDA tensors)
 launches = {"stats": 0, "fwd": 0, "stats_taps9": 0, "fwd_taps9": 0}
@@ -58,53 +72,64 @@ TILINGS = ("clip", "taps9")
 
 # ------------------------------------------------------------ plain version
 
-def _spatial_conv(x, ws, dtype):
-    """x (B, T, H, W, Cin), ws (kh, kw, Cin, M) -> (B, T, H, W, M) in dtype."""
+def _spatial_conv(x, ws, dtype, padded: bool = False):
+    """x (B, T, H, W, Cin), ws (kh, kw, Cin, M) -> (B, T, H, W, M) in dtype;
+    ``padded``: x is (B, T, H + kh - 1, W + kw - 1, Cin), padded already."""
     w = ws.to(dtype).permute(3, 2, 0, 1).unsqueeze(2)           # (M,Cin,1,kh,kw)
     kh, kw = ws.shape[0], ws.shape[1]
-    y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3), w,
-                 padding=(0, (kh - 1) // 2, (kw - 1) // 2))
+    pad = (0, 0, 0) if padded else (0, (kh - 1) // 2, (kw - 1) // 2)
+    y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3), w, padding=pad)
     return y.permute(0, 2, 3, 4, 1)
 
 
 def reference_stats(x, ws, bn_groups: int, dtype=torch.bfloat16,
-                    cross_rank: bool = False):
+                    cross_rank: bool = False, spatial: bool = False,
+                    padded: bool = False):
     """Per-group ``(G, M)`` mean / biased variance of the spatial conv,
     rounded to ``dtype``, by partial moments (``reference_stats``); with
-    ``cross_rank`` over every rank's rows (the variance clipped at 0)."""
+    ``cross_rank`` over every rank's rows, with ``spatial`` (``x`` a padded
+    H shard) over every 'model' rank's rows by their positions (the
+    variance clipped at 0 in both). ``padded``: ``x`` is padded already,
+    and the statistics are this rank's (K4a's on a shard)."""
     b = x.shape[0]
     g = bn_groups
-    mid = _spatial_conv(x, ws, dtype).float()
+    mid = _spatial_conv(x, ws, dtype, padded=spatial or padded).float()
     pmean = mid.mean(dim=(1, 2, 3))                             # (B, M)
     psq = mid.square().mean(dim=(1, 2, 3))
     m = pmean.reshape(g, b // g, -1).mean(dim=1)
     sq = psq.reshape(g, b // g, -1).mean(dim=1)
-    if cross_rank:
-        m, sq = global_moments(m, sq)
+    axis = stats_axis(cross_rank, spatial)
+    if axis:
+        count = mid[0].numel() // mid.shape[-1] * (b // g)
+        m, sq = global_moments(m, sq, axis=axis,
+                               count=count if spatial else None)
         return m, torch.clamp(sq - m.square(), min=0.0)
     return m, sq - m.square()
 
 
-def global_stats(gmean, gvar):
-    """K2's per-rank ``(G, M)`` mean and biased variance -> the global
-    batch's (every rank holds as many rows): the ranks' mean variance plus
+def global_stats(gmean, gvar, axis: str = "data", count=None):
+    """K2's or K4a's per-rank ``(G, M)`` mean and biased variance -> those
+    over ``axis``'s ranks (each holding as many positions, or ``count``
+    positions per group, weighted by them): the ranks' mean variance plus
     the variance of their means, in two small all-reduces. Going through
     ``var + mean^2`` instead loses the variance to cancellation where
     ``mean^2`` dwarfs it, which moved the bf16 update (cosine 0.982 to the
     step without a process group at world size 1 on an H100); this form is
     exact at world size 1."""
-    m, v = global_moments(gmean, gvar)
-    (between,) = global_moments((gmean - m).square())
+    m, v = global_moments(gmean, gvar, axis=axis, count=count)
+    (between,) = global_moments((gmean - m).square(), axis=axis, count=count)
     return m, v + between
 
 
 def reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups: int,
-                    eps: float = 1e-5, dtype=torch.bfloat16):
+                    eps: float = 1e-5, dtype=torch.bfloat16,
+                    padded: bool = False):
     """The unfused spatial -> BN(given group stats) -> ReLU -> temporal
-    chain in ``dtype``; ``wt`` is (3, M, Cout)."""
+    chain in ``dtype``; ``wt`` is (3, M, Cout); ``padded``: x is padded
+    already in H and W."""
     b = x.shape[0]
     g = bn_groups
-    mid = _spatial_conv(x, ws, dtype)
+    mid = _spatial_conv(x, ws, dtype, padded)
     shape = (b, 1, 1, 1, -1)
     mean_b = per_sample(gmean, b, shape)
     rstd_b = torch.rsqrt(per_sample(gvar, b, shape) + eps)
@@ -117,13 +142,15 @@ def reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups: int,
 
 def fused_st_conv_plain(x, ws, wt, scale, bias, bn_groups: int = 1,
                         eps: float = 1e-5, dtype=torch.bfloat16,
-                        cross_rank: bool = False):
+                        cross_rank: bool = False, spatial: bool = False):
     """Plain version of the two kernels: ``(out, gmean, gvar)``. With
     ``dtype=bfloat16`` it rounds where the kernels round (x, weights, the
-    spatial-conv output, the post-ReLU mid, the output)."""
-    gmean, gvar = reference_stats(x, ws, bn_groups, dtype, cross_rank)
+    spatial-conv output, the post-ReLU mid, the output). ``spatial``: x is
+    a padded H shard."""
+    gmean, gvar = reference_stats(x, ws, bn_groups, dtype, cross_rank,
+                                  spatial)
     out = reference_chain(x, ws, wt, scale, bias, gmean, gvar, bn_groups,
-                          eps, dtype)
+                          eps, dtype, padded=spatial)
     return out, gmean, gvar
 
 
@@ -498,11 +525,16 @@ def _check_tiling(tiling):
 
 def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
                        eps: float = 1e-5, tiling: str = "clip",
-                       cross_rank: bool = False):
+                       cross_rank: bool = False, spatial: bool = False):
     """The chosen tiling's two kernels on CUDA tensors, with the TPU
     kernels' bf16 casts; ``cross_rank``: the statistics all-reduced
-    between the two launches."""
+    between the two launches; ``spatial``: x is a padded H shard, taken by
+    the taps9 pair as it is, its statistics summed over the shards by
+    their positions between the launches."""
     _check_tiling(tiling)
+    if spatial and tiling != "taps9":
+        raise ValueError("a padded H shard takes the taps9 kernels "
+                         f"(K4a/K4b), not tiling {tiling!r}")
     kh, kw, cin, m = ws.shape
     if (kh, kw) != (3, 3) or wt.shape[0] != 3:
         raise ValueError(f"conv21d kernels take ws (3, 3, Cin, M) and wt "
@@ -513,10 +545,14 @@ def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
     wtb = wt.to(torch.bfloat16).contiguous()
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
     if tiling == "taps9":
-        x_pad = pad_hw(xb)
+        x_pad = xb if spatial else pad_hw(xb)
         gmean, gvar = run_stats_taps9(x_pad, wsb, bn_groups)
-        if cross_rank:
-            gmean, gvar = global_stats(gmean, gvar)
+        axis = stats_axis(cross_rank, spatial)
+        if axis:
+            b, t, hp, wp, _ = x_pad.shape
+            count = (b // bn_groups) * t * (hp - 2) * (wp - 2)
+            gmean, gvar = global_stats(gmean, gvar, axis,
+                                       count if spatial else None)
         out = run_fwd_taps9(x_pad, wsb, wtb, gmean, gvar, scale, bias,
                             bn_groups, eps)
     else:
@@ -533,19 +569,20 @@ def fused_st_conv_cuda(x, ws, wt, scale, bias, bn_groups: int = 1,
 class FusedSTConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ws, wt, scale, bias, bn_groups, eps, tiling,
-                cross_rank):
+                cross_rank, spatial):
         if x.device.type == "cuda":
             out, gmean, gvar = fused_st_conv_cuda(x, ws, wt, scale, bias,
                                                   bn_groups, eps, tiling,
-                                                  cross_rank)
+                                                  cross_rank, spatial)
             ctx.dtype = torch.bfloat16
         else:
             ctx.dtype = x.dtype
             out, gmean, gvar = fused_st_conv_plain(x, ws, wt, scale, bias,
                                                    bn_groups, eps, x.dtype,
-                                                   cross_rank)
+                                                   cross_rank, spatial)
         ctx.save_for_backward(x, ws, wt, scale, bias)
         ctx.bn_groups, ctx.eps, ctx.cross_rank = bn_groups, eps, cross_rank
+        ctx.spatial = spatial
         ctx.mark_non_differentiable(gmean, gvar)
         return out, gmean, gvar
 
@@ -561,29 +598,32 @@ class FusedSTConv(torch.autograd.Function):
         with torch.enable_grad():
             x, ws, wt, scale, bias = inputs
             gm, gv = reference_stats(x, ws, ctx.bn_groups, ctx.dtype,
-                                     ctx.cross_rank)
+                                     ctx.cross_rank, ctx.spatial)
             out = reference_chain(x, ws, wt, scale, bias, gm, gv,
-                                  ctx.bn_groups, ctx.eps, ctx.dtype)
+                                  ctx.bn_groups, ctx.eps, ctx.dtype,
+                                  padded=ctx.spatial)
         wanted = [t for t, n in zip(inputs, need) if n]
         got = iter(torch.autograd.grad(out, wanted, d_out.to(out.dtype),
                                        allow_unused=True))
         grads = [next(got) if n else None for n in need]
         grads = [None if g is None else g.to(t.dtype)
                  for g, t in zip(grads, saved)]
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def fused_st_conv(x, ws, wt, scale, bias, bn_groups: int = 1,
                   eps: float = 1e-5, tiling: str = "clip",
-                  cross_rank: bool = False):
+                  cross_rank: bool = False, spatial: bool = False):
     """Fused spatial(1,3,3) -> BN(train stats) -> ReLU -> temporal(3,1,1).
     ``x`` (B, T, H, W, Cin) unpadded; ``ws`` (3, 3, Cin, M); ``wt``
     (3, M, Cout); ``scale``/``bias`` (M,). ``tiling`` picks the kernel pair
     for CUDA tensors: "clip" (K2/K3) or "taps9" (K4a/K4b); anything else
     raises. ``cross_rank``: global-batch statistics under a process group
-    (``--sync_bn 1``). Returns ``(out, gmean, gvar)`` with ``(G, M)`` group
-    statistics."""
+    (``--sync_bn 1``). ``spatial`` (``--shard_spatial``, tiling "taps9"):
+    ``x`` is this rank's padded H shard, ``(B, T, h + 2, W + 2, Cin)``, and
+    the statistics are over every shard's positions. Returns ``(out,
+    gmean, gvar)`` with ``(G, M)`` group statistics."""
     _check_tiling(tiling)
     cross_rank = bool(cross_rank) and is_distributed()
     return FusedSTConv.apply(x, ws, wt, scale, bias, bn_groups, eps, tiling,
-                             cross_rank)
+                             cross_rank, bool(spatial))

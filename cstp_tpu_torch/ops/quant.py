@@ -495,7 +495,7 @@ def store_moments(sums, sq_sums, count: int, s_mid, groups: int,
     n = (b // groups) * count
     if cross_rank and mesh.is_distributed():
         both = mesh.all_reduce_sum(both)
-        n *= mesh.world_size()
+        n *= mesh.mesh_axis("data").size
     e1, e2 = both.double() / n
     s = s_mid.double()
     return (s * e1).float(), (s * s * (e2 - e1 * e1)).float()

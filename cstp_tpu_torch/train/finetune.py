@@ -14,9 +14,11 @@ bitwise, as the JAX package's ``set_to_zero`` partition does, and their BN
 running statistics still move in train mode.
 
 Under a process group (``parallel/mesh.py``) the finetune step averages
-its gradients and metrics over the ranks once per optimizer step, with the
-BatchNorm semantics of ``--sync_bn`` as in ``train/pretrain.py``, and the
-eval step sums ``loss_sum``, ``correct`` and ``count`` over the ranks.
+its gradients and metrics over 'data' once per optimizer step, with the
+BatchNorm semantics of ``--sync_bn`` and the 'model' axis
+(``--shard_spatial``, tensor-parallel MLP heads) as in
+``train/pretrain.py``, and the eval step sums ``loss_sum``, ``correct`` and
+``count`` over 'data'.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from cstp_tpu_torch.train.pretrain import (
     compute_dtype,
     double_bias_lr,
     local_bn_groups,
+    place_on_mesh,
 )
 
 
@@ -76,8 +79,7 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
                          fused_conv=bool(config.fused_conv), gen=gen,
                          shortcut=config.resnet_shortcut, alpha=config.alpha,
                          quant=config.quant)
-    mesh.set_cross_rank_bn(model, bool(config.sync_bn))
-    return model.to(dev)
+    return place_on_mesh(model, config).to(dev)
 
 
 def finetune_frozen_prefixes(config: Config) -> Tuple[str, ...]:
@@ -116,10 +118,11 @@ def finetune_optimizer(config: Config, model: CSTPClassify
     under ``finetune_frozen_prefixes(config)`` in ``model`` and unfreezes
     the others."""
     optim.freeze(model, finetune_frozen_prefixes(config))
-    return optim.make_optimizer(
+    tx = optim.make_optimizer(
         config.optimizer, momentum=config.momentum,
         weight_decay=config.weight_decay, dampening=config.dampening,
         nesterov=config.nesterov, clip_grad_norm=None)
+    return optim.mesh_update(tx, model, bool(config.shard_opt_state))
 
 
 def create_finetune_state(config: Config, num_classes: int, seed: int = 0,
@@ -169,13 +172,14 @@ def make_finetune_step(model: CSTPClassify, tx: optim.Optimizer,
     ``batch["labels"]``. Metrics ``loss``/``acc`` are 0-d tensors."""
     train = _build_finetune_train(model, tx, config)
     dtype = compute_dtype(config)
+    data = mesh.mesh_axis("data")
 
     def step(state: TrainState, generator: torch.Generator,
              batch: Dict[str, torch.Tensor], lr):
         x = finetune_train_augment_batch(
             generator, batch["frames"], sample_size=config.sample_size,
             norm_method=config.norm_method,
-            shard=(mesh.rank(), mesh.world_size())).to(dtype)
+            shard=(data.index, data.size)).to(dtype)
         return train(state, x, batch["labels"], lr)
 
     return step
@@ -206,7 +210,7 @@ def make_eval_step(model: CSTPClassify, config: Config):
     ``loss_sum``/``correct``/``count`` (rows of ``batch["mask"]`` 0 pad a
     tail batch; without a mask every row counts), their means ``loss`` and
     ``acc``, and the ``logits`` (this rank's). Under a process group the
-    sums are over every rank's rows."""
+    sums are over every data row's rows."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):

@@ -12,12 +12,14 @@ epoch, the host wall time of each step and of each wait for data
 (``StepTimer``) and the epoch's wall time up to its metrics on the host.
 
 Under a process group (``parallel/mesh.py``; the CLIs join one first)
-``run_pretrain`` and ``run_finetune`` are data parallel, as the JAX loops
-are over processes: each rank loads ``batch_size // world`` clips per view
-from its shard of the epoch, the state starts from rank 0's (a resume is
-read on rank 0 and broadcast), and only rank 0 prints, writes the CSV,
-TensorBoard and the checkpoints. ``run_test`` and ``run_retrieval`` run in
-one process only (ROADMAP item 17b-ii).
+``run_pretrain`` and ``run_finetune`` run on the ``--mesh_shape D M``
+grid, as the JAX loops do over processes: each data row loads
+``batch_size // D`` clips per view from its shard of the epoch (the 'model'
+ranks of a row load the same clips), the state starts from rank 0's (a
+resume is read on rank 0, broadcast, and cut to each rank's slices), and
+only rank 0 prints, writes the CSV, TensorBoard and the checkpoints, whose
+tensors every rank gathers whole first. ``run_test`` and
+``run_retrieval`` run in one process only (ROADMAP item 17b-ii).
 """
 
 from __future__ import annotations
@@ -222,11 +224,23 @@ def _to_device(tree, dev):
     return tree
 
 
-def _restore_state(state, tree, dev) -> None:
-    """A train state's tree (``ckpt.state_tree``) back into ``state``."""
+def _restore_state(state, tree, dev, tx=None) -> None:
+    """A train state's tree (``ckpt.state_tree``, whole tensors) back into
+    ``state``, cut to this rank's slices where the mesh splits them (the
+    model's by its tensor-parallel heads, the optimizer state's by ``tx``,
+    a ``train.optim.MeshUpdate``)."""
     state.model.load_state_dict(tree["model"])
-    state.opt_state = _to_device(tree["opt_state"], dev)
+    opt = tree["opt_state"]
+    if hasattr(tx, "cut_state"):
+        opt = tx.cut_state(opt)
+    state.opt_state = _to_device(opt, dev)
     state.step = int(tree["step"])
+
+
+def _data_shard() -> Dict:
+    """The loaders' shard of this rank: its data row."""
+    data = mesh.mesh_axis("data")
+    return dict(process_index=data.index, process_count=data.size)
 
 
 def _load_reference_pth(state, config: Config, check_arch: bool) -> None:
@@ -284,13 +298,12 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
     if config.steps_per_epoch and not max_steps_per_epoch:
         max_steps_per_epoch = config.steps_per_epoch
     dataset = build_dataset(config, "train")
+    model, state, tx = create_pretrain_state(config, seed=config.manual_seed,
+                                             device=dev)
     loader = PretrainLoader(
         dataset, batch, config.sample_duration,
         seed=config.manual_seed, num_workers=config.n_workers,
-        process_index=mesh.rank(), process_count=mesh.world_size(),
-        echo=config.data_echo)
-    model, state, tx = create_pretrain_state(config, seed=config.manual_seed,
-                                             device=dev)
+        echo=config.data_echo, **_data_shard())
     if config.tf_i3d_ckpt:
         # a kinetics-i3d checkpoint seeds both towers (the reference loads
         # it into the I3D base that online and target start from)
@@ -313,7 +326,7 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
             raise ValueError(f"checkpoint {resume_from} holds arch "
                              f"{meta.get('arch')!r}, the config asks for "
                              f"{config.arch!r}")
-        _restore_state(state, tree, dev)
+        _restore_state(state, tree, dev, tx)
     mesh.replicate(model)
 
     logger = _epoch_logger(
@@ -413,22 +426,22 @@ def run_pretrain(config: Config, max_steps_per_epoch: int = 0,
                                 if k != "epoch"}, epoch, prefix="epoch/")
                 tb.flush()
         history.append(row)
+        save = preempted or epoch % config.ckpt_every_epochs == 0
+        tree = ckpt_lib.state_tree(state, tx) if save else None
         if preempted:
             if mesh.is_main():
                 ckpt_lib.save_checkpoint(
                     os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
-                    ckpt_lib.state_tree(state),
-                    meta={"arch": config.arch, "epoch": epoch,
-                          "preempted": True})
+                    tree, meta={"arch": config.arch, "epoch": epoch,
+                                "preempted": True})
                 print(f"Preempted at epoch {epoch} step {global_step}: "
                       f"checkpoint saved; relaunch with --auto_resume "
                       f"(or --task resume) to continue", flush=True)
             break
-        if epoch % config.ckpt_every_epochs == 0 and mesh.is_main():
+        if save and mesh.is_main():
             ckpt_lib.save_checkpoint(
                 os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
-                ckpt_lib.state_tree(state),
-                meta={"arch": config.arch, "epoch": epoch + 1})
+                tree, meta={"arch": config.arch, "epoch": epoch + 1})
     guard.close()
     if tb:
         tb.close()
@@ -450,7 +463,10 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
         max_steps_per_epoch = config.steps_per_epoch
     train_ds = build_dataset(config, "train")
     val_ds = build_dataset(config, "val")
-    shard = dict(process_index=mesh.rank(), process_count=mesh.world_size())
+    num_classes = config.n_finetune_classes or config.n_classes
+    model, state, tx = create_finetune_state(
+        config, num_classes, seed=config.manual_seed, device=dev)
+    shard = _data_shard()
     train_loader = FinetuneLoader(
         train_ds, batch, config.sample_duration,
         config.clip_stride, train=True, seed=config.manual_seed,
@@ -461,9 +477,6 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
         val_ds, batch, config.sample_duration,
         config.clip_stride, train=False, seed=config.manual_seed,
         num_workers=config.n_workers, drop_last=False, **shard)
-    num_classes = config.n_finetune_classes or config.n_classes
-    model, state, tx = create_finetune_state(
-        config, num_classes, seed=config.manual_seed, device=dev)
     if config.tf_i3d_ckpt:
         load_tf_i3d(model.online_net, config.tf_i3d_ckpt)
 
@@ -490,7 +503,7 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
             raise ValueError(f"checkpoint {config.resume_md_path} holds arch "
                              f"{meta.get('arch')!r}, the config asks for "
                              f"{config.arch!r}")
-        _restore_state(state, tree, dev)
+        _restore_state(state, tree, dev, tx)
         if "plateau" in meta:
             plateau = optim.ReduceLROnPlateau.from_state_dict(meta["plateau"])
         ep = ckpt_lib.epoch_from_name(config.resume_md_path)
@@ -580,11 +593,11 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
         if preempted:
             # a resumable (not best) checkpoint; meta epoch = this epoch, so
             # --task resume redoes it. Partial val numbers are dropped.
+            tree = ckpt_lib.state_tree(state, tx)
             if mesh.is_main():
                 ckpt_lib.save_checkpoint(
                     os.path.join(log_dir, ckpt_lib.ckpt_name(epoch)),
-                    ckpt_lib.state_tree(state),
-                    meta={"arch": config.arch, "epoch": epoch,
+                    tree, meta={"arch": config.arch, "epoch": epoch,
                           "plateau": plateau.state_dict(),
                           "best_acc": best["acc"], "preempted": True})
                 print(f"Preempted at epoch {epoch} step {global_step}: "
@@ -604,11 +617,12 @@ def run_finetune(config: Config, max_steps_per_epoch: int = 0,
             tb.flush()
         if v_acc > best["acc"]:  # keep only the best epoch's checkpoint
             path = os.path.join(log_dir, ckpt_lib.ckpt_name(epoch, best=True))
+            tree = ckpt_lib.state_tree(state, tx)
             if mesh.is_main():
                 if best["path"]:
                     ckpt_lib.delete_checkpoint(best["path"])
                 ckpt_lib.save_checkpoint(
-                    path, ckpt_lib.state_tree(state),
+                    path, tree,
                     meta={"arch": config.arch, "epoch": epoch + 1,
                           "plateau": plateau.state_dict(),
                           "best_acc": v_acc})

@@ -27,6 +27,11 @@ update, no weight decay and no optimizer state, and stay out of the norm.
 State layouts: plain SGD ``{"trace"}``, dampened SGD ``{"trace",
 "count"}``, Adam ``{"mu", "nu", "count"}``; each a ``{name: tensor}`` map
 over the trainable parameters, ``count`` a Python int (the updates taken).
+
+On a mesh (``parallel/mesh.py``) :class:`MeshUpdate` wraps the rule: the
+clip's global norm counts the tensor-parallel slices' squares over
+'model', and under ``--shard_opt_state`` (ZeRO-1, JAX's ``_zero_spec``)
+each 'data' rank keeps the state of one slice of each parameter only.
 """
 
 from __future__ import annotations
@@ -72,13 +77,16 @@ class Optimizer(Protocol):
                params: Tensors) -> Tuple[Tensors, Dict]: ...
 
 
-def _clipped(grads: Tensors, max_norm: Optional[float]) -> List[torch.Tensor]:
+def _clipped(grads: Tensors, max_norm: Optional[float],
+             norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """optax ``clip_by_global_norm``: scale every gradient by ``max_norm /
-    norm`` when the global norm reaches ``max_norm``."""
+    norm`` when the global norm (by default the norm of ``grads``) reaches
+    ``max_norm``."""
     g = list(grads.values())
     if not max_norm:
         return g
-    norm = torch.sqrt(sum(x.float().square().sum() for x in g))
+    if norm is None:
+        norm = torch.sqrt(sum(x.float().square().sum() for x in g))
     clip = norm >= max_norm
     return [torch.where(clip, (x / norm) * max_norm, x) for x in g]
 
@@ -180,6 +188,151 @@ class Adam:
         if self.decoupled:
             out = _decayed(out, params, names, self.weight_decay)
         return dict(zip(names, out)), {"mu": mu, "nu": nu, "count": count}
+
+
+def zero_dim(shape, data_size: int) -> Optional[int]:
+    """JAX's ``_zero_spec``: the dimension of an optimizer-state tensor of
+    ``shape`` split over 'data' (ZeRO-1), its largest one that the 'data'
+    size divides (the first of equal ones); None keeps it whole."""
+    if data_size > 1:
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if shape[i] % data_size == 0 and shape[i] >= data_size:
+                return i
+    return None
+
+
+class MeshUpdate:
+    """An update rule (built without its clip) on the ``('data',
+    'model')`` mesh, for gradients already reduced over the mesh
+    (``train/pretrain.py all_reduce_step``).
+
+    * The global-norm clip is over the whole gradient: the squares of the
+      tensor-parallel slices (``tp_dims``, ``{name: dim}``) are summed over
+      'model' before the square root.
+    * ``zero`` (``--shard_opt_state``): each parameter outside ``tp_dims``
+      with a dimension that the 'data' size divides (:func:`zero_dim`)
+      keeps the state of this rank's slice along it alone. The rule runs
+      on the slices of the clipped gradient and of the parameter (weight
+      decay included), and the slices of the update are gathered over
+      'data'. Every step of the rules is elementwise, so the update is
+      bitwise the one without ``zero``.
+
+    ``gather_state`` / ``cut_state`` turn the state into the whole tensors
+    of a one-process state and back (checkpoints).
+    """
+
+    def __init__(self, inner: Optimizer, clip_grad_norm: Optional[float],
+                 tp_dims: Dict[str, int], zero: bool):
+        from cstp_tpu_torch.parallel import mesh
+
+        self.inner = inner
+        self.clip_grad_norm = clip_grad_norm
+        self.tp_dims = dict(tp_dims)
+        self.zero = bool(zero)
+        self.data = mesh.mesh_axis("data")
+        self.dims: Dict[str, Optional[int]] = {}
+
+    def _norm(self, grads: Tensors) -> Optional[torch.Tensor]:
+        """The whole gradient's norm where 'model' splits some of it; None
+        (``_clipped``'s own norm) where it splits none."""
+        from cstp_tpu_torch.parallel import mesh
+
+        split = [n for n in grads if n in self.tp_dims]
+        if not split:
+            return None
+        whole = sum(grads[n].float().square().sum() for n in grads
+                    if n not in self.tp_dims)
+        parts = mesh.all_reduce_sum(
+            sum(grads[n].float().square().sum() for n in split), "model")
+        return torch.sqrt(whole + parts)
+
+    def _cut(self, tensors: Tensors) -> Tensors:
+        from cstp_tpu_torch.parallel.mesh import cut_slice
+
+        return {n: t if self.dims.get(n) is None else cut_slice(
+            t, self.dims[n], self.data.index, self.data.size)
+            for n, t in tensors.items()}
+
+    def _gather(self, tensors: Tensors) -> Tensors:
+        """The whole tensors of ``tensors``' slices, in one all-gather over
+        'data' per dtype."""
+        from cstp_tpu_torch.parallel import mesh
+
+        out = dict(tensors)
+        by_dtype: Dict[torch.dtype, List[str]] = {}
+        for n, t in tensors.items():
+            if self.dims.get(n) is not None:
+                by_dtype.setdefault(t.dtype, []).append(n)
+        for names in by_dtype.values():
+            fronts = [tensors[n].movedim(self.dims[n], 0) for n in names]
+            flat = torch.cat([f.reshape(-1) for f in fronts])
+            parts = mesh.gather_slices(flat, 0, "data").chunk(self.data.size)
+            sizes = [f.numel() for f in fronts]
+            pieces = [p.split(sizes) for p in parts]
+            for i, (n, f) in enumerate(zip(names, fronts)):
+                whole = torch.cat([p[i].view(f.shape) for p in pieces])
+                out[n] = whole.movedim(0, self.dims[n])
+        return out
+
+    def init(self, params: Tensors) -> Dict:
+        self.dims = {n: zero_dim(p.shape, self.data.size)
+                     if self.zero and n not in self.tp_dims else None
+                     for n, p in params.items()}
+        return self.inner.init(self._cut(params))
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: Dict,
+               params: Tensors) -> Tuple[Tensors, Dict]:
+        g = dict(zip(grads, _clipped(grads, self.clip_grad_norm,
+                                     self._norm(grads))))
+        updates, state = self.inner.update(self._cut(g), state,
+                                           self._cut(params))
+        return self._gather(updates), state
+
+    def gather_state(self, state: Dict) -> Dict:
+        """The state with whole tensors (a collective): the ZeRO slices
+        gathered over 'data', the tensor-parallel ones over 'model'."""
+        from cstp_tpu_torch.parallel.mesh import gather_slices
+
+        out = {}
+        for k, v in state.items():
+            if isinstance(v, dict):
+                v = self._gather(v)
+                v = {n: gather_slices(t, self.tp_dims[n], "model")
+                     if n in self.tp_dims else t for n, t in v.items()}
+            out[k] = v
+        return out
+
+    def cut_state(self, state: Dict) -> Dict:
+        """This rank's slices of a state with whole tensors."""
+        from cstp_tpu_torch.parallel import mesh
+
+        model = mesh.mesh_axis("model")
+        out = {}
+        for k, v in state.items():
+            if isinstance(v, dict):
+                v = {n: mesh.cut_slice(t, self.tp_dims[n], model.index,
+                                       model.size)
+                     if n in self.tp_dims else t for n, t in v.items()}
+                v = {n: t.contiguous() for n, t in self._cut(v).items()}
+            out[k] = v
+        return out
+
+
+def mesh_update(tx: Optimizer, model: nn.Module,
+                shard_opt_state: bool) -> Optimizer:
+    """``tx`` for the installed mesh: itself where no 'model' axis splits
+    a head and ``--shard_opt_state`` is off; else :class:`MeshUpdate`
+    around it (which takes over its clip)."""
+    from cstp_tpu_torch.parallel.mesh import tensor_parallel_dims
+
+    tp = {n: d for n, d in tensor_parallel_dims(model).items()
+          if n in dict(model.named_parameters())}
+    if not tp and not shard_opt_state:
+        return tx
+    clip = tx.clip_grad_norm
+    tx.clip_grad_norm = None
+    return MeshUpdate(tx, clip, tp, shard_opt_state)
 
 
 def make_optimizer(name: str, *, momentum: float = 0.9,

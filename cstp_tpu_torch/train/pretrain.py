@@ -23,14 +23,19 @@ two views' online projections, over the global batch (per microbatch under
 PyTorch state is mutable: a step updates ``state`` (parameters, BN running
 statistics, optimizer state) in place and returns it with the metrics.
 
-Data parallelism (``parallel/mesh.py``): under a process group of N ranks,
-each holding its rows of the global batch, the augment draws the global
-batch's parameters and keeps its rows, the gradients are averaged once per
-optimizer step after the accumulation (the JAX step's accumulate-then-
-update order), and the metrics too; ``--sync_bn 1`` BatchNorms take
-global-batch statistics, and under ``--sync_bn 0`` the BN running
-statistics are averaged after the step. EMA, clip and update then see the
-same tensors on every rank.
+Data parallelism (``parallel/mesh.py``): on a ``--mesh_shape D M`` grid of
+ranks, each data row holding its rows of the global batch, the augment
+draws the global batch's parameters and keeps the row's rows, the
+gradients are averaged over 'data' once per optimizer step after the
+accumulation (the JAX step's accumulate-then-update order), and the
+metrics too; ``--sync_bn 1`` BatchNorms take global-batch statistics, and
+under ``--sync_bn 0`` the BN running statistics are averaged after the
+step. EMA, clip and update then see the same tensors on every rank of a
+model column. With a 'model' axis above 1 the 4096-wide MLPs are
+tensor-parallel; ``--shard_spatial`` splits the R(2+1)D towers' H over
+'model' (their parameter gradients, partial on each shard, are summed over
+'model' first); ``--shard_opt_state`` keeps each 'data' rank's slice of
+the optimizer state (``train/optim.py MeshUpdate``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,10 @@ from cstp_tpu_torch.augment.pipeline import (
 )
 from cstp_tpu_torch.config import Config
 from cstp_tpu_torch.models.layers import store_calibration
+from cstp_tpu_torch.models.r21d import (
+    shard_spatially,
+    spatially_partial_names,
+)
 from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.ssl.byol import CSTPPretrain, cross_entropy, ema_update
 from cstp_tpu_torch.ssl.ntxent import cross_replica_ntxent
@@ -69,9 +78,21 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 def data_shard_count(config: Config) -> int:
     """Size of the mesh 'data' axis: the world size of the process group
-    (1 without one), which ``--mesh_shape`` must agree with; a 'model' axis
-    above 1 raises ``NotImplementedError`` (``parallel.create_mesh``)."""
+    (1 without one) over the 'model' size of ``--mesh_shape``, whose
+    product must be the world size (``parallel.create_mesh``)."""
     return mesh.create_mesh(config.mesh_shape, config.mesh_axes).data
+
+
+def place_on_mesh(model, config: Config):
+    """Install ``--mesh_shape`` (``parallel.use_mesh``), then lay ``model``
+    out on it: global-batch BatchNorms under ``--sync_bn 1``, the R(2+1)D
+    towers split over H under ``--shard_spatial``, the 4096-wide MLPs
+    tensor-parallel under a 'model' axis above 1. Returns ``model``."""
+    mesh.use_mesh(config.mesh_shape, config.mesh_axes)
+    mesh.set_cross_rank_bn(model, bool(config.sync_bn))
+    if config.shard_spatial:
+        shard_spatially(model)
+    return mesh.shard_mlps(model)
 
 
 def bn_groups_from_config(config: Config) -> int:
@@ -113,8 +134,7 @@ def create_pretrain_model(config: Config, seed: int = 0,
                          remat_policy=config.remat_policy,
                          shortcut=config.resnet_shortcut, alpha=config.alpha,
                          quant=config.quant, quant_scope=config.quant_scope)
-    mesh.set_cross_rank_bn(model, bool(config.sync_bn))
-    return model.to(dev)
+    return place_on_mesh(model, config).to(dev)
 
 
 def create_pretrain_state(config: Config, seed: int = 0, device=None
@@ -131,6 +151,7 @@ def create_pretrain_state(config: Config, seed: int = 0, device=None
         nesterov=config.nesterov,
         clip_grad_norm=(config.clip_grad_value if config.clip_grad_norm
                         else None))
+    tx = optim.mesh_update(tx, model, bool(config.shard_opt_state))
     state = TrainState(0, model, tx.init(optim.trainable(model)))
     return model, state, tx
 
@@ -216,7 +237,8 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
     use_fused = config.pallas_augment == "on"
 
     def augment(gen, frames1, frames2, rot1, rot2):
-        shard = (mesh.rank(), mesh.world_size())
+        data = mesh.mesh_axis("data")
+        shard = (data.index, data.size)
         if use_fused:
             return pretrain_augment_batch_fused(
                 gen, frames1, frames2, rot1, rot2,
@@ -249,11 +271,16 @@ def _build_pretrain_programs(model: CSTPPretrain, tx: optim.Optimizer,
 
 def all_reduce_step(model, grads: Dict[str, torch.Tensor], metrics,
                     config: Config):
-    """Under a process group: the gradients and metrics averaged over the
-    ranks (one flat all-reduce each), and under --sync_bn 0 the BN running
-    statistics too. ``(grads, metrics)``; the identity without a group."""
+    """Under a process group: the gradients and metrics averaged over
+    'data' (one flat all-reduce each), the H-sharded towers' parameter
+    gradients summed over 'model' first, and under --sync_bn 0 the BN
+    running statistics averaged over 'data' too. ``(grads, metrics)``; the
+    identity without a group."""
     if not mesh.is_distributed():
         return grads, metrics
+    partial = spatially_partial_names(model)
+    mesh.all_reduce_sum_([g for n, g in grads.items() if n in partial],
+                         "model")
     mesh.all_reduce_mean_(grads.values())
     if not config.sync_bn:
         mesh.average_buffers_(model)

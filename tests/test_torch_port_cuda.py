@@ -107,6 +107,41 @@ def test_conv21d_taps9_edge_shapes(dev, shape):
     _check_fused("taps9", *_conv_inputs(dev, rng, *shape))
 
 
+@pytest.mark.parametrize("shape", [
+    (16, 16, 28, 56, 64, 144, 64), (16, 8, 14, 28, 128, 288, 128),
+    (16, 4, 7, 14, 256, 576, 256), (16, 2, 4, 7, 512, 1152, 512),
+    (16, 2, 3, 7, 512, 1152, 512), (4, 16, 1, 9, 64, 144, 64)])
+def test_conv21d_taps9_on_padded_h_shards(dev, shape):
+    """K4a/K4b on the padded H shards of ``--shard_spatial`` (H rows of a
+    W-wide frame plus one halo row above and below, zero columns at the
+    sides; 16 clips of two per-view groups, R(2+1)D's shard shapes at
+    112^2 over two ranks, and a one-row shard): one launch each, the plain
+    version's statistics and output, and a backward through the plain
+    chain."""
+    n, t, h, w, cin, m, cout = shape
+    rng = np.random.default_rng(h * w + cin)
+    x = _t(rng.normal(size=(n, t, h + 2, w + 2, cin)), dev, torch.bfloat16)
+    x[:, :, :, 0] = 0
+    x[:, :, :, -1] = 0
+    _, ws, wt, scale, bias = _conv_inputs(dev, rng, 1, 1, 1, cin, m, cout)
+    before = dict(C.launches)
+    x.requires_grad_(True)
+    out, gm, gv = C.fused_st_conv(x, ws, wt, scale, bias, 2, 1e-5, "taps9",
+                                  spatial=True)
+    assert out.shape == (n, t, h, w, cout)
+    assert {k: C.launches[k] - before[k] for k in C.launches} == {
+        k: int(k in ("stats_taps9", "fwd_taps9")) for k in C.launches}
+    pm, pv = C.reference_stats(x.detach(), ws, 2, padded=True)
+    pout = C.reference_chain(x.detach(), ws, wt, scale, bias, gm, gv, 2,
+                             padded=True)
+    torch.testing.assert_close(gm, pm, rtol=1e-2, atol=1e-3)
+    torch.testing.assert_close(gv, pv, rtol=1e-2, atol=1e-3)
+    torch.testing.assert_close(out.float(), pout.float(), rtol=0.1,
+                               atol=0.05)
+    (dx,) = torch.autograd.grad(out.float().square().sum(), x)
+    assert dx.shape == x.shape and bool(torch.isfinite(dx).all())
+
+
 @pytest.mark.parametrize("shape", [(8, 8, 28, 128, 288, 128),
                                    (4, 3, 9, 32, 48, 32),
                                    (2, 3, 9, 16, 48, 32)])

@@ -155,13 +155,50 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 @pytest.mark.parametrize("flag", [
     dict(model_name="s3d", s2d_stem=True), dict(s2d_stem=True),
     dict(t_fold=1), dict(mid_round=128),
-    dict(shard_spatial=1, mesh_shape=(1, 2)), dict(shard_opt_state=1),
 ])
 def test_config_refuses_unported_flags(flag):
     from cstp_tpu_torch.config import Config
 
     with pytest.raises(NotImplementedError):
         Config(**flag).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(shard_spatial=1, mesh_shape=(1, 2)), dict(shard_opt_state=1),
+])
+def test_config_takes_the_model_axis_flags(flag):
+    """``--shard_spatial`` on a 'model' axis of 2 and ``--shard_opt_state``
+    (refused until ROADMAP item 17c was ported) build an r21d config."""
+    from cstp_tpu_torch.config import Config
+
+    cfg = Config(model_name="r21d", **flag).finalize()
+    for k, v in flag.items():
+        assert getattr(cfg, k) == v
+
+
+@pytest.mark.parametrize("flag", [
+    dict(model_name="c3d"), dict(model_name="s3d_byol"),
+    dict(model_name="slowfast"), dict(model_name="r21d", quant="int8"),
+])
+def test_config_refuses_shard_spatial_outside_r21d_float(flag):
+    """``--shard_spatial`` on another family than R(2+1)D, or with a
+    ``--quant`` mode, waits for ROADMAP item 17c-ii."""
+    from cstp_tpu_torch.config import Config
+
+    with pytest.raises(NotImplementedError, match="17c-ii"):
+        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(mesh_shape=(2, 1)), dict(mesh_shape=(2,), mesh_axes=("data",)),
+])
+def test_config_refuses_shard_spatial_without_a_model_axis(flag):
+    """JAX's two ``ValueError``s: ``--shard_spatial`` with a 'model' axis
+    of size 1, or with no 'model' axis."""
+    from cstp_tpu_torch.config import Config
+
+    with pytest.raises(ValueError, match="'model'"):
+        Config(model_name="r21d", shard_spatial=1, **flag).finalize()
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8_fixed", "int8_static",
@@ -219,13 +256,17 @@ def test_quant_and_serve_modules_stand_alone_and_want_the_card(tmp_path):
 
 def test_config_takes_ntxent_weight():
     """``--ntxent_weight`` (refused until NT-Xent was ported) builds a
-    config; a 'model' mesh axis above 1 still waits for ROADMAP item 17c."""
+    config; a 'model' mesh axis above 1 (ROADMAP item 17c) resolves on a
+    world of its size and leaves the 'data' axis the rest."""
     from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.parallel import mesh
     from cstp_tpu_torch.train.pretrain import data_shard_count
 
     assert Config(ntxent_weight=0.5).finalize().ntxent_weight == 0.5
-    with pytest.raises(NotImplementedError, match="17c"):
-        data_shard_count(Config(mesh_shape=(1, 2)).finalize())
+    cfg = Config(mesh_shape=(1, 2)).finalize()
+    assert mesh.create_mesh(cfg.mesh_shape, world=2) == mesh.Mesh(1, 2)
+    with pytest.raises(ValueError, match="world size 1"):
+        data_shard_count(cfg)
 
 
 @pytest.mark.parametrize("flag", [

@@ -664,8 +664,10 @@ def test_mesh_resolves_against_the_world_size():
     assert mesh.create_mesh((2, 1), world=2) == mesh.Mesh(2, 1)
     with pytest.raises(ValueError):
         mesh.create_mesh((2, 1), world=4)
-    with pytest.raises(NotImplementedError, match="17c"):
-        mesh.create_mesh((1, 2), world=2)
+    assert mesh.create_mesh((1, 2), world=2) == mesh.Mesh(1, 2)
+    assert mesh.create_mesh((-1, 2), world=4) == mesh.Mesh(2, 2)
+    with pytest.raises(ValueError):
+        mesh.create_mesh((1, 2), world=4)
     assert mesh.shard_rows(torch.arange(8), 1, 4).tolist() == [2, 3]
 
 
