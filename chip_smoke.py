@@ -214,11 +214,29 @@ Phases:
      the one card) ``main_byol`` for one epoch of 3 steps on (1, 2)
      ``--shard_spatial`` on CSTPack files it writes, then its checkpoint
      resumed at world size 1.
+  22. rewrites (the rewrite flags and the evaluation loops over ranks;
+     R(2+1)D depth 1, 16 x 112^2, bf16, per-view 16): (a) K2/K3 against
+     their plain versions at the ``--mid_round 128`` site shapes (mids
+     128 / 256 / 512; conv5's 1152 is phase 2's), phase 2's tolerances,
+     plans and repeat check, with their output hashes; (b) one step each
+     of ``--mid_round 128 --fused_conv 1`` and ``--s2d_stem --fused_conv
+     1`` (10/10/1 launches), ``--t_fold 1`` (0/0/1) and ``--t_fold 1
+     --quant int8`` (K5 and 48 K6, the spatial convs' on the folded
+     frames) from the same weights and batch against its plain bf16 step
+     by phase 4's rule, each timed over 2 steps; (c) ``main_test`` and
+     ``main_retrieval``, float and ``--quant int8_static`` (after
+     ``serve.quantize``), at world size 1 and under ``torchrun
+     --nproc_per_node 2`` (gloo on the one card) on CSTPack files it
+     writes (5 test videos, 16 train videos): the reports byte for byte,
+     no file written by rank 1, K6 launched on each rank for its own
+     videos; (d) the s3d_byol ``--s2d_stem`` pretrain step with K5 against
+     its plain step by phase 4's rule.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``, which runs phase 19 (a) and 20 (a) too; the slice
 phase's launches plus those of phase 16's K5 and ``--legacy_pace`` steps,
 of phase 18's main-path steps, of phase 19's int8 test run and pretrain
-steps, of phase 20's steps and epoch and of phase 21's ranks' steps), the
+steps, of phase 20's steps and epoch, of phase 21's ranks' steps and of
+phase 22's kernel steps and world-2 ranks), the
 card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Imports nothing of JAX.
@@ -314,7 +332,8 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"[build] {len(logs)} kernel libraries built in "
-        f"{time.perf_counter() - t0:.1f} s from cstp_tpu_torch/csrc")
+        f"{time.perf_counter() - t0:.1f} s from cstp_tpu_torch/csrc into "
+        f"{build.build_dir()}")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -4339,6 +4358,344 @@ def phase_model_axis(dev, card: str):
     return counts
 
 
+# ------------------------------------------------------------ rewrites, ranks
+
+# phase 22 (a): the K2/K3 sites whose mid widths --mid_round 128 changes
+# (144 / 288 / 576 -> 128 / 256 / 512; conv5's 1152 stays, phase 2's), as
+# SITES: (site, T, H=W, Cin, M, Cout, calls per tower)
+MID_ROUND = 128
+MID_ROUND_SITES = [
+    ("conv2.block1.conv1/conv2", 16, 56, 64, 128, 64, 2),
+    ("conv3.block1.conv2", 8, 28, 128, 256, 128, 1),
+    ("conv4.block1.conv2", 4, 14, 256, 512, 256, 1),
+]
+# phase 22 (b)'s steps at per-view B_VIEW: tag -> (config flags, whether
+# the kernel step takes the fused sites, its launches per step); the plain
+# step of each takes neither kernel
+REWRITE_RUNS = {
+    "--mid_round 128 --fused_conv 1": (dict(mid_round=MID_ROUND), True,
+                                       _per_step(10, 10, 1)),
+    "--s2d_stem --fused_conv 1": (dict(s2d_stem=True), True,
+                                  _per_step(10, 10, 1)),
+    "--t_fold 1": (dict(t_fold=1), False, _per_step(0, 0, 1)),
+    # 12 sites a tower, their spatial convs K6 on the folded (N T, 1, H, W)
+    "--t_fold 1 --quant int8": (dict(t_fold=1, quant="int8"), False,
+                                _per_step(0, 0, 1, 48)),
+}
+EVAL_TEST_VIDEOS = 5    # an uneven split over two data rows
+EVAL_K6 = 24            # K6 launches per video of the int8_static forward
+
+
+def _mid_round_sites(dev):
+    """Phase 22 (a): K2/K3 against the plain chain at MID_ROUND_SITES (2 x
+    B_VIEW clips, G BN groups), phase 2's tolerances, plans and K2's
+    bitwise repeat, then the SHA-256 prefixes of K3's output (given the
+    plain statistics) and K2's statistics, as ``perf/sweep_conv21d_fwd.py
+    --hash`` takes them (deterministic cuDNN)."""
+    from cstp_tpu_torch.ops import conv21d as C
+    from cstp_tpu_torch.perf.sweep_conv21d_fwd import _digest
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for site, t, hw, cin, m, cout, _ in MID_ROUND_SITES:
+            n = 2 * B_VIEW
+
+            def rnd(*shape, std=1.0):
+                return torch.randn(shape, generator=gen, device=dev) * std
+            x = rnd(n, t, hw, hw, cin).to(torch.bfloat16)
+            ws = rnd(3, 3, cin, m, std=(9 * cin) ** -0.5)
+            wt = rnd(3, m, cout, std=(3 * m) ** -0.5)
+            scale = 0.5 + torch.rand(m, generator=gen, device=dev)
+            bias = rnd(m, std=0.1)
+            gm, gv = C.reference_stats(x, ws, G)
+            pms = {"stats": time_ms(lambda: C.reference_stats(x, ws, G)),
+                   "fwd": time_ms(lambda: C.reference_chain(
+                       x, ws, wt, scale, bias, gm, gv, G))}
+            ok, bitwise, passes = _hold_pair("clip", x, ws, wt, scale, bias)
+            parts = []
+            for p, (kms, err, ops, nb) in passes.items():
+                b, by = bound_ms(ops, nb, PEAK_BF16)
+                parts.append(f"{p} err {err:.3e} {kms:.3f} ms (plain "
+                             f"{pms[p]:.3f}), bound {b:.3f} ms ({by})")
+            log(f"[rewrite] (a) {site} at --mid_round {MID_ROUND}: N={n} "
+                f"T={t} {hw}x{hw} Cin={cin} M={m} Cout={cout}: "
+                + " | ".join(parts) + " | tol stats rtol 1e-2 atol 1e-3, "
+                "fwd rtol 0.1 atol 0.05")
+            log_stats_plan(C.plan_stats(n, t, hw, hw, cin, m, G),
+                           passes["stats"], pms["stats"], bitwise)
+            log_fwd_plan(C.plan_fwd(n, t, hw, hw, cin, m, cout),
+                         passes["fwd"], pms["fwd"])
+            wsk = ws.to(torch.bfloat16).reshape(9 * cin, m).contiguous()
+            y = C.run_fwd(x, wsk, wt.to(torch.bfloat16).contiguous(), gm, gv,
+                          scale, bias, G)
+            log(f"[hash] K3 {site} M={m}: {_digest(y)}, K2: "
+                f"{_digest(*C.run_stats(x, wsk, G))}")
+            if not (ok and bitwise):
+                raise SystemExit(f"[rewrite] K2/K3 disagree with their plain "
+                                 f"version at {site}, M={m}, or K2 repeats "
+                                 "differently")
+            del x, y, gm, gv
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _rewrite_steps(dev, card: str, slice_ms: float, counts):
+    """Phase 22 (b): one step of each REWRITE_RUNS configuration from the
+    same weights, generator and batch, its launches checked, against its
+    plain bf16 step (no kernel; ``--quant int8``'s with the plain int8 conv
+    in K6's place) by phase 4's rule with the plain float32 step of the
+    same flags as arbiter; each timed over 2 steps. Adds the kernel steps'
+    launches to ``counts``."""
+    from cstp_tpu_torch.ops import quant as Q
+
+    batch = _slice_batch(dev, seed=4)
+    real = Q.int8_conv3d_cuda
+    for tag, (over, fused, want) in REWRITE_RUNS.items():
+        kernel = _one_step_run(dev, _slice_config(
+            fused, pallas_augment="on", **over), batch)
+        if "quant" in over:
+            Q.int8_conv3d_cuda = Q.int8_conv3d_plain
+        try:
+            plain = _one_step_run(dev, _slice_config(False, **over), batch)
+            f32 = _one_step_run(dev, _slice_config_plain_f32(**over), batch)
+        finally:
+            Q.int8_conv3d_cuda = real
+        loss_err, acc_err, cos_k, cos_p, ok = _agree(kernel, plain, f32)
+        log(f"[rewrite] (b) {tag}, per-view {B_VIEW}: kernel step "
+            f"{kernel['ms']:.1f} ms ({B_VIEW / kernel['ms'] * 1e3:.1f} pairs/"
+            f"s, peak {kernel['peak_gib']:.2f} GiB), plain bf16 "
+            f"{plain['ms']:.1f} ms, plain float32 {f32['ms']:.1f} ms (2 steps "
+            f"after one; phase 3's step {slice_ms:.1f} ms; {card}); loss "
+            f"{kernel['metrics']['loss']:.5f} vs plain "
+            f"{plain['metrics']['loss']:.5f}, max rel loss-term err "
+            f"{loss_err:.3e} (tol 2e-2), max accuracy diff {acc_err:.4f} (tol "
+            f"0.125), update cosine to float32: kernel {cos_k:.5f}, plain "
+            f"{cos_p:.5f} (tol kernel >= plain - 0.05); launches "
+            f"{kernel['counts']}, plain {plain['counts']}")
+        if kernel["counts"] != want or any(plain["counts"].values()):
+            raise SystemExit(f"[rewrite] {tag}: launches {kernel['counts']} "
+                             f"(expected {want}), plain {plain['counts']}")
+        if not ok:
+            raise SystemExit(f"[rewrite] {tag}: the kernel step and the "
+                             "plain step disagree")
+        for k, v in kernel["counts"].items():
+            counts[k] += v
+        del kernel, plain, f32
+        torch.cuda.empty_cache()
+
+
+def _s3d_s2d_step(dev, card: str, counts):
+    """Phase 22 (d): the s3d_byol ``--s2d_stem`` pretrain step at per-view
+    B_VIEW with K5 (0/0/1) against the plain bf16 step (0/0/0) by phase
+    4's rule, the plain float32 step as arbiter."""
+    over = dict(model_name="s3d_byol", s2d_stem=True)
+    batch = _slice_batch(dev, seed=4)
+    runs = {k: _one_step_run(dev, cfg, batch) for k, cfg in (
+        ("kernel", _slice_config(False, pallas_augment="on", **over)),
+        ("plain", _slice_config(False, **over)),
+        ("f32", _slice_config_plain_f32(**over)))}
+    k, p, f = (runs[n] for n in ("kernel", "plain", "f32"))
+    loss_err, acc_err, cos_k, cos_p, ok = _agree(k, p, f)
+    log(f"[rewrite] (d) s3d_byol --s2d_stem pretrain, per-view {B_VIEW}: K5 "
+        f"step {k['ms']:.1f} ms (peak {k['peak_gib']:.2f} GiB), plain bf16 "
+        f"{p['ms']:.1f} ms, plain float32 {f['ms']:.1f} ms ({card}); max rel "
+        f"loss-term err {loss_err:.3e} (tol 2e-2), max accuracy diff "
+        f"{acc_err:.4f} (tol 0.125), update cosine to float32: K5 "
+        f"{cos_k:.5f}, plain {cos_p:.5f}; launches {k['counts']}, plain "
+        f"{p['counts']}")
+    if k["counts"] != _per_step(0, 0, 1) or any(p["counts"].values()):
+        raise SystemExit(f"[rewrite] s3d --s2d_stem: launches {k['counts']} "
+                         f"(expected 0/0/1), plain {p['counts']}")
+    if not ok:
+        raise SystemExit("[rewrite] s3d --s2d_stem: the K5 step and the "
+                         "plain step disagree")
+    for key, v in k["counts"].items():
+        counts[key] += v
+
+
+def _eval_runs(root: str, train: str, float_ckpt: str, calib: str):
+    """Phase 22 (c)'s flags common to its CLIs, and its CLI runs: name ->
+    (CLI module name, argv, K6 launches over the run at world size 1)."""
+    import os
+
+    common = ["--model_name", "r21d", "--model_depth", "1",
+              "--sample_duration", str(T), "--sample_size", str(S),
+              "--compute_dtype", "bfloat16", "--n_classes",
+              str(N_FT_CLASSES), "--n_finetune_classes", str(N_FT_CLASSES),
+              "--data_backend", "packed", "--lmdb_path", train,
+              "--dataset", "UCF101", "--n_workers", "4", "--result_path",
+              os.path.join(root, "results")]
+    videos = Q_CALIB_VIDEOS + EVAL_TEST_VIDEOS     # gallery and queries
+    runs = {}
+    for quant, ckpt in (("", float_ckpt), ("int8_static", calib)):
+        q = ["--quant", quant] if quant else []
+        k6 = EVAL_K6 if quant else 0
+        runs[f"test {quant or 'float'}"] = (
+            "main_test", common + ["--task", "test", "--test_md_path", ckpt]
+            + q, k6 * EVAL_TEST_VIDEOS)
+        runs[f"retrieval {quant or 'float'}"] = (
+            "main_retrieval", common + ["--task", "retrieval",
+                                        "--test_md_path", ckpt] + q,
+            k6 * videos)
+    return common, runs
+
+
+def eval_torchrun(spec: str) -> None:
+    """One torchrun rank of phase 22 (c): gloo on card 0 (both ranks share
+    it; NCCL takes one card a rank), then each run of the JSON file
+    ``spec`` through its CLI's ``main``; writes per run its K6 launches
+    and (rank 0) its report, and the files opened for writing by
+    ``train.loops`` on a rank other than 0."""
+    import builtins
+    import importlib
+
+    from cstp_tpu_torch.parallel import mesh
+    from cstp_tpu_torch.train import loops
+
+    with open(spec) as f:
+        runs = json.load(f)
+    mesh.maybe_initialize_distributed(device=torch.device("cuda", 0),
+                                      backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False     # as main() runs world 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    writes, out = [], {}
+    try:
+        if not mesh.is_main():
+            def guarded(file, mode="r", *a, **k):
+                if any(c in mode for c in "wax+"):
+                    writes.append(str(file))
+                return builtins.open(file, mode, *a, **k)
+
+            loops.open = guarded
+        for name, (cli, argv, _) in runs.items():
+            main = importlib.import_module(f"cstp_tpu_torch.cli.{cli}").main
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            res = main(argv)
+            torch.cuda.synchronize()
+            out[name] = dict(
+                k6=_launch_counts()["int8_conv"],
+                seconds=time.perf_counter() - t0,
+                report=(open(res["report"]).read() if mesh.is_main()
+                        else None))
+        out["writes"] = writes
+        with open(f"{spec}.{mesh.rank()}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        mesh.shutdown()
+
+
+def _eval_ranks(dev, card: str, counts):
+    """Phase 22 (c): ``main_test`` and ``main_retrieval``, float and
+    ``--quant int8_static``, at world size 1 in this process and then
+    under ``torchrun --nproc_per_node 2`` (this script's
+    ``--eval-torchrun``; two gloo ranks on the one card), on CSTPack files
+    written here (Q_CALIB_VIDEOS train videos, the gallery and the
+    calibration's, and EVAL_TEST_VIDEOS test videos); each world-2 report
+    must be the world-1 report byte for byte, rank 1 must write no file,
+    and each rank must launch K6 for its own videos (video i on rank i %
+    2). Adds the world-2 ranks' K6 launches to ``counts``."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cstp_tpu_torch.cli import main_retrieval, main_test
+    from cstp_tpu_torch.serve import quantize as serve_quantize
+
+    clis = {"main_test": main_test.main, "main_retrieval": main_retrieval.main}
+    with tempfile.TemporaryDirectory(prefix="cstp_eval_ranks_") as root:
+        train = os.path.join(root, "train.cstp")
+        first_test = CLI_TRAIN + CLI_EVAL
+        with ThreadPoolExecutor(8) as pool:
+            _pack_videos(train, _cli_videos(), range(Q_CALIB_VIDEOS), pool)
+            _pack_videos(os.path.join(root, "test.cstp"), _cli_videos(),
+                         range(first_test, first_test + EVAL_TEST_VIDEOS),
+                         pool)
+        float_ckpt = os.path.join(root, "save_2_max")
+        calib = os.path.join(root, "save_2_int8")
+        _float_ft_checkpoint(dev, float_ckpt)
+        common, runs = _eval_runs(root, train, float_ckpt, calib)
+        _cli_run(serve_quantize.main, common + [
+            "--task", "test", "--out_path", calib, "--test_md_path",
+            float_ckpt, "--calib_batches", "2", "--calib_batch_size", "8"],
+            {}, 1)
+        one = {}
+        for name, (cli, argv, k6) in runs.items():
+            t0 = time.perf_counter()
+            out, _ = _cli_run(clis[cli], argv, {"int8_conv": k6}, 1)
+            one[name] = dict(seconds=time.perf_counter() - t0,
+                             report=open(out["report"]).read())
+        spec = os.path.join(root, "runs.json")
+        with open(spec, "w") as f:
+            json.dump(runs, f)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", __file__, "--eval-torchrun", spec]
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("CSTP_", "MASTER_"))}
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.getcwd()] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+        seconds = time.perf_counter() - t0
+        for line in (done.stdout + done.stderr).splitlines()[-8:]:
+            log(f"[rewrite]   torchrun: {line}")
+        if done.returncode != 0:
+            raise SystemExit(f"[rewrite] torchrun main_test/main_retrieval "
+                             f"exited {done.returncode}")
+        ranks = []
+        for r in range(2):
+            with open(f"{spec}.{r}.json") as f:
+                ranks.append(json.load(f))
+    ok = not ranks[1]["writes"]
+    for name, (cli, argv, k6) in runs.items():
+        videos = k6 // EVAL_K6
+        test = cli == "main_test"
+        # video i on rank i % 2, over the test split (and the gallery)
+        share = [len(range(r, EVAL_TEST_VIDEOS, 2)) + (0 if test else len(
+            range(r, Q_CALIB_VIDEOS, 2))) for r in range(2)]
+        want = [EVAL_K6 * s if videos else 0 for s in share]
+        got = [rank[name]["k6"] for rank in ranks]
+        same = ranks[0][name]["report"] == one[name]["report"]
+        ok &= same and got == want
+        counts["int8_conv"] += sum(got)
+        lines = one[name]["report"].splitlines()
+        log(f"[rewrite] (c) {cli} {name.split()[1]}: world 2 (torchrun, gloo "
+            f"on the one card) report equal to world 1's: {same} ({len(lines)} "
+            f"lines, last {lines[-1]!r}); K6 launches per rank {got} (want "
+            f"{want}); world 1 {one[name]['seconds']:.1f} s, world 2 "
+            f"{ranks[0][name]['seconds']:.1f} s ({card})")
+    log(f"[rewrite] (c) torchrun --nproc_per_node 2, 4 runs: {seconds:.1f} s "
+        f"with the processes' start; files rank 1 opened for writing: "
+        f"{ranks[1]['writes']}")
+    if not ok:
+        raise SystemExit("[rewrite] a world-2 test or retrieval report "
+                         "differs from world 1's, rank 1 wrote a file, or "
+                         "a rank launched K6 for other videos")
+
+
+def phase_rewrites(dev, card: str, slice_ms: float):
+    """Phase 22: the rewrite flags and the evaluation loops over ranks. (a)
+    K2/K3 at the --mid_round 128 site shapes; (b) one step each of
+    REWRITE_RUNS against its plain step; (c) main_test and main_retrieval
+    at world 2 against world 1; (d) the s3d --s2d_stem pretrain step with
+    K5. Returns the main-path launches."""
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in _per_step(0, 0, 0)}
+    _mid_round_sites(dev)
+    _rewrite_steps(dev, card, slice_ms, counts)
+    _eval_ranks(dev, card, counts)
+    _s3d_s2d_step(dev, card, counts)
+    log(f"[rewrite] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def kernels_line(conv, aug_err, aug_t, counts, k6, store):
     """The ``{"kernels": [...]}`` record. K2/K3 times and bounds are per
     pretrain step (its 10 launches at the four sites) and K5's its one
@@ -4354,7 +4711,9 @@ def kernels_line(conv, aug_err, aug_t, counts, k6, store):
     at batch Q_EVAL_BS, where ``torch._int_mm`` computes the same product
     (``library_ms``), while its launches are R(2+1)D's, which has no
     stride-1 1x1x1 conv: that path's own per-shape times are phase 19
-    (a)'s lines. The storage epilogue's and K7's numbers are per pretrain
+    (a)'s lines; phase 22 adds the launches of its rewrite steps (K2/K3 at
+    the ``--mid_round`` widths, K5, K6 on the folded shapes) and of its
+    world-2 ``int8_static`` ranks. The storage epilogue's and K7's numbers are per pretrain
     step (their 24 launches each at the 12 sites of both towers, per-view
     B_VIEW; phase 20 (a)), with launches from phase 20's int8_store
     steps and CLI epoch. ``counts`` is None when no step ran."""
@@ -4402,6 +4761,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--ma-torchrun", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--eval-torchrun", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_rank:    # one rank of phase 18 (b), started by that phase
         r, w, port, out = args.dp_rank
@@ -4422,6 +4782,9 @@ def main(argv=None) -> int:
             main_byol.main(args.ma_torchrun)
         finally:
             mesh.shutdown()
+        return 0
+    if args.eval_torchrun:  # a torchrun rank of phase 22 (c)
+        eval_torchrun(args.eval_torchrun)
         return 0
     if args.serve_check:    # phase 19 (c)'s fresh serving process
         serve_check(*args.serve_check)
@@ -4490,6 +4853,8 @@ def main(argv=None) -> int:
         for k, v in store_counts.items():
             counts[k] += v
         for k, v in phase_model_axis(dev, card).items():
+            counts[k] += v
+        for k, v in phase_rewrites(dev, card, sl["step_ms"]).items():
             counts[k] += v
     print(json.dumps(kernels_line(conv, aug_err, aug_t, counts, k6, store)),
           flush=True)

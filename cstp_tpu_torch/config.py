@@ -228,16 +228,6 @@ class Config:
 
     def check_ported(self) -> None:
         """Refuse flag values whose code paths the port does not have."""
-        unported = {
-            "s2d_stem": bool(self.s2d_stem),
-            "t_fold": bool(self.t_fold),
-            "mid_round > 1": self.mid_round > 1,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                "cstp_tpu_torch does not port these flag values yet: "
-                + ", ".join(bad))
         if self.shard_spatial and base_model_name(self.model_name) != "r21d":
             raise NotImplementedError(
                 f"--shard_spatial on {self.model_name!r}: the port splits H "
@@ -248,6 +238,12 @@ class Config:
             raise NotImplementedError(
                 f"--shard_spatial with --quant {self.quant} is ROADMAP item "
                 "17c-ii")
+        rewrites = [f for f in ("s2d_stem", "t_fold") if getattr(self, f)]
+        if self.shard_spatial and rewrites:
+            raise NotImplementedError(
+                f"--shard_spatial with --{' --'.join(rewrites)}: the H "
+                "shards carry neither rewrite yet (the s2d stem's halo rows, "
+                "the folded spatial conv); ROADMAP item 17c-ii")
         if base_model_name(self.model_name) not in PORTED_FAMILIES:
             raise ValueError(f"unknown backbone {self.model_name!r}; have "
                              f"{sorted(PORTED_FAMILIES)}")

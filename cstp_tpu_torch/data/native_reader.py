@@ -6,8 +6,8 @@ The library mmaps a shard, decodes JPEG frames with libjpeg, resizes them
 with a fixed-point bilinear filter and fills a whole batch from a pthread
 pool, without the interpreter lock. It is built with ``g++`` from the
 repository's source at first use (``ops/build.py build_host``, into
-``build/cstp_tpu_torch/``); a failed build raises with the compiler's
-output, and nothing falls back to the Python reader without saying so.
+``build/cstp_tpu_torch/<fingerprint>/``); a failed build raises with the
+compiler's output, and nothing falls back to the Python reader without saying so.
 
 Where ``g++`` finds no ``jpeglib.h``, the library is built with its JPEG
 decode compiled out: it serves raw-codec shards, ``NativePackedDataset``

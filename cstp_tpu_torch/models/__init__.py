@@ -15,9 +15,12 @@ at depth 18/34 and 2304 at 50/101 (another depth builds 18). Any other
 family raises ``ValueError``. ``fused_conv``, ``remat`` and
 ``remat_policy`` reach R(2+1)D only, ``shortcut`` the 3D ResNet only,
 ``gating`` / ``slow`` S3D only, ``conv_head`` / ``num_classes`` (the
-``--i3d_conv_head`` classifier) I3D only and ``alpha`` (``--alpha``)
-SlowFast only; the other families accept them and do nothing, as in the
-JAX package. The legacy pace-era models, which no model name reaches, are
+``--i3d_conv_head`` classifier) I3D only, ``alpha`` (``--alpha``)
+SlowFast only, ``mid_round`` / ``t_fold`` (``--mid_round``, ``--t_fold``)
+R(2+1)D only and ``s2d_stem`` (``--s2d_stem``) R(2+1)D (the exact
+space-to-depth stem conv) and S3D (the reference's space-to-depth stem,
+other parameter shapes) only; the other families accept them and do
+nothing, as in the JAX package. The legacy pace-era models, which no model name reaches, are
 built by ``make_legacy_model`` (``models/legacy.py``).
 """
 
@@ -83,7 +86,9 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
                   remat: bool = False, remat_policy: str = "",
                   shortcut: str = "B", gating: bool = True,
                   slow: bool = False, conv_head: bool = False,
-                  num_classes: int = 0, alpha: int = 4, quant: str = ""):
+                  num_classes: int = 0, alpha: int = 4, quant: str = "",
+                  s2d_stem: bool = False, mid_round: int = 1,
+                  t_fold: bool = False):
     """The backbone module for ``arch`` ('r21d_byol', 'c3d', 'r3d_classify',
     ...); ``remat`` / ``remat_policy`` are ``--remat`` / ``--remat_policy``
     and ``shortcut`` is ``--resnet_shortcut``. An r3d or slowfast depth
@@ -103,7 +108,8 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
     if base == "s3d":
         from cstp_tpu_torch.models.s3dg import S3D
 
-        return S3D(gating, slow, proj_flag, dtype, bn_groups, gen, quant)
+        return S3D(gating, slow, proj_flag, dtype, bn_groups, gen, quant,
+                   s2d_stem)
     if base == "i3d":
         from cstp_tpu_torch.models.i3d import I3D
 
@@ -126,7 +132,8 @@ def make_backbone(arch: str, depth: int = 1, *, dtype=torch.bfloat16,
 
     return R2Plus1DNet(LAYER_SIZES.get(depth, (1, 1, 1, 1)), proj_flag, dtype,
                        bn_groups, fused_conv, gen,
-                       remat_mode(remat, remat_policy), quant)
+                       remat_mode(remat, remat_policy), quant, s2d_stem,
+                       mid_round, t_fold)
 
 
 def __getattr__(name):

@@ -212,7 +212,12 @@ class Conv3d(nn.Module):
     the input's ``absmax / 127 + 1e-12`` (no gradient). The last two keep
     ``act_scale`` as a float32 buffer (0 until calibrated), where the JAX
     package keeps a batch-stats leaf of the same name. The int8 conv takes
-    the ``(lo, hi)`` pads itself."""
+    the ``(lo, hi)`` pads itself.
+
+    A 4-D ``(N, H, W, C)`` input (``--t_fold``: a clip batch's frames
+    folded into N) takes a kernel, stride and padding of 1, 1 and 0 in T:
+    the float conv runs as a 2-D conv and the int8 conv on ``T = 1``, with
+    the weight's shape unchanged."""
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16,
@@ -240,6 +245,12 @@ class Conv3d(nn.Module):
         """``h_halo``: ``x`` already holds the rows the H padding would
         give (``parallel.halo_rows``), so H is not padded again."""
         x = x.to(self.dtype)
+        folded = x.dim() == 4
+        if folded and (self.kernel[0], self.stride[0],
+                       self.pad_pairs[0]) != (1, 1, (0, 0)):
+            raise ValueError(f"a T-folded input needs a (1, kh, kw) conv "
+                             f"of T stride 1 and padding 0, not kernel "
+                             f"{self.kernel}, stride {self.stride}")
         if h_halo and (self.quant or self.pads is not None):
             raise NotImplementedError("an H halo with --quant or TF-SAME "
                                       "pads is ROADMAP item 17c-ii")
@@ -251,18 +262,29 @@ class Conv3d(nn.Module):
             sa = {"int8": None, "int8_fixed": FIXED_SCALE}.get(self.quant)
             if self.quant == "int8_static":
                 sa = torch.clamp(self.act_scale, min=STATIC_FLOOR)
-            y = int8_conv(x, self.weight, self.stride, self.pad_pairs,
-                          self.dtype, act_scale=sa)
+            y = int8_conv(x[:, None] if folded else x, self.weight,
+                          self.stride, self.pad_pairs, self.dtype,
+                          act_scale=sa)
+            if folded:
+                y = y[:, 0]
             if self.bias is not None:
                 y = y + self.bias.to(self.dtype)
             return y
-        if self.pads is not None:
-            x = _ndhwc_pad(x, self.pads)
         pt, ph, pw = self.padding
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3),
-                     self.weight.to(self.dtype), stride=self.stride,
-                     padding=(pt, 0 if h_halo else ph, pw)
-                     ).permute(0, 2, 3, 4, 1)
+        if folded:
+            if self.pads is not None:
+                x = F.pad(x, (0, 0, *self.pads[2], *self.pads[1]))
+            y = F.conv2d(x.permute(0, 3, 1, 2),
+                         self.weight.to(self.dtype)[:, :, 0],
+                         stride=self.stride[1:], padding=(ph, pw)
+                         ).permute(0, 2, 3, 1)
+        else:
+            if self.pads is not None:
+                x = _ndhwc_pad(x, self.pads)
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                         self.weight.to(self.dtype), stride=self.stride,
+                         padding=(pt, 0 if h_halo else ph, pw)
+                         ).permute(0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -298,13 +320,49 @@ def max_pool_3d_same(x: torch.Tensor, kernel, stride) -> torch.Tensor:
 
 
 def r21d_intermediate_channels(in_channels: int, out_channels: int,
-                               kernel: Tuple[int, int, int]) -> int:
+                               kernel: Tuple[int, int, int],
+                               round_to: int = 1) -> int:
     """Mid-channel count of the factorized (2+1)D conv (paper section 3.5,
-    reference ``r21d_byol.py:74-76``)."""
+    reference ``r21d_byol.py:74-76``). ``round_to`` > 1 (``--mid_round``)
+    rounds it to the nearest multiple of ``round_to``, at least one, with
+    Python's ``round`` as in the JAX package: a tie goes to the even
+    multiple (576 at 128 is 4.5 multiples: 512, not 640). The parameter
+    shapes change with it."""
     kt, kh, kw = kernel
     num = kt * kh * kw * in_channels * out_channels
     den = kh * kw * in_channels + kt * out_channels
-    return int(math.floor(num / den))
+    mid = int(math.floor(num / den))
+    if round_to > 1:
+        mid = max(round_to, round_to * int(round(mid / round_to)))
+    return mid
+
+
+def s2d_conv(x: torch.Tensor, weight: torch.Tensor, pad: int,
+             dtype) -> torch.Tensor:
+    """A spatial (1, k, k) conv of stride (1, 2, 2) and padding (0, pad,
+    pad) on NDHWC ``x``, by the exact space-to-depth rewrite (the JAX
+    package's ``SpatialS2DConv``): the taps of ``weight`` (OIDHW, ``(M,
+    C, 1, k, k)``) are padded with zeros to an even ``k2 x k2`` and
+    rearranged by parity into a ``(1, k2/2, k2/2)`` kernel over ``4C``
+    channels, the padded input's 2 x 2 blocks become channels, and a
+    stride-1 conv runs on the half-resolution grid: the same products,
+    summed in another order. The padded extent must be even."""
+    b, t, h, w, c = x.shape
+    m, k = weight.shape[0], weight.shape[-1]
+    hp, wp = h + 2 * pad, w + 2 * pad
+    if hp % 2 or wp % 2:
+        raise ValueError(f"s2d conv: padded extent {hp}x{wp} is not even")
+    k2 = (k + 2) // 2 * 2
+    wk = F.pad(weight.to(dtype)[:, :, 0], (0, k2 - k, 0, k2 - k))
+    # (M, C, a, di, b, dj) -> (M, di, dj, C, a, b): channel (2 di + dj) C + c
+    wk = wk.reshape(m, c, k2 // 2, 2, k2 // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    wk = wk.reshape(m, 4 * c, 1, k2 // 2, k2 // 2)
+    xs = _ndhwc_pad(x.to(dtype), ((0, 0), (pad, pad), (pad, pad)))
+    xs = xs.reshape(b, t, hp // 2, 2, wp // 2, 2, c).permute(0, 1, 2, 4, 3,
+                                                             5, 6)
+    xs = xs.reshape(b, t, hp // 2, wp // 2, 4 * c)
+    y = F.conv3d(xs.permute(0, 4, 1, 2, 3), wk)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 class SpatioTemporalConv(nn.Module):
@@ -337,6 +395,18 @@ class SpatioTemporalConv(nn.Module):
     ``parallel.halo_rows`` gives it, and a fused site on the padded shard
     (the halo rows in H, zeros at the frame's top and bottom and in W),
     with the taps9 kernels (K4a/K4b) on CUDA.
+
+    The JAX package's three rewrites, in its order after the storage chain
+    and the fused path: ``mid_round`` (``--mid_round``) rounds the mid width
+    (:func:`r21d_intermediate_channels`); ``s2d`` (``--s2d_stem``, on a
+    stride-(1, 2, 2) site with a square kernel) computes the spatial conv by
+    :func:`s2d_conv`, always in float, as the JAX package's
+    ``SpatialS2DConv`` has no ``--quant`` (so that conv keeps no
+    ``act_scale``); ``t_fold`` (``--t_fold``) folds T into the batch for
+    the spatial conv (a 2-D conv) and the mid BatchNorm and ReLU, and
+    unfolds at the temporal conv: each BN group's rows are then its clips'
+    frames, so the statistics are the unfolded ones. These two change no
+    parameter; on H shards both are ROADMAP item 17c-ii.
     """
 
     shard: Optional[Tuple[SpatialShard, int]] = None
@@ -344,7 +414,8 @@ class SpatioTemporalConv(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16, bn_groups: int = 1,
                  fused: bool = False, gen: Optional[torch.Generator] = None,
-                 quant: str = ""):
+                 quant: str = "", mid_round: int = 1, t_fold: bool = False,
+                 s2d: bool = False):
         super().__init__()
         kt, kh, kw = self.kernel = _triple(kernel)
         st, sh, sw = self.stride = _triple(stride)
@@ -352,10 +423,14 @@ class SpatioTemporalConv(nn.Module):
         self.dtype = dtype
         self.fused = fused
         self.quant = quant
+        self.t_fold = t_fold
+        self.s2d = s2d and (sh, sw) == (2, 2) and kh == kw
         conv_quant = "" if quant in STORE_MODES else quant
-        mid = r21d_intermediate_channels(in_ch, features, self.kernel)
+        mid = r21d_intermediate_channels(in_ch, features, self.kernel,
+                                         mid_round)
         self.spatial_conv = Conv3d(in_ch, mid, (1, kh, kw), (1, sh, sw),
-                                   (0, ph, pw), dtype, gen, quant=conv_quant)
+                                   (0, ph, pw), dtype, gen,
+                                   quant="" if self.s2d else conv_quant)
         self.bn = BatchNorm(mid, bn_groups, gen)
         self.temporal_conv = Conv3d(mid, features, (kt, 1, 1), (st, 1, 1),
                                     (pt, 0, 0), dtype, gen, quant=conv_quant)
@@ -398,12 +473,23 @@ class SpatioTemporalConv(nn.Module):
                 cross_rank=self.bn.cross_rank, spatial=spatial)
             self.bn.update_running(gmean, gvar)
             return out
-        if self.shard is not None:
+        if self.shard is not None and (self.s2d or self.t_fold):
+            raise NotImplementedError("--shard_spatial with --s2d_stem or "
+                                      "--t_fold is ROADMAP item 17c-ii")
+        b, t = x.shape[:2]
+        if self.s2d:
+            x = s2d_conv(x, self.spatial_conv.weight, self.padding[1],
+                         self.dtype)
+        elif self.shard is not None:
             x = self.spatial_conv(self._halo(x.to(self.dtype)), h_halo=True)
+        elif self.t_fold:
+            x = self.spatial_conv(x.reshape(b * t, *x.shape[2:]))
         else:
             x = self.spatial_conv(x)
         x = self.bn(x, train)
         x = torch.relu(x).to(self.dtype)
+        if x.dim() == 4:
+            x = x.reshape(b, t, *x.shape[1:])
         return self.temporal_conv(x)
 
     def _store_forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:

@@ -4,8 +4,10 @@ The port of ``cstp_tpu/models/r21d.py`` (reference ``R2Plus1DNet``,
 ``models/pace/r21d_byol.py:184-229``): a 5-stage ResNet of factorized (2+1)D
 convolutions, ``layer_sizes`` blocks per stage, global average pool to a
 512-d feature. NDHWC activations, ``dtype`` compute, f32 parameters and BN.
-``bn_groups``, ``fused_conv`` and ``quant`` (``--quant``, every conv site,
-the stem's too, as in the JAX package) reach every block.
+``bn_groups``, ``fused_conv``, ``quant`` (``--quant``, every conv site,
+the stem's too, as in the JAX package), ``mid_round`` (``--mid_round``) and
+``t_fold`` (``--t_fold``) reach every block; ``s2d_stem`` (``--s2d_stem``)
+the stem's spatial conv alone (``models/layers.py SpatioTemporalConv``).
 
 ``remat`` recomputes the residual stages ``conv2`` .. ``conv5`` (not the
 stem) in the backward pass instead of keeping their activations, as the JAX
@@ -59,12 +61,14 @@ class SpatioTemporalResBlock(nn.Module):
     def __init__(self, in_ch: int, features: int, downsample: bool = False,
                  dtype=torch.bfloat16, bn_groups: int = 1,
                  fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None, quant: str = ""):
+                 gen: Optional[torch.Generator] = None, quant: str = "",
+                 mid_round: int = 1, t_fold: bool = False):
         super().__init__()
         self.dtype = dtype
         self.downsample = downsample
         stride = (2, 2, 2) if downsample else (1, 1, 1)
-        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant,
+                  mid_round=mid_round, t_fold=t_fold)
         self.conv1 = SpatioTemporalConv(in_ch, features, 3, stride, 1,
                                         fused=fused_conv, **kw)
         self.bn1 = BatchNorm(features, bn_groups, gen)
@@ -93,10 +97,11 @@ class SpatioTemporalResLayer(nn.Module):
     def __init__(self, in_ch: int, features: int, layer_size: int,
                  downsample: bool = False, dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
-                 gen: Optional[torch.Generator] = None, quant: str = ""):
+                 gen: Optional[torch.Generator] = None, quant: str = "",
+                 mid_round: int = 1, t_fold: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, bn_groups=bn_groups, fused_conv=fused_conv,
-                  gen=gen, quant=quant)
+                  gen=gen, quant=quant, mid_round=mid_round, t_fold=t_fold)
         self.block1 = SpatioTemporalResBlock(in_ch, features, downsample, **kw)
         for i in range(layer_size - 1):
             setattr(self, f"block{i + 2}",
@@ -113,14 +118,17 @@ REMAT_MODES = ("", "full", "bnrelu")
 
 
 def chain_sites(n: int, t: int, s: int,
-                layer_sizes: Tuple[int, int, int, int] = (1, 1, 1, 1)):
+                layer_sizes: Tuple[int, int, int, int] = (1, 1, 1, 1),
+                mid_round: int = 1):
     """The (2+1)D sites of one R(2+1)D tower on ``n`` clips of ``t x s^2``,
     in forward order: ``(name, input shape (N, T, H, W, Cin), Cout,
     kernel, stride, padding)`` each, the shapes the storage chain's
     kernels see (for their benchmarks and card checks), read off a tower
-    that runs on the meta device."""
+    that runs on the meta device; its mid widths those of
+    ``--mid_round``."""
     with torch.device("meta"):
-        model = R2Plus1DNet(layer_sizes, dtype=torch.float32)
+        model = R2Plus1DNet(layer_sizes, dtype=torch.float32,
+                            mid_round=mid_round)
     sites = []
     for name, m in model.named_modules():
         if isinstance(m, SpatioTemporalConv):
@@ -190,19 +198,20 @@ class R2Plus1DNet(nn.Module):
                  proj_flag: bool = False, dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
                  gen: Optional[torch.Generator] = None, remat: str = "",
-                 quant: str = ""):
+                 quant: str = "", s2d_stem: bool = False,
+                 mid_round: int = 1, t_fold: bool = False):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
         self.dtype = dtype
         self.proj_flag = proj_flag
         self.remat = remat
+        kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant,
+                  mid_round=mid_round, t_fold=t_fold)
         self.conv1 = SpatioTemporalConv(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3),
-                                        dtype=dtype, bn_groups=bn_groups,
-                                        gen=gen, quant=quant)
+                                        s2d=s2d_stem, **kw)
         self.bn1 = BatchNorm(64, bn_groups, gen)
-        kw = dict(dtype=dtype, bn_groups=bn_groups, fused_conv=fused_conv,
-                  gen=gen, quant=quant)
+        kw["fused_conv"] = fused_conv
         self.conv2 = SpatioTemporalResLayer(64, 64, layer_sizes[0], False, **kw)
         self.conv3 = SpatioTemporalResLayer(64, 128, layer_sizes[1], True, **kw)
         self.conv4 = SpatioTemporalResLayer(128, 256, layer_sizes[2], True,

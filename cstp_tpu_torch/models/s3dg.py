@@ -13,10 +13,16 @@ rename. NDHWC activations, ``dtype`` compute, f32 parameters and BN;
 
 ``STConv3d`` is a spatial -> BN -> ReLU -> temporal chain like R(2+1)D's,
 but the JAX package never sends it through ``fused_st_conv`` (``fused_conv``
-reaches R(2+1)D only), so neither does the port. ``--s2d_stem`` on this
-S3D is not ported (``config.check_ported`` refuses it); the space-to-depth
-permutation itself, :func:`space_to_depth_stem`, is here, for the legacy
-S3D-G (``models/legacy.py``).
+reaches R(2+1)D only), so neither does the port.
+
+``s2d_stem`` (``--s2d_stem``) is the reference's legacy stem (``pace/
+s3d_g.py:229-231, 280-299``), as in the JAX package: the space-to-depth
+permutation :func:`space_to_depth_stem` (T, H and W halved, 24 channels),
+then ``Conv_1a`` a ``BasicConv3d`` with a (2, 4, 4) kernel of stride 1 and
+padding (1, 2, 2), then the first plane on T, H and W trimmed off. Its
+parameters differ in shape from the separable stem's: ``Conv_1a.conv``
+``(64, 24, 2, 4, 4)``, one BatchNorm ``Conv_1a.bn``. The legacy S3D-G
+(``models/legacy.py``) uses the same permutation.
 """
 
 from __future__ import annotations
@@ -131,16 +137,24 @@ _POOL_BEFORE = {"Mixed_3b": ((1, 3, 3), (1, 2, 2), (0, 1, 1)),
 class S3D(nn.Module):
     """The 1024-d feature extractor (reference ``s3dg.py:166-248``);
     ``gating`` adds S3D-G's self-gating to every branch, ``slow`` keeps the
-    stem's temporal stride at 1, ``proj_flag`` returns ``(feat, proj)``."""
+    stem's temporal stride at 1, ``s2d_stem`` takes the space-to-depth stem
+    (not with ``slow``), ``proj_flag`` returns ``(feat, proj)``."""
 
     def __init__(self, gating: bool = True, slow: bool = False,
                  proj_flag: bool = False, dtype=torch.bfloat16,
                  bn_groups: int = 1, gen: Optional[torch.Generator] = None,
-                 quant: str = ""):
+                 quant: str = "", s2d_stem: bool = False):
         super().__init__()
+        if s2d_stem and slow:
+            raise ValueError("S3D: the space-to-depth stem and the slow "
+                             "stem are exclusive")
         self.dtype = dtype
+        self.s2d_stem = s2d_stem
         kw = dict(dtype=dtype, bn_groups=bn_groups, gen=gen, quant=quant)
-        self.Conv_1a = STConv3d(3, 64, 7, (1 if slow else 2, 2), 3, **kw)
+        if s2d_stem:
+            self.Conv_1a = BasicConv3d(24, 64, (2, 4, 4), 1, (1, 2, 2), **kw)
+        else:
+            self.Conv_1a = STConv3d(3, 64, 7, (1 if slow else 2, 2), 3, **kw)
         self.Conv_2b = BasicConv3d(64, 64, **kw)
         self.Conv_2c = STConv3d(64, 192, 3, (1, 1), 1, **kw)
         in_ch = 192
@@ -152,7 +166,11 @@ class S3D(nn.Module):
                         if proj_flag else None)
 
     def forward(self, x: torch.Tensor, train: bool = True):
-        x = self.Conv_1a(x.to(self.dtype), train)
+        x = x.to(self.dtype)
+        if self.s2d_stem:
+            x = self.Conv_1a(space_to_depth_stem(x), train)[:, 1:, 1:, 1:]
+        else:
+            x = self.Conv_1a(x, train)
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         x = self.Conv_2c(self.Conv_2b(x, train), train)
         for name, _ in MIXED:

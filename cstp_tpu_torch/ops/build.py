@@ -3,10 +3,13 @@ likewise its host library, the CSTPack reader, with ``g++``.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
-with ``ctypes``. Libraries go to ``build/cstp_tpu_torch/`` beside the
-package, named by a hash of the source, the shared headers (``csrc/*.cuh``)
-and the flags, so an edited source or header rebuilds and an unchanged one
-is reused. ``build_all`` starts one ``nvcc``
+with ``ctypes``. Libraries go to ``build/cstp_tpu_torch/<fingerprint>/``
+beside the package (:func:`build_dir`; ``utils/cache.py
+machine_scoped_cache_dir``: the host CPU, PyTorch and its CUDA, ``nvcc``
+and ``g++``), so a ``build/`` folder from another machine or toolchain is
+never loaded, and are named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. ``build_all`` starts one ``nvcc``
 per source at once. A missing ``nvcc`` or a failed build raises: there is
 no fallback for a CUDA tensor.
 
@@ -30,8 +33,13 @@ import threading
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Tuple
 
+from cstp_tpu_torch.utils.cache import find_nvcc, machine_scoped_cache_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cstp_tpu_torch"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "cstp_tpu_torch"
+# the machine-scoped directory under BUILD_ROOT, found at the first build
+# or load (it asks nvcc and g++ for their versions)
+BUILD_DIR: Optional[Path] = None
 SOURCES = ("conv21d", "augment", "int8_conv", "int8_store")
 HOST_SOURCES = ("cstpack_reader",)
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
@@ -45,13 +53,19 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+def build_dir() -> Path:
+    """``build/cstp_tpu_torch/<fingerprint>/``, where this machine's
+    libraries go (``BUILD_DIR`` once found)."""
+    global BUILD_DIR
+    if BUILD_DIR is None:
+        BUILD_DIR = Path(machine_scoped_cache_dir(BUILD_ROOT))
+    return BUILD_DIR
+
+
 def nvcc_path() -> str:
-    found = shutil.which("nvcc")
+    found = find_nvcc()
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
     raise RuntimeError("cstp_tpu_torch: nvcc not found (PATH, $CUDA_HOME, "
                        "/usr/local/cuda); the CUDA kernels cannot be built")
 
@@ -64,7 +78,7 @@ def _lib_path(name: str) -> Path:
         h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def gxx_path() -> str:
@@ -97,7 +111,7 @@ def _host_lib_path(name: str, jpeg: bool) -> Path:
     command's flags."""
     h = hashlib.sha256((CSRC / f"{name}.cc").read_bytes())
     h.update(" ".join(host_command(name, Path(), jpeg)[1:]).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_host(name: str, jpeg: Optional[bool] = None) -> str:
@@ -107,7 +121,7 @@ def build_host(name: str, jpeg: Optional[bool] = None) -> str:
     jpeg = has_jpeglib() if jpeg is None else jpeg
     out = _host_lib_path(name, jpeg)
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = host_command(name, tmp, jpeg)
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -143,7 +157,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source that has no current library, all ``nvcc``
     processes at once. Returns ``{name: compiler output}`` for the sources
     built now (ptxas register/shared-memory report)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {n: _start(n) for n in names if not _lib_path(n).exists()}
     logs = {}
     for n, p in procs.items():

@@ -41,8 +41,9 @@ fetches its neighbours' rows (:func:`halo_rows`), the BatchNorm moments are
 sums over the ranks weighted by their positions, and the pool is a sum
 over 'model'. ``--shard_opt_state`` (ZeRO-1) lives in ``train/optim.py``.
 
-The collectives are ``all_reduce``, ``all_gather`` and ``broadcast`` only,
-which gloo also carries for CUDA tensors. Without a process group every
+The collectives are ``all_reduce``, ``all_gather`` and ``broadcast`` only
+(and their pickled-object forms), which gloo also carries for CUDA
+tensors. Without a process group every
 helper here is the identity, so one process runs as before.
 """
 
@@ -540,6 +541,16 @@ def broadcast_object(obj, src: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, src)
     return box[0]
+
+
+def all_gather_object(obj) -> list:
+    """Every rank's ``obj`` (pickled), in rank order, on every rank: a list
+    of one without a group."""
+    if not is_distributed():
+        return [obj]
+    out = [None] * world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def set_cross_rank_bn(model: nn.Module, enabled: bool) -> nn.Module:

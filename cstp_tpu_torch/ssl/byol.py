@@ -85,7 +85,9 @@ class CSTPPretrain(nn.Module):
     tower, 0 = one call per view. ``remat`` / ``remat_policy``: the
     towers' ``--remat`` / ``--remat_policy`` (``models/r21d.py``).
     ``shortcut``: ``--resnet_shortcut`` of the 3D ResNet; ``alpha``:
-    SlowFast's ``--alpha``. ``quant`` (``--quant`` int8 or int8_fixed)
+    SlowFast's ``--alpha``. ``s2d_stem``, ``mid_round`` and ``t_fold``:
+    ``--s2d_stem``, ``--mid_round`` and ``--t_fold`` of both towers
+    (``make_backbone``). ``quant`` (``--quant`` int8 or int8_fixed)
     reaches the target tower's conv sites always and the online tower's
     under ``quant_scope`` 'all' (``--quant_scope target``: the EMA tower
     alone). The predictor takes the projection, or the feature where the
@@ -97,7 +99,9 @@ class CSTPPretrain(nn.Module):
                  gen: Optional[torch.Generator] = None,
                  concat_views: bool = True, remat: bool = False,
                  remat_policy: str = "", shortcut: str = "B",
-                 alpha: int = 4, quant: str = "", quant_scope: str = "all"):
+                 alpha: int = 4, quant: str = "", quant_scope: str = "all",
+                 s2d_stem: bool = False, mid_round: int = 1,
+                 t_fold: bool = False):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.concat_views = bool(concat_views)
@@ -105,7 +109,8 @@ class CSTPPretrain(nn.Module):
         use_proj = spec.proj_dim is not None
         tower = dict(dtype=dtype, proj_flag=use_proj, bn_groups=g2, gen=gen,
                      remat=remat, remat_policy=remat_policy,
-                     shortcut=shortcut, alpha=alpha)
+                     shortcut=shortcut, alpha=alpha, s2d_stem=s2d_stem,
+                     mid_round=mid_round, t_fold=t_fold)
         self.online_net = make_backbone(
             backbone, depth, fused_conv=fused_conv == 1,
             quant=quant if quant_scope == "all" else "", **tower)
@@ -180,7 +185,9 @@ class CSTPClassify(nn.Module):
     (I3D's is L2-normalised there). ``fused_conv`` reaches the backbone's
     stride-1 (2+1)D sites, which fuse in train mode only; ``shortcut`` is
     the 3D ResNet's ``--resnet_shortcut`` and ``alpha`` SlowFast's
-    ``--alpha``; ``quant`` (``--quant``) reaches the backbone's conv sites.
+    ``--alpha``; ``quant`` (``--quant``) reaches the backbone's conv sites;
+    ``s2d_stem``, ``mid_round`` and ``t_fold`` the backbone
+    (``make_backbone``).
     """
 
     def __init__(self, backbone: str = "r21d", depth: int = 1,
@@ -188,7 +195,8 @@ class CSTPClassify(nn.Module):
                  head_style: str = "linear", dtype=torch.bfloat16,
                  bn_groups: int = 1, fused_conv: bool = False,
                  gen: Optional[torch.Generator] = None, shortcut: str = "B",
-                 alpha: int = 4, quant: str = ""):
+                 alpha: int = 4, quant: str = "", s2d_stem: bool = False,
+                 mid_round: int = 1, t_fold: bool = False):
         super().__init__()
         spec = self.spec = backbone_spec(backbone, depth)
         self.backbone, self.depth, self.quant = backbone, depth, quant
@@ -203,7 +211,9 @@ class CSTPClassify(nn.Module):
                                         proj_flag=False, bn_groups=bn_groups,
                                         fused_conv=fused_conv, gen=gen,
                                         shortcut=shortcut, alpha=alpha,
-                                        quant=quant, **head)
+                                        quant=quant, s2d_stem=s2d_stem,
+                                        mid_round=mid_round, t_fold=t_fold,
+                                        **head)
         f = spec.feat_dim
         if head_style == "mlp":
             self.classify = MLPHead(f, f, num_classes, dtype, bn_groups, gen)

@@ -78,7 +78,9 @@ def create_classify_model(config: Config, num_classes: int, seed: int = 0,
                          bn_groups=local_bn_groups(config),
                          fused_conv=bool(config.fused_conv), gen=gen,
                          shortcut=config.resnet_shortcut, alpha=config.alpha,
-                         quant=config.quant)
+                         quant=config.quant, s2d_stem=config.s2d_stem,
+                         mid_round=config.mid_round,
+                         t_fold=bool(config.t_fold))
     return place_on_mesh(model, config).to(dev)
 
 

@@ -18,8 +18,12 @@ grid, as the JAX loops do over processes: each data row loads
 ranks of a row load the same clips), the state starts from rank 0's (a
 resume is read on rank 0, broadcast, and cut to each rank's slices), and
 only rank 0 prints, writes the CSV, TensorBoard and the checkpoints, whose
-tensors every rank gathers whole first. ``run_test`` and
-``run_retrieval`` run in one process only (ROADMAP item 17b-ii).
+tensors every rank gathers whole first. ``run_test`` and ``run_retrieval``
+give the one-process result at any world size, as the JAX loops do: video
+``i`` goes to data row ``i % D`` (the 'model' ranks of a row compute it
+together, split in H under ``--shard_spatial``, alike otherwise), each rank
+reads its own videos, the per-video results are gathered in video order,
+and the report is made from them and written by rank 0.
 """
 
 from __future__ import annotations
@@ -192,18 +196,25 @@ def _per_rank_batch(config: Config) -> int:
     return config.batch_size // world
 
 
+def _on_rank0(fn, *args):
+    """``fn(*args)`` run on rank 0 and its result broadcast; an exception
+    there is raised on every rank (so none waits for a broadcast that does
+    not come)."""
+    got = None
+    if mesh.is_main():
+        try:
+            got = (True, fn(*args))
+        except Exception as e:      # raised again below, on every rank
+            got = (False, e)
+    ok, value = mesh.broadcast_object(got)
+    if not ok:
+        raise value
+    return value
+
+
 def _restore_on_rank0(path: str):
     """``(tree, meta)`` of a checkpoint, read on rank 0 and broadcast."""
-    got = ckpt_lib.restore_checkpoint(path) if mesh.is_main() else None
-    return mesh.broadcast_object(got)
-
-
-def _single_process(what: str) -> None:
-    if mesh.world_size() > 1:
-        raise NotImplementedError(
-            f"{what} under a process group of {mesh.world_size()} ranks is "
-            "ROADMAP item 17b-ii; run it as one process (its result is the "
-            "JAX package's data-sharded one)")
+    return _on_rank0(ckpt_lib.restore_checkpoint, path)
 
 
 def _dump_config(config: Config, log_dir: str) -> None:
@@ -248,8 +259,8 @@ def _load_reference_pth(state, config: Config, check_arch: bool) -> None:
     laid over ``state.model`` by name. ``check_arch``: hold the blob's arch
     tag to ``config.arch`` (the JAX package's finetune check; its retrieval
     makes none)."""
-    tree, meta = torch_import.load_torch_checkpoint(config.pretrained_path,
-                                                    config.model_name)
+    tree, meta = _on_rank0(torch_import.load_torch_checkpoint,
+                           config.pretrained_path, config.model_name)
     if check_arch:
         ckpt_lib.check_arch(config.pretrained_path, meta, config)
     torch_import.load_into(state.model, tree)
@@ -651,10 +662,39 @@ def _window_batch(dataset, i: int, config: Config, dev, max_windows: int = 0):
     return torch.from_numpy(padded).to(dev), n_real, label
 
 
+def _per_video(n: int, fn):
+    """``[fn(i) for i in range(n)]`` over the mesh: video ``i`` on data row
+    ``i % D``, whose 'model' ranks all call ``fn(i)`` (their forwards are
+    one computation); the results of each row's 'model' rank 0 gathered on
+    every rank, in video order. A rank with fewer videos joins the gather
+    all the same."""
+    data, model = mesh.mesh_axis("data"), mesh.mesh_axis("model")
+    mine = {i: fn(i) for i in range(data.index, n, data.size)}
+    got = {}
+    for part in mesh.all_gather_object(mine if model.index == 0 else {}):
+        got.update(part)
+    return [got[i] for i in range(n)]
+
+
+def _finetune_checkpoint(config: Config, task: str):
+    """The tree of ``--test_md_path``, or of the one ``*_max`` checkpoint of
+    the finetune ``task``; its arch tag must be ``config.arch``."""
+    md_path = config.test_md_path or ckpt_lib.find_best_checkpoint(
+        os.path.join(config.result_path, config.dataset, task))
+    tree, meta = ckpt_lib.restore_checkpoint(md_path)
+    if config.arch != str(meta.get("arch", config.arch)):
+        raise ValueError(f"checkpoint {md_path} holds arch "
+                         f"{meta.get('arch')!r}, the config asks for "
+                         f"{config.arch!r}")
+    return tree
+
+
 def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
     """Video-level sliding-window test (the reference's ``test.py``): per
-    video, the mean of its windows' logits -> top-1 / top-5."""
-    _single_process("run_test")
+    video, the mean of its windows' logits -> top-1 / top-5. Under a
+    process group the checkpoint is read on rank 0 and broadcast, each
+    data row computes its videos, and the report (each line's running
+    accuracy too) is made after the gather: the one-process report."""
     dev = resolve_device(device)
     data_shard_count(config)
     dataset = build_dataset(config, "test")
@@ -662,23 +702,13 @@ def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
     model, state, _ = create_finetune_state(
         config, num_classes, seed=config.manual_seed, device=dev)
 
-    md_path = config.test_md_path
-    if not md_path:
-        md_path = ckpt_lib.find_best_checkpoint(
-            os.path.join(config.result_path, config.dataset,
-                         config.t_ft_task))
-    tree, meta = ckpt_lib.restore_checkpoint(md_path)
-    if config.arch != str(meta.get("arch", config.arch)):
-        raise ValueError(f"checkpoint {md_path} holds arch "
-                         f"{meta.get('arch')!r}, the config asks for "
-                         f"{config.arch!r}")
+    tree = _on_rank0(_finetune_checkpoint, config, config.t_ft_task)
     ckpt_lib.load_model_by_name(state.model, tree)
     if config.quant == "int8_static":
         check_int8_calibrated(state.model.state_dict(), "test")
     logits_fn = make_logits_step(model, config)
 
     result_dir = os.path.join(config.result_path, config.dataset)
-    os.makedirs(result_dir, exist_ok=True)
     report = os.path.join(
         result_dir,
         f"test_{config.model_name}{config.model_depth}_{config.dataset}_"
@@ -687,6 +717,13 @@ def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
     n = dataset.num_videos()
     if max_videos:
         n = min(n, max_videos)
+
+    def video(i):
+        windows, n_real, label = _window_batch(dataset, i, config, dev)
+        logits = logits_fn(state, windows).float().cpu().numpy()[:n_real]
+        return logits.mean(axis=0), label
+
+    videos = _per_video(n, video)
     # class names when annotation_path ships classInd.txt
     names = read_class_names(config.annotation_path)
 
@@ -695,10 +732,7 @@ def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
 
     correct = 0
     lines = []
-    for i in range(n):
-        windows, n_real, label = _window_batch(dataset, i, config, dev)
-        logits = logits_fn(state, windows).float().cpu().numpy()[:n_real]
-        mean_logits = logits.mean(axis=0)
+    for i, (mean_logits, label) in enumerate(videos):
         pred5 = np.argsort(-mean_logits)[:5]
         correct += int(pred5[0] == label)
         acc = correct / (i + 1)
@@ -706,28 +740,34 @@ def run_test(config: Config, max_videos: int = 0, device=None) -> Dict:
             f"Video[{i}]:\ttop5 = {pred5}\ttop1 = {pred5[0]}{nm(pred5[0])}"
             f"\tgt = {label}{nm(label)}\tacc = {acc}")
     acc = correct / max(n, 1)
-    with open(report, "w+") as f:
-        f.write(str(config.to_json()) + "\n")
-        f.write("\n".join(lines) + "\n")
-        f.write("Video accuracy = " + str(acc) + "\n")
+    if mesh.is_main():
+        os.makedirs(result_dir, exist_ok=True)
+        with open(report, "w+") as f:
+            f.write(str(config.to_json()) + "\n")
+            f.write("\n".join(lines) + "\n")
+            f.write("Video accuracy = " + str(acc) + "\n")
     return {"accuracy": acc, "report": report, "n_videos": n}
 
 
 def _extract_video_features(dataset, config: Config, state, feats_fn, dev,
                             max_videos: int = 0):
     """Per-video retrieval descriptor: the mean of L2-normalised window
-    features (at most ``config.retrieval_clips`` windows), normalised."""
+    features (at most ``config.retrieval_clips`` windows), normalised; each
+    data row computes its videos (``_per_video``)."""
     n = dataset.num_videos()
     if max_videos:
         n = min(n, max_videos)
-    feats, labels = [], np.zeros(n, np.int64)
-    for i in range(n):
+
+    def video(i):
         windows, n_real, label = _window_batch(
             dataset, i, config, dev, max_windows=config.retrieval_clips)
         f = feats_fn(state, windows).float().cpu().numpy()[:n_real]
         v = f.mean(axis=0)
-        feats.append(v / (np.linalg.norm(v) + 1e-12))
-        labels[i] = label
+        return v / (np.linalg.norm(v) + 1e-12), label
+
+    videos = _per_video(n, video)
+    feats = [v for v, _ in videos]
+    labels = np.array([label for _, label in videos], np.int64)
     return np.stack(feats).astype(np.float32), labels
 
 
@@ -737,9 +777,11 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
     features; R@{1,5,10,20,50}.
 
     Weights: ``--pretrained_path`` (a pretrain checkpoint or a reference
-    ``.pth`` file, loaded by name), else ``--test_md_path``, else the one ``*_max`` finetune checkpoint of
-    ``--t_ft_task`` (default ft_all)."""
-    _single_process("run_retrieval")
+    ``.pth`` file, loaded by name), else ``--test_md_path``, else the one
+    ``*_max`` finetune checkpoint of ``--t_ft_task`` (default ft_all), read
+    on rank 0 and broadcast. Under a process group each data row computes
+    its videos' descriptors, every rank gathers them all and computes the
+    recalls, and rank 0 writes the report."""
     dev = resolve_device(device)
     data_shard_count(config)
     num_classes = config.n_finetune_classes or config.n_classes
@@ -749,17 +791,11 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
     if config.pretrained_path and os.path.isfile(config.pretrained_path):
         _load_reference_pth(state, config, check_arch=False)
     elif config.pretrained_path:
-        tree, _ = ckpt_lib.restore_checkpoint(config.pretrained_path)
+        tree, _ = _restore_on_rank0(config.pretrained_path)
         ckpt_lib.load_model_by_name(state.model, tree)
     else:
-        md_path = config.test_md_path or ckpt_lib.find_best_checkpoint(
-            os.path.join(config.result_path, config.dataset,
-                         config.t_ft_task or "ft_all"))
-        tree, meta = ckpt_lib.restore_checkpoint(md_path)
-        if config.arch != str(meta.get("arch", config.arch)):
-            raise ValueError(f"checkpoint {md_path} holds arch "
-                             f"{meta.get('arch')!r}, the config asks for "
-                             f"{config.arch!r}")
+        tree = _on_rank0(_finetune_checkpoint, config,
+                         config.t_ft_task or "ft_all")
         ckpt_lib.load_model_by_name(state.model, tree)
     if config.quant == "int8_static":
         check_int8_calibrated(state.model.state_dict(), "retrieval")
@@ -776,23 +812,24 @@ def run_retrieval(config: Config, max_videos: int = 0, device=None) -> Dict:
                                       device=dev)
 
     result_dir = os.path.join(config.result_path, config.dataset)
-    os.makedirs(result_dir, exist_ok=True)
     report = os.path.join(
         result_dir,
         f"retrieval_{config.model_name}{config.model_depth}_{config.dataset}_"
         f"{config.split}_{config.sample_duration}.txt")
-    with open(report, "w+") as f:
-        f.write(str(config.to_json()) + "\n")
-        f.write(f"gallery = {len(g_labels)} train videos, "
-                f"queries = {len(q_labels)} test videos\n")
-        for k, v in recalls.items():
-            f.write(f"{k} = {v}\n")
-        names = read_class_names(config.annotation_path)
-        if names:
-            for c in sorted(set(int(x) for x in q_labels)):
-                mask = q_labels == c
-                nm = names[c] if 0 <= c < len(names) else "?"
-                f.write(f"R@1[{c} {nm}] = {hit1[mask].mean():.4f} "
-                        f"(n={int(mask.sum())})\n")
+    if mesh.is_main():
+        os.makedirs(result_dir, exist_ok=True)
+        with open(report, "w+") as f:
+            f.write(str(config.to_json()) + "\n")
+            f.write(f"gallery = {len(g_labels)} train videos, "
+                    f"queries = {len(q_labels)} test videos\n")
+            for k, v in recalls.items():
+                f.write(f"{k} = {v}\n")
+            names = read_class_names(config.annotation_path)
+            if names:
+                for c in sorted(set(int(x) for x in q_labels)):
+                    mask = q_labels == c
+                    nm = names[c] if 0 <= c < len(names) else "?"
+                    f.write(f"R@1[{c} {nm}] = {hit1[mask].mean():.4f} "
+                            f"(n={int(mask.sum())})\n")
     return {**recalls, "report": report,
             "n_gallery": len(g_labels), "n_queries": len(q_labels)}

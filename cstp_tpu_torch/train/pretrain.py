@@ -133,7 +133,10 @@ def create_pretrain_model(config: Config, seed: int = 0,
                          remat=config.remat,
                          remat_policy=config.remat_policy,
                          shortcut=config.resnet_shortcut, alpha=config.alpha,
-                         quant=config.quant, quant_scope=config.quant_scope)
+                         quant=config.quant, quant_scope=config.quant_scope,
+                         s2d_stem=config.s2d_stem,
+                         mid_round=config.mid_round,
+                         t_fold=bool(config.t_fold))
     return place_on_mesh(model, config).to(dev)
 
 

@@ -2,8 +2,8 @@
 bound by ``data/native_reader.py``) against the JAX package's, on the CPU.
 
 Both libraries are built from their own copy of the source (the port's
-with ``g++`` into ``build/cstp_tpu_torch/``, JAX's with ``make`` in
-``native/``) and held bitwise: meta, raw and JPEG frames at the stored
+with ``g++`` into ``build/cstp_tpu_torch/<fingerprint>/``, JAX's with
+``make`` in ``native/``) and held bitwise: meta, raw and JPEG frames at the stored
 size and resized, ``read_clips``, and ``decode_jpeg_blobs``. Against the
 Python ``PackedDataset`` the bounds are JAX's own
 (``tests/test_native_reader.py``): raw frames bitwise, JPEG frames at the
@@ -182,8 +182,8 @@ def test_decode_jpeg_blobs_is_the_jax_decode(jax_lib, monkeypatch):
 
 def test_library_is_built_under_build_not_native():
     path = Path(pnative.load_native_lib()._name)
-    assert path.parent == build.BUILD_DIR
-    assert path.parts[-3:-1] == ("build", "cstp_tpu_torch")
+    assert path.parent == build.build_dir() == build.BUILD_DIR
+    assert path.parts[-4:-2] == ("build", "cstp_tpu_torch")
     assert "native" not in path.parts
     assert path.name.startswith("libcstpack_reader_")
     assert build.has_jpeglib()       # the bitwise JPEG cases need libjpeg
