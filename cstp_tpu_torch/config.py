@@ -231,19 +231,10 @@ class Config:
         if self.shard_spatial and base_model_name(self.model_name) != "r21d":
             raise NotImplementedError(
                 f"--shard_spatial on {self.model_name!r}: the port splits H "
-                "over 'model' in the R(2+1)D tower only; other families "
-                "(pools, TF-SAME pads, SlowFast laterals) are ROADMAP item "
-                "17c-ii")
-        if self.shard_spatial and self.quant:
-            raise NotImplementedError(
-                f"--shard_spatial with --quant {self.quant} is ROADMAP item "
-                "17c-ii")
-        rewrites = [f for f in ("s2d_stem", "t_fold") if getattr(self, f)]
-        if self.shard_spatial and rewrites:
-            raise NotImplementedError(
-                f"--shard_spatial with --{' --'.join(rewrites)}: the H "
-                "shards carry neither rewrite yet (the s2d stem's halo rows, "
-                "the folded spatial conv); ROADMAP item 17c-ii")
+                "over 'model' in the R(2+1)D tower only; C3D and 3D-ResNet "
+                "(pools on H shards), S3D-G and I3D (TF-SAME pads, "
+                "self-gating) and SlowFast (laterals) are ROADMAP item "
+                "17c-ii parts c, d and e")
         if base_model_name(self.model_name) not in PORTED_FAMILIES:
             raise ValueError(f"unknown backbone {self.model_name!r}; have "
                              f"{sorted(PORTED_FAMILIES)}")

@@ -43,6 +43,7 @@ from cstp_tpu_torch.parallel.mesh import (
     global_moments,
     halo_rows,
     reduce_to_replicated,
+    scale_axis,
     stats_axis,
 )
 
@@ -217,7 +218,17 @@ class Conv3d(nn.Module):
     A 4-D ``(N, H, W, C)`` input (``--t_fold``: a clip batch's frames
     folded into N) takes a kernel, stride and padding of 1, 1 and 0 in T:
     the float conv runs as a 2-D conv and the int8 conv on ``T = 1``, with
-    the weight's shape unchanged."""
+    the weight's shape unchanged.
+
+    A dynamic or observed activation scale is the absmax of the whole
+    input, a maximum over the ranks that hold parts of it
+    (``parallel.scale_axis``): 'data' in a step, and 'model' too where
+    ``spatial`` (``--shard_spatial``, set by ``R2Plus1DNet.shard_spatially``
+    on the tower's convs) marks an H shard. It is taken over ``held``,
+    the rows this rank holds, where the halo-extended input (whose rows a
+    strided 1 x 1 conv's halo leaves some out of) is given."""
+
+    spatial = False
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16,
@@ -229,9 +240,8 @@ class Conv3d(nn.Module):
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
         pads = self.pad_pairs = _pad_pairs(padding)
-        symmetric = all(lo == hi for lo, hi in pads)
-        self.pads = None if symmetric else pads
-        self.padding = tuple(lo for lo, _ in pads) if symmetric else (0, 0, 0)
+        # the TF-SAME pairs, None where every axis pads symmetrically
+        self.pads = None if all(lo == hi for lo, hi in pads) else pads
         self.dtype = dtype
         self.quant = quant
         self.weight = nn.Parameter(glorot_init(
@@ -241,9 +251,23 @@ class Conv3d(nn.Module):
         if quant in ("int8_static", "int8_calib"):
             self.register_buffer("act_scale", torch.zeros(()))
 
-    def forward(self, x: torch.Tensor, h_halo: bool = False) -> torch.Tensor:
+    def call_pads(self, h_halo: bool) -> Tuple[Tuple[int, int], ...]:
+        """This call's ``(lo, hi)`` pads for T, H and W: ``padding`` or the
+        TF-SAME pairs, H's none on a halo-extended input."""
+        pads = list(self.pad_pairs)
+        if h_halo:
+            if self.pads is not None:
+                raise NotImplementedError(
+                    "an H halo with TF-SAME pads (S3D-G, I3D) is ROADMAP "
+                    "item 17c-ii part d")
+            pads[1] = (0, 0)
+        return tuple(pads)
+
+    def forward(self, x: torch.Tensor, h_halo: bool = False,
+                held: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``h_halo``: ``x`` already holds the rows the H padding would
-        give (``parallel.halo_rows``), so H is not padded again."""
+        give (``parallel.halo_rows``), so H is not padded again; ``held``:
+        the rows this rank holds of the input before that halo."""
         x = x.to(self.dtype)
         folded = x.dim() == 4
         if folded and (self.kernel[0], self.stride[0],
@@ -251,40 +275,43 @@ class Conv3d(nn.Module):
             raise ValueError(f"a T-folded input needs a (1, kh, kw) conv "
                              f"of T stride 1 and padding 0, not kernel "
                              f"{self.kernel}, stride {self.stride}")
-        if h_halo and (self.quant or self.pads is not None):
-            raise NotImplementedError("an H halo with --quant or TF-SAME "
-                                      "pads is ROADMAP item 17c-ii")
+        pads = self.call_pads(h_halo)
+        if self.quant in ("int8", "int8_calib"):
+            with torch.no_grad():
+                observed = activation_absmax_scale(
+                    x if held is None else held.to(self.dtype),
+                    scale_axis(self.spatial))
         if self.quant == "int8_calib":
             with torch.no_grad():
-                self.act_scale.copy_(torch.maximum(
-                    self.act_scale, activation_absmax_scale(x)))
+                self.act_scale.copy_(torch.maximum(self.act_scale, observed))
         elif self.quant:
-            sa = {"int8": None, "int8_fixed": FIXED_SCALE}.get(self.quant)
-            if self.quant == "int8_static":
+            if self.quant == "int8":
+                sa = observed
+            elif self.quant == "int8_fixed":
+                sa = FIXED_SCALE
+            else:
                 sa = torch.clamp(self.act_scale, min=STATIC_FLOOR)
             y = int8_conv(x[:, None] if folded else x, self.weight,
-                          self.stride, self.pad_pairs, self.dtype,
-                          act_scale=sa)
+                          self.stride, pads, self.dtype, act_scale=sa)
             if folded:
                 y = y[:, 0]
             if self.bias is not None:
                 y = y + self.bias.to(self.dtype)
             return y
-        pt, ph, pw = self.padding
+        # symmetric pads go to the conv, others are written out first
+        padding = tuple(lo for lo, _ in pads)
+        if any(lo != hi for lo, hi in pads):
+            x = _ndhwc_pad(x[:, None] if folded else x, pads)
+            x, padding = (x[:, 0] if folded else x), (0, 0, 0)
         if folded:
-            if self.pads is not None:
-                x = F.pad(x, (0, 0, *self.pads[2], *self.pads[1]))
             y = F.conv2d(x.permute(0, 3, 1, 2),
                          self.weight.to(self.dtype)[:, :, 0],
-                         stride=self.stride[1:], padding=(ph, pw)
+                         stride=self.stride[1:], padding=padding[1:]
                          ).permute(0, 2, 3, 1)
         else:
-            if self.pads is not None:
-                x = _ndhwc_pad(x, self.pads)
             y = F.conv3d(x.permute(0, 4, 1, 2, 3),
                          self.weight.to(self.dtype), stride=self.stride,
-                         padding=(pt, 0 if h_halo else ph, pw)
-                         ).permute(0, 2, 3, 4, 1)
+                         padding=padding).permute(0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -337,27 +364,38 @@ def r21d_intermediate_channels(in_channels: int, out_channels: int,
     return mid
 
 
+def s2d_kernel(k: int) -> int:
+    """The even kernel the s2d rewrite pads a ``k x k`` kernel to."""
+    return (k + 2) // 2 * 2
+
+
 def s2d_conv(x: torch.Tensor, weight: torch.Tensor, pad: int,
-             dtype) -> torch.Tensor:
+             dtype, h_pad: Optional[Tuple[int, int]] = None
+             ) -> torch.Tensor:
     """A spatial (1, k, k) conv of stride (1, 2, 2) and padding (0, pad,
     pad) on NDHWC ``x``, by the exact space-to-depth rewrite (the JAX
     package's ``SpatialS2DConv``): the taps of ``weight`` (OIDHW, ``(M,
-    C, 1, k, k)``) are padded with zeros to an even ``k2 x k2`` and
-    rearranged by parity into a ``(1, k2/2, k2/2)`` kernel over ``4C``
-    channels, the padded input's 2 x 2 blocks become channels, and a
-    stride-1 conv runs on the half-resolution grid: the same products,
-    summed in another order. The padded extent must be even."""
+    C, 1, k, k)``) are padded with zeros to an even ``k2 x k2``
+    (:func:`s2d_kernel`) and rearranged by parity into a ``(1, k2/2,
+    k2/2)`` kernel over ``4C`` channels, the padded input's 2 x 2 blocks
+    become channels, and a stride-1 conv runs on the half-resolution grid:
+    the same products, summed in another order. ``h_pad`` replaces H's
+    ``(pad, pad)`` (``(0, 0)`` on an H shard that holds its halo rows for
+    kernel ``k2``: its first row is then an even row of the padded frame,
+    so the 2 x 2 blocks pair rows as in the whole frame). The padded
+    extent must be even."""
     b, t, h, w, c = x.shape
     m, k = weight.shape[0], weight.shape[-1]
-    hp, wp = h + 2 * pad, w + 2 * pad
+    hlo, hhi = (pad, pad) if h_pad is None else h_pad
+    hp, wp = h + hlo + hhi, w + 2 * pad
     if hp % 2 or wp % 2:
         raise ValueError(f"s2d conv: padded extent {hp}x{wp} is not even")
-    k2 = (k + 2) // 2 * 2
+    k2 = s2d_kernel(k)
     wk = F.pad(weight.to(dtype)[:, :, 0], (0, k2 - k, 0, k2 - k))
     # (M, C, a, di, b, dj) -> (M, di, dj, C, a, b): channel (2 di + dj) C + c
     wk = wk.reshape(m, c, k2 // 2, 2, k2 // 2, 2).permute(0, 3, 5, 1, 2, 4)
     wk = wk.reshape(m, 4 * c, 1, k2 // 2, k2 // 2)
-    xs = _ndhwc_pad(x.to(dtype), ((0, 0), (pad, pad), (pad, pad)))
+    xs = _ndhwc_pad(x.to(dtype), ((0, 0), (hlo, hhi), (pad, pad)))
     xs = xs.reshape(b, t, hp // 2, 2, wp // 2, 2, c).permute(0, 1, 2, 4, 3,
                                                              5, 6)
     xs = xs.reshape(b, t, hp // 2, wp // 2, 4 * c)
@@ -406,7 +444,12 @@ class SpatioTemporalConv(nn.Module):
     the spatial conv (a 2-D conv) and the mid BatchNorm and ReLU, and
     unfolds at the temporal conv: each BN group's rows are then its clips'
     frames, so the statistics are the unfolded ones. These two change no
-    parameter; on H shards both are ROADMAP item 17c-ii.
+    parameter. On an H shard the halo comes first, on the 5-D input: the
+    s2d conv takes the rows of the even kernel ``k2`` (so its 2 x 2 blocks
+    pair the whole frame's rows), the folded conv the halo-extended frames;
+    the BatchNorm after either weighs this rank's own rows. The int8 convs
+    (``Conv3d``) and the storage chain take the halo-extended input with H
+    padded by none, and the chain sums its integer moments over 'model'.
     """
 
     shard: Optional[Tuple[SpatialShard, int]] = None
@@ -447,17 +490,14 @@ class SpatioTemporalConv(nn.Module):
 
     def _halo(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's input rows and the neighbours' rows the spatial
-        conv reads (its H padding included)."""
+        conv reads (its H padding included; the s2d conv's even kernel)."""
         shard, stride = self.shard
         _, kh, _ = self.kernel
-        return halo_rows(x, shard, stride, kh, self.stride[1],
-                         self.padding[1])
+        return halo_rows(x, shard, stride, s2d_kernel(kh) if self.s2d else kh,
+                         self.stride[1], self.padding[1])
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         if self.quant in STORE_MODES:
-            if self.shard is not None:
-                raise NotImplementedError("--shard_spatial with --quant is "
-                                          "ROADMAP item 17c-ii")
             return self._store_forward(x, train)
         if self.fused_eligible(train):
             ws = self.spatial_conv.weight[:, :, 0].permute(2, 3, 1, 0)
@@ -473,19 +513,18 @@ class SpatioTemporalConv(nn.Module):
                 cross_rank=self.bn.cross_rank, spatial=spatial)
             self.bn.update_running(gmean, gvar)
             return out
-        if self.shard is not None and (self.s2d or self.t_fold):
-            raise NotImplementedError("--shard_spatial with --s2d_stem or "
-                                      "--t_fold is ROADMAP item 17c-ii")
         b, t = x.shape[:2]
+        sharded, held = self.shard is not None, None
+        if sharded:
+            held, x = x, self._halo(x.to(self.dtype))
         if self.s2d:
             x = s2d_conv(x, self.spatial_conv.weight, self.padding[1],
-                         self.dtype)
-        elif self.shard is not None:
-            x = self.spatial_conv(self._halo(x.to(self.dtype)), h_halo=True)
+                         self.dtype, (0, 0) if sharded else None)
         elif self.t_fold:
-            x = self.spatial_conv(x.reshape(b * t, *x.shape[2:]))
+            x = self.spatial_conv(x.reshape(b * t, *x.shape[2:]),
+                                  h_halo=sharded, held=held)
         else:
-            x = self.spatial_conv(x)
+            x = self.spatial_conv(x, h_halo=sharded, held=held)
         x = self.bn(x, train)
         x = torch.relu(x).to(self.dtype)
         if x.dim() == 4:
@@ -495,6 +534,9 @@ class SpatioTemporalConv(nn.Module):
     def _store_forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         st, sh, sw = self.stride
         pt, ph, pw = self.padding
+        spatial, held = self.shard is not None, None
+        if spatial:
+            held, x, ph = x, self._halo(x), 0
         geometry = ((1, sh, sw), (0, ph, pw), (st, 1, 1), (pt, 0, 0))
         bn = self.bn
         scales = (self.act_scale_in, self.act_scale_mid, self.act_scale_act)
@@ -502,7 +544,8 @@ class SpatioTemporalConv(nn.Module):
         if self.quant == "int8_store_calib" or not train:
             out, gmean, gvar, obs = float_store_chain(
                 x, ws, wt, bn.scale, bn.bias, bn.groups, *geometry, train,
-                bn.mean, bn.var, self.dtype, cross_rank=bn.cross_rank)
+                bn.mean, bn.var, self.dtype, cross_rank=bn.cross_rank,
+                spatial=spatial, held=held)
             if train:
                 with torch.no_grad():
                     for s, a in zip(scales, obs):
@@ -513,7 +556,7 @@ class SpatioTemporalConv(nn.Module):
         out, gmean, gvar, *obs = int8_store_chain(
             x, ws, wt, bn.scale, bn.bias,
             *(torch.clamp(s, min=STORE_FLOOR) for s in scales), *geometry,
-            bn.groups, observe, bn.cross_rank)
+            bn.groups, observe, bn.cross_rank, spatial, held)
         if observe:
             with torch.no_grad():
                 for s, a in zip(scales, obs):

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (
 
 from cstp_tpu_torch.models.layers import (
     BatchNorm,
+    Conv3d,
     MLPHead,
     SpatioTemporalConv,
     running_stats_kept,
@@ -224,8 +225,8 @@ class R2Plus1DNet(nn.Module):
     def shard_spatially(self) -> None:
         """``--shard_spatial``: split H over 'model' from the next forward
         on. Records each (2+1)D site's input stride and marks the tower's
-        BatchNorms (the projector's stay whole: it runs on the pooled
-        feature, the same on every rank)."""
+        BatchNorms and convs (the projector's BatchNorm stays whole: it
+        runs on the pooled feature, the same on every rank)."""
         sites, stride = [(self.conv1, 1)], self.conv1.stride[1]
         for layer in (self.conv2, self.conv3, self.conv4, self.conv5):
             for i in range(layer.layer_size):
@@ -238,7 +239,8 @@ class R2Plus1DNet(nn.Module):
                 stride = out
         self._sites, self._out_stride = sites, stride
         for name, m in self.named_modules():
-            if isinstance(m, BatchNorm) and not name.startswith("project"):
+            if isinstance(m, (BatchNorm, Conv3d)) \
+                    and not name.startswith("project"):
                 m.spatial = True
         self.spatial = True
 

@@ -54,7 +54,7 @@ bootstrap, eval, and the reference of the tests).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -100,10 +100,16 @@ def _true_div(a: torch.Tensor, v: float) -> torch.Tensor:
     return a / torch.full((), v, dtype=a.dtype, device=a.device)
 
 
-def activation_absmax_scale(x: torch.Tensor) -> torch.Tensor:
+def activation_absmax_scale(x: torch.Tensor,
+                            axis: Optional[str] = None) -> torch.Tensor:
     """The per-tensor symmetric int8 scale of ``x``: ``absmax / 127 +
-    1e-12`` in float32 (0-d)."""
-    return _true_div(x.float().abs().amax(), QMAX) + EPS
+    1e-12`` in float32 (0-d); with ``axis`` (``mesh.scale_axis``) the
+    absmax is the maximum over the ranks that hold parts of the tensor,
+    bitwise the one-process tensor's."""
+    amax = x.float().abs().amax()
+    if axis is not None:
+        amax, = mesh.all_reduce_max(amax, axis=axis)
+    return _true_div(amax, QMAX) + EPS
 
 
 def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -111,12 +117,6 @@ def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     float32 tensor or one broadcasting against ``x``."""
     return torch.clamp(torch.round(x.float() / scale), -QMAX,
                        QMAX).to(torch.int8)
-
-
-def quantize_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8: ``(xq, scale)``."""
-    scale = activation_absmax_scale(x)
-    return quantize_with_scale(x, scale), scale
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -413,13 +413,10 @@ def _conv_ndhwc(x, w, stride, pad_lo, pad_hi):
 
 
 def _int8_forward(x, w, act_scale, stride, pad_lo, pad_hi, out_dtype):
-    """-> (out, xq, sx): quantize x (dynamic where ``act_scale`` is None),
-    quantize w, the int8 conv dequantized by ``sx * sw``."""
-    if act_scale is None:
-        xq, sx = quantize_tensor(x)
-    else:
-        sx = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
-        xq = quantize_with_scale(x, sx)
+    """-> (out, xq, sx): quantize x at ``act_scale`` and w per channel, the
+    int8 conv dequantized by ``sx * sw``."""
+    sx = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
+    xq = quantize_with_scale(x, sx)
     wq, sw = quantize_weight(w)
     out = torch.ops.cstp.int8_conv3d(xq, wq, sx * sw, list(stride),
                                      list(pad_lo), list(pad_hi), out_dtype)
@@ -460,14 +457,16 @@ def _bf16_conv_vjp(xq, sx, w, g, geometry, need_x=True, need_w=True):
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-              padding: Sequence, out_dtype=torch.bfloat16,
-              act_scale=None) -> torch.Tensor:
+              padding: Sequence, out_dtype=torch.bfloat16, *,
+              act_scale) -> torch.Tensor:
     """int8-quantized 3D convolution with a straight-through bf16 backward.
 
     ``x``: (N, T, H, W, Cin) float; ``w``: (Cout, Cin, kt, kh, kw) float;
     ``stride`` per axis; ``padding`` an int or a ``(lo, hi)`` pair per axis.
-    ``act_scale``: None for the dynamic per-tensor scale, else the static
-    scale (a float or a 0-d tensor, which gets no gradient). Returns
+    ``act_scale``: the activation scale, a float or a 0-d tensor, which
+    gets no gradient: ``activation_absmax_scale`` of the input for the
+    dynamic scale (``models/layers.py Conv3d`` takes it over the ranks
+    that hold parts of the input), else a static one. Returns
     ``out_dtype``."""
     pad_lo, pad_hi = _pads(padding)
     stride = [int(s) for s in stride]
@@ -481,46 +480,50 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
 # ------------------------------------------------------------ storage chain
 
 def store_moments(sums, sq_sums, count: int, s_mid, groups: int,
-                  cross_rank: bool = False):
+                  axis: Optional[str] = None):
     """Per-group ``(G, M)`` mean and biased variance of ``hh = hq * s_mid``
     from the per-(sample, channel) int64 sums of ``hq`` and ``hq^2`` over
-    ``count`` positions: the groups' integer sums (over the ranks too under
-    ``cross_rank`` with a process group: exact), then ``mean = s_mid *
-    E[hq]`` and ``var = s_mid^2 (E[hq^2] - E[hq]^2)`` in float64, each
-    rounded once to f32. JAX's f32 ``mean(hh)`` and ``mean(hh^2) - mean^2``
-    differ from them only by their own rounding."""
+    ``count`` positions: the groups' integer sums and positions (summed
+    over the ranks of ``axis`` too, ``mesh.stats_axis``: exact), then
+    ``mean = s_mid * E[hq]`` and ``var = s_mid^2 (E[hq^2] - E[hq]^2)`` in
+    float64, each rounded once to f32. JAX's f32 ``mean(hh)`` and
+    ``mean(hh^2) - mean^2`` differ from them only by their own
+    rounding."""
     b, m = sums.shape
     both = torch.stack([sums, sq_sums]).reshape(2, groups, b // groups,
                                                 m).sum(2)
     n = (b // groups) * count
-    if cross_rank and mesh.is_distributed():
-        both = mesh.all_reduce_sum(both)
-        n *= mesh.mesh_axis("data").size
+    if axis is not None and mesh.mesh_axis(axis).size > 1:
+        flat = mesh.all_reduce_sum(torch.cat([both.flatten(),
+                                              both.new_full((1,), n)]), axis)
+        both, n = flat[:-1].view_as(both), int(flat[-1])
     e1, e2 = both.double() / n
     s = s_mid.double()
     return (s * e1).float(), (s * s * (e2 - e1 * e1)).float()
 
 
-def _chain_observe(obs, distributed: bool):
-    """The observations, maxima over the ranks under a process group (the
-    JAX package's are over the whole sharded batch)."""
-    return mesh.all_reduce_max(*obs) if distributed else tuple(obs)
+def _chain_observe(obs, axis: Optional[str]):
+    """The observations, maxima over the ranks of ``axis``
+    (``mesh.scale_axis``; the JAX package's are over the whole sharded
+    batch)."""
+    return mesh.all_reduce_max(*obs, axis=axis) if axis else tuple(obs)
 
 
 def _store_chain_forward(x, ws, wt, gamma, beta, s_in, s_mid, s_act,
                          geometry, groups: int, observe: bool,
-                         cross_rank: bool):
+                         cross_rank: bool, spatial: bool = False, held=None):
     """The chain's forward: ``(out, gmean, gvar, a_in, a_mid, a_act)`` and
     the s8 tensors ``(xq, hq, yq)`` the backward keeps."""
     (stride_s, pad_s), (stride_t, pad_t) = geometry
     xf = x.float()
-    a_in = activation_absmax_scale(xf) if observe else xf.new_zeros(())
+    a_in = (activation_absmax_scale(x if held is None else held)
+            if observe else xf.new_zeros(()))
     xq = quantize_with_scale(xf, s_in)
     wsq, sws = quantize_weight(ws)
     hq, sums, sq_sums, hmax = int8_conv3d_store(
         xq, wsq, s_in * sws, s_mid, stride_s, pad_s, pad_s, observe)
     gmean, gvar = store_moments(sums, sq_sums, hq[0, ..., 0].numel(), s_mid,
-                                groups, cross_rank)
+                                groups, mesh.stats_axis(cross_rank, spatial))
     b, bs = hq.shape[0], (hq.shape[0], hq.shape[-1])
     inv_b = torch.rsqrt(per_sample(gvar, b, bs) + BN_EPS)
     yq, ymax = bn_relu_requant(hq, s_mid, per_sample(gmean, b, bs), inv_b,
@@ -532,7 +535,7 @@ def _store_chain_forward(x, ws, wt, gamma, beta, s_in, s_mid, s_act,
         a_mid = _true_div(hmax, QMAX) + EPS
         a_act = _true_div(ymax, QMAX) + EPS
         a_in, a_mid, a_act = _chain_observe((a_in, a_mid, a_act),
-                                            mesh.is_distributed())
+                                            mesh.scale_axis(spatial))
     else:
         a_mid, a_act = xf.new_zeros(()), xf.new_zeros(())
     return (out, gmean, gvar, a_in, a_mid, a_act), (xq, hq, yq)
@@ -541,16 +544,16 @@ def _store_chain_forward(x, ws, wt, gamma, beta, s_in, s_mid, s_act,
 class _Int8StoreChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ws, wt, gamma, beta, s_in, s_mid, s_act, geometry,
-                groups, observe, cross_rank):
+                groups, observe, cross_rank, spatial, held):
         outs, (xq, hq, yq) = _store_chain_forward(
             x, ws, wt, gamma, beta, s_in, s_mid, s_act, geometry, groups,
-            observe, cross_rank)
+            observe, cross_rank, spatial, held)
         gmean, gvar = outs[1:3]
         ctx.save_for_backward(xq, hq, yq, ws, wt, gamma, gmean, gvar, s_in,
                               s_mid, s_act)
         ctx.x_dtype = x.dtype
-        ctx.geometry, ctx.groups, ctx.cross_rank = geometry, groups, \
-            cross_rank
+        ctx.geometry, ctx.groups = geometry, groups
+        ctx.axis, ctx.spatial = mesh.stats_axis(cross_rank, spatial), spatial
         ctx.mark_non_differentiable(*outs[1:])
         return outs
 
@@ -577,8 +580,12 @@ class _Int8StoreChain(torch.autograd.Function):
         dbeta = dpre.sum((0,) + spatial)
         gm1 = group_mean(dpre.mean(spatial), ctx.groups)
         gm2 = group_mean(dpx.mean(spatial), ctx.groups)
-        if ctx.cross_rank:
-            gm1, gm2 = mesh.global_moments(gm1, gm2)
+        if ctx.axis is not None:
+            # over the ranks, each weighted by its positions on H shards
+            count = hq[:b // ctx.groups, ..., 0].numel()
+            gm1, gm2 = mesh.global_moments(
+                gm1, gm2, axis=ctx.axis,
+                count=count if ctx.spatial else None)
         dh = (gamma * inv_b) * (dpre - per_sample(gm1, b, bs)
                                 - xnorm * per_sample(gm2, b, bs))
         # the spatial conv's VJP at the dequantized stored input
@@ -587,7 +594,7 @@ class _Int8StoreChain(torch.autograd.Function):
         return (dx.to(ctx.x_dtype) if need[0] else None,
                 dws.to(ws.dtype) if need[1] else None,
                 dwt.to(wt.dtype) if need[2] else None,
-                dgamma, dbeta) + (None,) * 7
+                dgamma, dbeta) + (None,) * 9
 
 
 def _geometry(stride_s, pad_s, stride_t, pad_t):
@@ -597,7 +604,8 @@ def _geometry(stride_s, pad_s, stride_t, pad_t):
 
 def int8_store_chain(x, ws, wt, gamma, beta, s_in, s_mid, s_act,
                      stride_s, pad_s, stride_t, pad_t, groups: int,
-                     observe: bool = True, cross_rank: bool = False):
+                     observe: bool = True, cross_rank: bool = False,
+                     spatial: bool = False, held=None):
     """spatial conv -> grouped BN -> ReLU -> temporal conv with s8 storage
     (the JAX package's ``int8_store_chain``).
 
@@ -607,14 +615,19 @@ def int8_store_chain(x, ws, wt, gamma, beta, s_in, s_mid, s_act,
     ``stride_*``/``pad_*``: three ints each (symmetric pads); ``groups``:
     BN groups of contiguous rows; ``observe=False`` (``int8_store_fz``)
     skips the absmax observations (zeros); ``cross_rank``: the moments
-    over the ranks of a process group (``--sync_bn 1``). Returns ``(out,
-    gmean, gvar, a_in, a_mid, a_act)``: the output in ``x``'s dtype, the
-    ``(G, M)`` batch statistics and the three observations ``absmax / 127
-    + 1e-12``; only ``out`` carries a gradient (to x, ws, wt, gamma and
-    beta)."""
+    over the ranks of a process group (``--sync_bn 1``); ``spatial``: ``x``
+    is an H shard with its halo rows (``--shard_spatial``; H padded by
+    none), the moments summed over 'model' too and the observations
+    maxima over it (``mesh.stats_axis`` / ``scale_axis``); ``held``: the
+    rows this rank holds, before the halo, whose absmax is the input's
+    observation (the halo of a strided 1 x 1 conv leaves rows out).
+    Returns ``(out, gmean, gvar, a_in, a_mid, a_act)``: the output in
+    ``x``'s dtype, the ``(G, M)`` batch statistics and the three
+    observations ``absmax / 127 + 1e-12``; only ``out`` carries a gradient
+    (to x, ws, wt, gamma and beta)."""
     geometry = _geometry(stride_s, pad_s, stride_t, pad_t)
     args = (x, ws, wt, gamma, beta, s_in, s_mid, s_act, geometry, groups,
-            observe, cross_rank)
+            observe, cross_rank, spatial, held)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, ws, wt, gamma, beta)):
         return _Int8StoreChain.apply(*args)
@@ -623,24 +636,30 @@ def int8_store_chain(x, ws, wt, gamma, beta, s_in, s_mid, s_act,
 
 def float_store_chain(x, ws, wt, gamma, beta, groups: int, stride_s, pad_s,
                       stride_t, pad_t, train: bool, ra_mean, ra_var,
-                      dtype: torch.dtype, cross_rank: bool = False):
+                      dtype: torch.dtype, cross_rank: bool = False,
+                      spatial: bool = False, held=None):
     """The float chain from the same parameters (the JAX package's
     ``float_store_chain``): the ``int8_store_calib`` bootstrap, eval of an
     int8_store model, and the tests' reference. The convs run in
     ``dtype``, the BatchNorm in f32 (train: per-group batch moments, over
-    the ranks under ``cross_rank``; eval: ``ra_mean``/``ra_var``). Returns
-    ``(out, gmean, gvar, (a_in, a_mid, a_act))``, gmean/gvar None in
-    eval; the observations are maxima over the ranks under a process
-    group in train mode."""
+    the ranks under ``cross_rank``, and over the H shards under
+    ``spatial``, each weighted by its positions, as ``BatchNorm``'s; eval:
+    ``ra_mean``/``ra_var``; ``held`` as :func:`int8_store_chain`'s).
+    Returns ``(out, gmean, gvar, (a_in, a_mid, a_act))``, gmean/gvar None
+    in eval; in train mode the observations are maxima over the ranks
+    that hold parts of the batch (``mesh.scale_axis``)."""
     xd = x.to(dtype)
-    a_in = activation_absmax_scale(xd)
+    a_in = activation_absmax_scale(xd if held is None else held.to(dtype))
     hf = _conv_ndhwc(xd, ws.to(dtype), stride_s, pad_s, pad_s).float()
     a_mid = activation_absmax_scale(hf)
     b, bs = hf.shape[0], _bshape(hf)
     if train:
         gmean, gsq = group_moments(hf, groups)
-        if cross_rank:
-            gmean, gsq = mesh.global_moments(gmean, gsq)
+        axis = mesh.stats_axis(cross_rank, spatial)
+        if axis is not None:
+            count = hf.numel() // (hf.shape[-1] * groups)
+            gmean, gsq = mesh.global_moments(
+                gmean, gsq, axis=axis, count=count if spatial else None)
         # unclamped also at groups = 1, as the JAX package's chain
         # (BatchNorm clamps it there, as flax's BatchNorm)
         gvar = gsq - gmean.square()
@@ -653,7 +672,7 @@ def float_store_chain(x, ws, wt, gamma, beta, groups: int, stride_s, pad_s,
     a_act = _true_div(y1.amax(), QMAX) + EPS
     out = _conv_ndhwc(y1.to(dtype), wt.to(dtype), stride_t, pad_t, pad_t)
     obs = _chain_observe((a_in, a_mid, a_act),
-                         train and mesh.is_distributed())
+                         mesh.scale_axis(spatial) if train else None)
     return out, gmean, gvar, obs
 
 

@@ -448,6 +448,38 @@ def stats_axis(cross_rank: bool, spatial: bool) -> Optional[str]:
     return "data" if cross_rank else None
 
 
+# True inside ``whole_batches()``
+_WHOLE_BATCHES = [False]
+
+
+@contextlib.contextmanager
+def whole_batches():
+    """Inside the block each data row's forwards take batches of their own
+    (``train/loops.py _per_video``: one video per row, the rows running
+    unequal counts of forwards), not rows of one global batch, so
+    :func:`scale_axis` leaves 'data' out."""
+    before = _WHOLE_BATCHES[0]
+    _WHOLE_BATCHES[0] = True
+    try:
+        yield
+    finally:
+        _WHOLE_BATCHES[0] = before
+
+
+def scale_axis(spatial: bool) -> Optional[str]:
+    """The axis a dynamic or observed int8 activation scale (an absmax) is
+    a maximum over: the ranks that hold parts of the tensor, as the JAX
+    package's ``max(|x|)`` is over the whole sharded array. 'data' where a
+    step's batch is split over it (not inside :func:`whole_batches`),
+    'model' on the H shards of ``--shard_spatial``, 'world' with both;
+    None with neither, so one process runs no collective."""
+    data = not _WHOLE_BATCHES[0] and mesh_axis("data").size > 1
+    model = spatial and mesh_axis("model").size > 1
+    if data and model:
+        return "world"
+    return "data" if data else ("model" if model else None)
+
+
 @torch.no_grad()
 def all_reduce_max(*xs: torch.Tensor, axis: str = "data"
                    ) -> Tuple[torch.Tensor, ...]:

@@ -42,6 +42,7 @@ from cstp_tpu_torch import resolve_device
 from cstp_tpu_torch.augment.pipeline import eval_augment_batch
 from cstp_tpu_torch.ckpt import checkpoint as ckpt_lib
 from cstp_tpu_torch.ops.quant import iter_scales
+from cstp_tpu_torch.parallel import mesh
 from cstp_tpu_torch.pretext.sampling import wraparound_frame_indices
 from cstp_tpu_torch.train.finetune import create_classify_model
 from cstp_tpu_torch.train.loops import build_dataset
@@ -57,9 +58,11 @@ def calibrate_checkpoint(config, md_path: str, out_path: str,
     centre window of ``batch_size`` videos drawn per batch from
     ``config.manual_seed``, eval augment) and write ``out_path``: the input
     checkpoint's model tensors with the calibrated ``act_scale`` buffers,
-    and its meta with ``int8_calibration``. Runs on CUDA unless ``device``
-    says otherwise. Returns the written tree, the site count, the scale
-    range and the clips seen."""
+    and its meta with ``int8_calibration``. Under a process group every
+    rank runs the batches (the scales are maxima over the ranks), rank 0
+    writes ``out_path`` and the others wait for it. Runs on CUDA unless
+    ``device`` says otherwise. Returns the written tree, the site count,
+    the scale range and the clips seen."""
     dev = resolve_device(device)
     num_classes = config.n_finetune_classes or config.n_classes
     # task 'test': calibration is an eval-mode forward whatever task the
@@ -98,7 +101,10 @@ def calibrate_checkpoint(config, md_path: str, out_path: str,
     meta["int8_calibration"] = {"batches": n_batches,
                                 "batch_size": batch_size,
                                 "data_type": data_type}
-    ckpt_lib.save_checkpoint(out_path, out_tree, meta=meta)
+    if mesh.is_main():
+        ckpt_lib.save_checkpoint(out_path, out_tree, meta=meta)
+    if mesh.is_distributed():
+        torch.distributed.barrier()
     return {"tree": out_tree, "n_sites": len(scales),
             "scale_min": min(scales), "scale_max": max(scales),
             "clips_seen": seen}
@@ -116,9 +122,7 @@ def _center_indices(ds, i: int, t: int):
 
 def main(argv=None, device=None) -> int:
     from cstp_tpu_torch.config import parse_opts
-    from cstp_tpu_torch.parallel.mesh import maybe_initialize_distributed
-
-    maybe_initialize_distributed()
+    mesh.maybe_initialize_distributed()
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--out_path", required=True)
     ap.add_argument("--calib_batches", type=int, default=8)
@@ -135,6 +139,8 @@ def main(argv=None, device=None) -> int:
                                n_batches=own.calib_batches,
                                batch_size=own.calib_batch_size,
                                data_type=own.data_type, device=device)
+    if not mesh.is_main():
+        return 0
     print(f"calibrated {out['n_sites']} conv sites over "
           f"{out['clips_seen']} clips: act_scale in "
           f"[{out['scale_min']:.3e}, {out['scale_max']:.3e}] -> "

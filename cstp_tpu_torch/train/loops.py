@@ -667,9 +667,11 @@ def _per_video(n: int, fn):
     ``i % D``, whose 'model' ranks all call ``fn(i)`` (their forwards are
     one computation); the results of each row's 'model' rank 0 gathered on
     every rank, in video order. A rank with fewer videos joins the gather
-    all the same."""
+    all the same. A dynamic int8 scale is then one video's
+    (``mesh.whole_batches``), reduced over 'model' alone."""
     data, model = mesh.mesh_axis("data"), mesh.mesh_axis("model")
-    mine = {i: fn(i) for i in range(data.index, n, data.size)}
+    with mesh.whole_batches():
+        mine = {i: fn(i) for i in range(data.index, n, data.size)}
     got = {}
     for part in mesh.all_gather_object(mine if model.index == 0 else {}):
         got.update(part)

@@ -157,16 +157,21 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
     dict(t_fold=1), dict(s2d_stem=True, t_fold=1),
 ])
 def test_config_refuses_unported_flags(flag):
-    """``--s2d_stem``, ``--t_fold`` and ``--mid_round`` are ported; what the
-    port still refuses of them is their combination with
-    ``--shard_spatial`` (and S3D's, whose family the H shards do not take),
-    which waits for ROADMAP item 17c-ii."""
+    """``--s2d_stem``, ``--t_fold`` and ``--mid_round`` are ported, on
+    R(2+1)D's H shards too (``--shard_spatial``); what the port still
+    refuses of them is S3D's s2d stem on H shards, whose family waits for
+    ROADMAP item 17c-ii part d."""
     from cstp_tpu_torch.config import Config
 
     Config(**flag).finalize()
     Config(mid_round=128, shard_spatial=1, mesh_shape=(1, 2)).finalize()
-    with pytest.raises(NotImplementedError, match="17c-ii"):
-        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+    if flag.get("model_name") == "s3d":
+        with pytest.raises(NotImplementedError, match="17c-ii parts c, d"):
+            Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+        return
+    cfg = Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+    for k, v in flag.items():
+        assert getattr(cfg, k) == v
 
 
 @pytest.mark.parametrize("flag", [
@@ -184,15 +189,36 @@ def test_config_takes_the_model_axis_flags(flag):
 
 @pytest.mark.parametrize("flag", [
     dict(model_name="c3d"), dict(model_name="s3d_byol"),
-    dict(model_name="slowfast"), dict(model_name="r21d", quant="int8"),
+    dict(model_name="slowfast"), dict(model_name="r3d"),
 ])
 def test_config_refuses_shard_spatial_outside_r21d_float(flag):
-    """``--shard_spatial`` on another family than R(2+1)D, or with a
-    ``--quant`` mode, waits for ROADMAP item 17c-ii."""
+    """``--shard_spatial`` on another family than R(2+1)D waits for
+    ROADMAP item 17c-ii parts c-e (R(2+1)D takes every ``--quant`` mode on
+    its H shards: the test below)."""
     from cstp_tpu_torch.config import Config
 
-    with pytest.raises(NotImplementedError, match="17c-ii"):
+    with pytest.raises(NotImplementedError, match="17c-ii parts c, d"):
         Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(quant="int8"), dict(quant="int8_fixed"),
+    dict(quant="int8_static", task="test"),
+    dict(quant="int8_calib", task="test"), dict(quant="int8_store"),
+    dict(quant="int8_store_fz"), dict(s2d_stem=True, fused_conv=1),
+    dict(t_fold=1, quant="int8"),
+])
+def test_config_takes_shard_spatial_with_every_r21d_flag(flag):
+    """R(2+1)D on H shards takes the s2d stem, ``--t_fold`` and every
+    ``--quant`` mode (ROADMAP item 17c-ii parts a and b), on a (1, 2) and
+    a (2, 2) mesh."""
+    from cstp_tpu_torch.config import Config
+
+    for shape in ((1, 2), (2, 2)):
+        cfg = Config(model_name="r21d", shard_spatial=1, mesh_shape=shape,
+                     **flag).finalize()
+        for k, v in flag.items():
+            assert getattr(cfg, k) == v
 
 
 @pytest.mark.parametrize("flag", [

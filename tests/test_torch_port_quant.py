@@ -5,7 +5,8 @@ on the CPU. Inputs are made from a seed with numpy; JAX configs that build
 refuses them on the default training task).
 
 Tolerances:
-- ``quantize_tensor`` / ``quantize_weight`` and the int8 conv's int32
+- the dynamic activation scale and quantize (``activation_absmax_scale``,
+  ``quantize_with_scale``), ``quantize_weight`` and the int8 conv's int32
   accumulator: bitwise (the quantize is one true division and a
   round-half-even, the conv's integer sums are exact);
 - the dequantized output: within one bf16 ulp of the output's magnitude in
@@ -66,7 +67,9 @@ def test_quantize_tensor_and_weight_match_jax_bitwise():
     x = (rng.normal(size=(2, 4, 9, 9, 7)) * 3).astype(np.float32)
     w = (rng.normal(size=(3, 3, 3, 7, 11)) * 0.1).astype(np.float32)
     xq_j, sx_j = jq._quantize_tensor(jnp.asarray(x))
-    xq, sx = q.quantize_tensor(torch.from_numpy(x))
+    # the dynamic scale as the model takes it (``Conv3d``) and quantizes at
+    sx = q.activation_absmax_scale(torch.from_numpy(x))
+    xq = q.quantize_with_scale(torch.from_numpy(x), sx)
     assert xq.dtype == torch.int8
     np.testing.assert_array_equal(xq.numpy(), _np(xq_j))
     assert float(sx) == float(sx_j)
@@ -97,8 +100,10 @@ def test_int8_conv_plain_matches_jax(case):
     x = rng.normal(size=(2, 5, 11, 11, cin)).astype(np.float32)
     w = (rng.normal(size=(*k, cin, cout)) * 0.2).astype(np.float32)
     wt = _dhwio_to_oidhw(w)
-    sa_t = (None if sa is None else torch.tensor(float(sa))
-            if isinstance(sa, np.floating) else sa)
+    # the port's dynamic scale is the one ``Conv3d`` passes, JAX's its own
+    sa_t = (q.activation_absmax_scale(torch.from_numpy(x)) if sa is None
+            else torch.tensor(float(sa)) if isinstance(sa, np.floating)
+            else sa)
     # accumulators: the same s8 operands through both packages' convs
     xf = jnp.asarray(x)
     if sa is None:
@@ -149,7 +154,8 @@ def test_straight_through_gradients_match_jax():
                                                 jnp.asarray(w))
     xt = torch.from_numpy(x).requires_grad_()
     wt = _dhwio_to_oidhw(w).requires_grad_()
-    out = q.int8_conv(xt, wt, stride, pad, torch.float32)
+    out = q.int8_conv(xt, wt, stride, pad, torch.float32,
+                      act_scale=q.activation_absmax_scale(xt.detach()))
     (out * torch.from_numpy(g)).sum().backward()
     for got, want in ((xt.grad.numpy(), _np(dx_j)),
                       (wt.grad.numpy().transpose(2, 3, 4, 1, 0), _np(dw_j))):
