@@ -1443,10 +1443,11 @@ def phase_bench_step(dev):
 # the cli phase: CSTPack files of raw 128x171 frames from the port's
 # SyntheticVideoDataset (seed 0), 64 frames a video
 CLI_FRAMES = 64
-CLI_STEPS = 6           # pretrain steps per epoch
-CLI_TRAIN = CLI_STEPS * BENCH_STEP_BS   # enough videos for per-view 64
-CLI_EVAL = 32           # val and test videos
-CLI_FT_STEPS = 4
+CLI_STEPS = 6           # pretrain steps per epoch at per-view B_VIEW
+CLI_STEPS64 = 3         # steps of the per-view BENCH_STEP_BS epoch
+CLI_TRAIN = CLI_STEPS64 * BENCH_STEP_BS   # enough videos for per-view 64
+CLI_EVAL = 16           # val and test videos
+CLI_FT_STEPS = CLI_TRAIN // B_FT   # a finetune epoch over the train file
 CLI_JPEG_STEPS = 3      # the frame-dir JPEG epoch, per-view B_VIEW
 
 
@@ -1582,7 +1583,8 @@ def _loader_alone(train: str, dev):
     BENCH_STEP_BS, over the Python reader (per-clip thread pool) and the C++
     reader (``read_clips``, one native call a batch), both with 6 threads:
     host ms per batch, and ms per batch landed on the card through
-    ``prefetch_to_device``, over CLI_STEPS - 1 batches after the first."""
+    ``prefetch_to_device``, over the batches after the first of an epoch
+    (CLI_STEPS at most)."""
     from cstp_tpu_torch.data.loader import PretrainLoader, prefetch_to_device
     from cstp_tpu_torch.data.native_reader import NativePackedDataset
     from cstp_tpu_torch.data.packed import PackedDataset
@@ -1591,7 +1593,7 @@ def _loader_alone(train: str, dev):
     for reader, ds in (("python", PackedDataset(train)),
                        ("native", NativePackedDataset(train, n_threads=6))):
         for bs in (B_VIEW, BENCH_STEP_BS):
-            res = []
+            res, n = [], min(CLI_STEPS, CLI_TRAIN // bs) - 1
             for land in (False, True):
                 it = PretrainLoader(ds, bs, T, seed=1,
                                     num_workers=6).epoch(1)
@@ -1600,11 +1602,10 @@ def _loader_alone(train: str, dev):
                 next(it)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _ in range(CLI_STEPS - 1):
+                for _ in range(n):
                     next(it)
                 torch.cuda.synchronize()
-                res.append((time.perf_counter() - t0) * 1e3
-                           / (CLI_STEPS - 1))
+                res.append((time.perf_counter() - t0) * 1e3 / n)
                 it.close()
             out[reader, bs] = tuple(res)
         ds.close()
@@ -1623,6 +1624,11 @@ def _packed_reader(path: str) -> str:
     return name
 
 
+def _argv(flags):
+    """CLI arguments of config ``flags``."""
+    return [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+
+
 def _check_rows(path):
     import csv
 
@@ -1639,8 +1645,9 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
     process), on CSTPack files it writes: pretrain (per-view B_VIEW, 2
     epochs of CLI_STEPS), ``--task resume`` from save_1, finetune
     (``ft_all``, batch B_FT) from save_2 with validation, test on its
-    ``save_1_max``, retrieval from save_2, a pretrain epoch at per-view
-    BENCH_STEP_BS (bench.py's) and one from a frame directory of JPEGs.
+    ``save_1_max``, retrieval from save_2, a pretrain epoch of CLI_STEPS64
+    at per-view BENCH_STEP_BS (bench.py's) and one from a frame directory
+    of JPEGs.
     R(2+1)D depth 1 at full width, 16x112^2, bf16, ``--fused_conv 1``.
     Launches per loop step must be phase 3's (10/10/1) and the finetune
     step's (5/5/0); CSV rows finite, checkpoints present, an accuracy
@@ -1738,9 +1745,9 @@ def phase_cli(dev, card: str, slice_ms: float, bench_ms: float):
 
         out, _ = _cli_run(main_byol.main, packed + pre + [
             "--batch_size", str(BENCH_STEP_BS), "--n_epochs", "1",
-            "--steps_per_epoch", str(CLI_STEPS), "--ckpt_every_epochs",
+            "--steps_per_epoch", str(CLI_STEPS64), "--ckpt_every_epochs",
             "100", "--result_path", os.path.join(root, "results64")],
-            per_pre, CLI_STEPS)
+            per_pre, CLI_STEPS64)
         times["pretrain64"] = _loop_times(out, BENCH_STEP_BS)
         losses64 = [h["loss"] for h in out["history"]]
         del out
@@ -2114,7 +2121,7 @@ def _family_importer(dev, root: str, tag: str, kw):
         loaded.append({n: t.detach().cpu().clone()
                        for n, t in m.state_dict().items()})
 
-    common = [a for k, v in kw.items() for a in (f"--{k}", str(v))] + [
+    common = _argv(kw) + [
               "--pretrained_path", pth,
               "--sample_duration", str(T), "--sample_size", str(S),
               "--compute_dtype", "bfloat16", "--data_backend", "synthetic",
@@ -3178,16 +3185,18 @@ def _quant_config(quant: str = "", **over):
     return _ft_config(fused=0, task="test", quant=quant, **over)
 
 
-def _int8_sites(dev):
-    """The distinct conv shapes of the int8_static R(2+1)D eval forward, in
+def _int8_sites(dev, model=None):
+    """The distinct conv shapes of a model's eval forward on one clip (by
+    default the int8_static R(2+1)D eval forward's, 24 K6 launches), in
     order: {(input (T, H, W, Cin), Cout, kernel, stride, lo, hi): [site
-    names]}, from forward pre-hooks on one clip (24 K6 launches)."""
+    names]}, from forward pre-hooks."""
     from cstp_tpu_torch.models.layers import Conv3d
     from cstp_tpu_torch.perf.bench_step import fill_act_scales
     from cstp_tpu_torch.train.finetune import create_classify_model
 
-    model = create_classify_model(_quant_config("int8_static"), N_FT_CLASSES,
-                                  device=dev)
+    if model is None:
+        model = create_classify_model(_quant_config("int8_static"),
+                                      N_FT_CLASSES, device=dev)
     fill_act_scales(model)
     sites = {}
 
@@ -3219,14 +3228,14 @@ def _read_extent(n_in: int, n_out: int, k: int, s: int, lo: int) -> int:
                & set(range(n_in)))
 
 
-def _k6_site(dev, gen, key):
+def _k6_site(dev, gen, key, batch: int = Q_EVAL_BS):
     """K6 at one conv shape: int32 accumulators and bf16 outputs against
     the plain version at batch Q_CHECK_BS (bitwise), their hash, then at
-    batch Q_EVAL_BS K6's ms, the plain version's, cuDNN's bf16 conv3d of
-    the same shape (another precision: the float path int8 replaces) and
-    the bound (int8 operations at 1,979 TOPS against the bytes at 3.35
-    TB/s: the input positions the taps read, the weights, the scales and
-    the bf16 output)."""
+    ``batch`` K6's ms, the plain version's, cuDNN's bf16 conv3d of the
+    same shape (another precision: the float path int8 replaces) and the
+    bound (int8 operations at 1,979 TOPS against the bytes at 3.35 TB/s:
+    the input positions the taps read, the weights, the scales and the
+    bf16 output)."""
     import hashlib
 
     import torch.nn.functional as F
@@ -3235,7 +3244,7 @@ def _k6_site(dev, gen, key):
 
     (t, h, w, cin), cout, k, stride, lo, hi = key
     args = (list(stride), list(lo), list(hi))
-    xq = torch.randint(-127, 128, (Q_EVAL_BS, t, h, w, cin), generator=gen,
+    xq = torch.randint(-127, 128, (batch, t, h, w, cin), generator=gen,
                        device=dev, dtype=torch.int8)
     wq = torch.randint(-127, 128, (cout, cin, *k), generator=gen, device=dev,
                        dtype=torch.int8)
@@ -3256,7 +3265,7 @@ def _k6_site(dev, gen, key):
     plain_ms = time_ms(lambda: Q.int8_conv3d_plain(xq, wq, scale, *args,
                                                    torch.bfloat16),
                        iters=1, warmup=1)
-    xb = torch.randn((Q_EVAL_BS, t, h, w, cin), generator=gen, device=dev,
+    xb = torch.randn((batch, t, h, w, cin), generator=gen, device=dev,
                      dtype=torch.bfloat16)
     if lo != hi:
         xb = F.pad(xb, (0, 0, lo[2], hi[2], lo[1], hi[1], lo[0], hi[0]))
@@ -3268,7 +3277,7 @@ def _k6_site(dev, gen, key):
     shape = Q.out_shape(xq.shape, wq.shape, stride, lo, hi)
     m = shape[0] * shape[1] * shape[2] * shape[3]
     ops = 2.0 * m * cout * cin * k[0] * k[1] * k[2]
-    read = Q_EVAL_BS * cin * math.prod(
+    read = batch * cin * math.prod(
         _read_extent(*a) for a in zip((t, h, w), shape[1:4], k, stride, lo))
     nbytes = read + wq.numel() + 2 * m * cout + 4 * cout
     bound, by = bound_ms(ops, nbytes, PEAK_INT8)
@@ -3341,14 +3350,14 @@ def _k6_sites(dev):
     return total, i3d
 
 
-def _float_ft_checkpoint(dev, path: str):
-    """A float finetune checkpoint of the phase's model: 2 finetune steps
-    (bf16, batch B_FT) from seed 0, so the BN running statistics are off
-    their init."""
+def _float_ft_checkpoint(dev, path: str, **over):
+    """A float finetune checkpoint of the phase's model (or the model of
+    the config flags ``over``): 2 finetune steps (bf16, batch B_FT) from
+    seed 0, so the BN running statistics are off their init."""
     from cstp_tpu_torch.ckpt import checkpoint as ckpt_lib
     from cstp_tpu_torch.train import finetune as ft
 
-    cfg = _ft_config(fused=0)
+    cfg = _ft_config(fused=0, **over)
     model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
                                                 device=dev)
     step = ft.make_finetune_step(model, tx, cfg)
@@ -3461,7 +3470,8 @@ def _serve_in_subprocess(data: str, out: str, arts):
 def _quant_cli(dev, root: str, counts):
     """Phase 19 (b) and (c): calibration, the int8_static test run, the
     refused uncalibrated run, the two exports and the fresh-process
-    serving check. Adds the main-path launches to ``counts``."""
+    serving check. Adds the main-path launches to ``counts``; returns the
+    artifacts' paths by ``--quant``."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3591,22 +3601,27 @@ def _quant_cli(dev, root: str, counts):
                 or int(got["k6"]) != want_k6):
             raise SystemExit("[quant] the served program differs from the "
                              "live logits step")
+    return {quant: art for (quant, _), art in zip(runs, arts)}
 
 
-def _quant_bench(dev):
+def _quant_bench(dev, arts):
     """Phase 19 (d): bench_step --mode eval and serve, float and
-    --quant int8_static, at per-chip batch Q_EVAL_BS, 2 steps after 1."""
+    --quant int8_static, at per-chip batch Q_EVAL_BS, 2 steps after 1; the
+    serve runs time (c)'s artifacts ``arts`` (``--artifact``: the export
+    path is (c)'s, and the time does not depend on the weights or the
+    scales)."""
     from cstp_tpu_torch.perf import bench_step
 
     out = {}
     for mode in ("eval", "serve"):
         for quant in ("", "int8_static"):
+            art = ["--artifact", arts[quant]] if mode == "serve" else []
             r = bench_step.main(["--mode", mode, "--quant", quant,
                                  "--per-chip-bs", str(Q_EVAL_BS),
-                                 "--steps", "2", "--warmup", "1"])
+                                 "--steps", "2", "--warmup", "1", *art])
             k6 = r["launches_per_step"]["int8_conv"]
-            extra = (f", artifact {r['artifact_mb']:.1f} MB exported in "
-                     f"{r['export_s']:.1f} s" if mode == "serve" else "")
+            extra = (f", (c)'s artifact {r['artifact_mb']:.1f} MB loaded in "
+                     f"{r['load_s']:.1f} s" if mode == "serve" else "")
             log(f"[quant] (d) bench_step --mode {mode} "
                 f"{'--quant int8_static ' if quant else ''}at {Q_EVAL_BS}: "
                 f"{r['step_ms']:.2f} ms/step, {r['clips_per_s']:.1f} clips/s, "
@@ -3697,7 +3712,8 @@ def phase_quant_serve(dev, card: str, slice_ms: float):
     int8_static eval forward and two I3D sites; (b) serve.quantize ->
     main_test --quant int8_static, and the uncalibrated run refused; (c)
     serve.export of the float and calibrated checkpoints served from a
-    fresh process; (d) bench_step eval and serve, float and int8_static;
+    fresh process; (d) bench_step eval, and serve on (c)'s artifacts,
+    float and int8_static;
     (e) the --quant int8 pretrain step. Returns the K6 record for the
     kernels line and the main-path launches."""
     import tempfile
@@ -3706,9 +3722,9 @@ def phase_quant_serve(dev, card: str, slice_ms: float):
     counts = {k: 0 for k in _per_step(0, 0, 0)}
     total, i3d = _k6_sites(dev)
     with tempfile.TemporaryDirectory(prefix="cstp_quant_") as root:
-        _quant_cli(dev, root, counts)
-    torch.cuda.empty_cache()
-    bench = _quant_bench(dev)
+        arts = _quant_cli(dev, root, counts)
+        torch.cuda.empty_cache()
+        bench = _quant_bench(dev, arts)
     _quant_profile(dev)
     pre = _quant_pretrain(dev, card, slice_ms, counts)
     log(f"[quant] phase {time.perf_counter() - t_phase:.1f} s")
@@ -4033,6 +4049,11 @@ def phase_store_chain(dev, card: str, slice_ms: float, int8_ms: float,
 
 MA_B_VIEW = 8           # phase 21's global per-view batch
 MA_TORCHRUN_STEPS = 3   # steps of phase 21's torchrun epoch
+# phase 21 (i)-(m): the families beside R(2+1)D, at full width (the
+# fused_conv flag is R(2+1)D's, and --quant excludes it)
+FAMILIES = {"c3d": dict(model_name="c3d_byol", fused_conv=0),
+            "r3d": dict(model_name="r3d_byol", model_depth=18,
+                        resnet_shortcut="B", fused_conv=0)}
 # phase 21's rank runs: name -> the mesh flags over its kernel config
 MA_RUNS = {
     "spatial": dict(mesh_shape=(1, 2), shard_spatial=1),
@@ -4049,11 +4070,26 @@ MA_RUNS = {
                  fused_conv=0),
     "int8_store": dict(mesh_shape=(1, 2), shard_spatial=1,
                        quant="int8_store", fused_conv=0),
+    # (i)-(l): C3D and the 3D-ResNet (r3d-18, shortcut "B") on the H shards,
+    # float and --quant int8 (K6 on the halo-extended shards); their
+    # batches draw 4 playback-rate classes, as these families' heads have
+    "c3d": dict(FAMILIES["c3d"], mesh_shape=(1, 2), shard_spatial=1),
+    "r3d": dict(FAMILIES["r3d"], mesh_shape=(1, 2), shard_spatial=1),
+    "c3d_int8": dict(FAMILIES["c3d"], mesh_shape=(1, 2), shard_spatial=1,
+                     quant="int8"),
+    "r3d_int8": dict(FAMILIES["r3d"], mesh_shape=(1, 2), shard_spatial=1,
+                     quant="int8"),
 }
 MA_PART = {"spatial": "a", "zero": "b", "no_zero": "b", "tp": "c",
-           "s2d": "e", "t_fold": "f", "int8": "g", "int8_store": "h"}
+           "s2d": "e", "t_fold": "f", "int8": "g", "int8_store": "h",
+           "c3d": "i", "r3d": "j", "c3d_int8": "k", "r3d_int8": "l"}
+MA_FAMILY_RUNS = ("c3d", "r3d", "c3d_int8", "r3d_int8")
 # the runs held against a world-1 step of their own flags (phase 4's rule)
-MA_FLAG_RUNS = ("s2d", "t_fold", "int8", "int8_store")
+MA_FLAG_RUNS = ("s2d", "t_fold", "int8", "int8_store") + MA_FAMILY_RUNS
+# the runs whose kernels are held against their plain versions on every
+# shard input they took (``_ma_recorders``)
+MA_RECORDED = ("spatial", "s2d", "int8", "int8_store", "c3d_int8",
+               "r3d_int8")
 # phase 4's accuracy rule for the int8 runs: four of 16 predictions. Every
 # conv of both towers quantizes, so a BatchNorm sum reassociated over the
 # shards flips round-half decisions at the next site's quantize, and the
@@ -4063,37 +4099,51 @@ MA_FLAG_RUNS = ("s2d", "t_fold", "int8", "int8_store")
 # moved three in both of its runs on the card, the float runs one or two
 MA_INT8_ACC = 0.25
 # ... held together with the int8 runs' update cosine to the world-1 step
-# of the same flags, 0.8 of what it measured on one H100 (0.84953 for
-# (g), 0.64745 for (h)); the float runs measure 0.948-0.956 there, and the
-# int8 updates' cosines to the float32 update (what an update sharing
-# nothing of the world-1 int8 step's would come near) 0.23-0.30
-MA_INT8_COS = {"int8": 0.68, "int8_store": 0.52}
+# of the same flags, 0.8 of what it measured on one H100 80GB HBM3 at
+# 700 W in the first call that ran it (0.84953 for (g), 0.64745 for (h);
+# 0.99505 for (k) and 0.93577 for (l), rounded down); the float runs
+# measure 0.948-0.997 there, and the R(2+1)D int8 updates' cosines to the
+# float32 update (what an update sharing nothing of the world-1 int8
+# step's would come near) 0.23-0.30, C3D's and r3d-18's 0.95 and 0.68
+MA_INT8_COS = {"int8": 0.68, "int8_store": 0.52, "c3d_int8": 0.79,
+               "r3d_int8": 0.74}
 _TAPS9 = dict(_per_step(0, 0, 1), conv21d_taps9_stats=10,
               conv21d_taps9_fwd=10)
 # launches per rank and step (world 1: the same flags without the mesh)
+# K6 per --quant int8 step: C3D's 8 convs and r3d-18's stem, 16 block
+# convs and 3 shortcut convs, in both towers
+FAMILY_K6 = {"c3d": 16, "r3d": 40}
 MA_WANT = {"spatial": _TAPS9, "s2d": _TAPS9, "t_fold": _per_step(0, 0, 1),
-           "int8": _per_step(0, 0, 1, 48), "int8_store": STORE_PER_STEP}
-MA_WANT_WORLD1 = {"s2d": _per_step(10, 10, 1), "t_fold": _per_step(0, 0, 1),
-                  "int8": _per_step(0, 0, 1, 48),
-                  "int8_store": STORE_PER_STEP}
+           "int8": _per_step(0, 0, 1, 48), "int8_store": STORE_PER_STEP,
+           "c3d": _per_step(0, 0, 1), "r3d": _per_step(0, 0, 1),
+           "c3d_int8": _per_step(0, 0, 1, FAMILY_K6["c3d"]),
+           "r3d_int8": _per_step(0, 0, 1, FAMILY_K6["r3d"])}
+MA_WANT_WORLD1 = dict(MA_WANT, s2d=_per_step(10, 10, 1))
+del MA_WANT_WORLD1["spatial"]
 
 
 def _ma_config(fused: bool = True, **over):
     """Phase 4's configuration (kernels, or plain float32 with ``fused``
-    off) at per-view MA_B_VIEW, with ``over``'s mesh flags."""
+    off) at per-view MA_B_VIEW, with ``over``'s mesh and model flags."""
     from cstp_tpu_torch.config import Config
 
-    kw = (dict(fused_conv=1, pallas_augment="on", compute_dtype="bfloat16")
-          if fused else dict(fused_conv=0, pallas_augment="off",
-                             compute_dtype="float32"))
+    kw = dict(model_name="r21d", model_depth=1)
+    kw.update(dict(fused_conv=1, pallas_augment="on",
+                   compute_dtype="bfloat16") if fused else
+              dict(pallas_augment="off", compute_dtype="float32"))
     kw.update(over)
-    return Config(model_name="r21d", model_depth=1, sample_duration=T,
-                  sample_size=S, batch_size=MA_B_VIEW, task="loss_com",
-                  **kw).finalize()
+    if not fused:
+        kw["fused_conv"] = 0
+    return Config(sample_duration=T, sample_size=S, batch_size=MA_B_VIEW,
+                  task="loss_com", **kw).finalize()
 
 
-def _ma_batch(dev):
-    return {k: v[:MA_B_VIEW] for k, v in _slice_batch(dev, seed=6).items()}
+def _ma_batch(dev, name: str = "spatial"):
+    """Phase 21's batch of run ``name`` (4 playback-rate classes for the
+    families with 4-way heads)."""
+    n_pb = 5 if MA_RUNS[name].get("model_name", "r21d") == "r21d" else 4
+    return {k: v[:MA_B_VIEW]
+            for k, v in _slice_batch(dev, seed=6, n_pb=n_pb).items()}
 
 
 def _ma_recorders(shards):
@@ -4274,10 +4324,10 @@ def _ma_hold_int8(shards):
 
 def ma_rank(rank: int, world: int, port: int, out: str,
             device: str = "cuda:0") -> None:
-    """One rank of phase 21 (a)-(c) and (e)-(h): each of MA_RUNS on this
-    rank's share of phase 21's batch, over gloo on card 0, then (after the
-    spatial, s2d and int8 runs) each kernel on the shard inputs it took;
-    writes the records under ``out`` and (rank 0) the updates."""
+    """One rank of phase 21 (a)-(c) and (e)-(l): each of MA_RUNS on this
+    rank's share of phase 21's batch, over gloo on card 0, then (after
+    MA_RECORDED's runs) each kernel on the shard inputs it took; writes
+    the records under ``out`` and (rank 0) the updates."""
     import os
 
     from cstp_tpu_torch.parallel import mesh
@@ -4290,16 +4340,15 @@ def ma_rank(rank: int, world: int, port: int, out: str,
     try:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        batch = _ma_batch(dev)
         result = {}
         for name, over in MA_RUNS.items():
             # the ZeRO pair is compared bit for bit: deterministic cuDNN
             torch.backends.cudnn.deterministic = name in ("zero", "no_zero")
             # the flag runs' steps timed once (the gloo steps swing by 40%
             # between calls, MA_FLAG_RUNS' world-1 steps likewise)
-            run = _ma_step_run(dev, _ma_config(**over), batch,
-                               record=name in ("spatial", "s2d", "int8",
-                                               "int8_store"),
+            t_run = time.perf_counter()
+            run = _ma_step_run(dev, _ma_config(**over), _ma_batch(dev, name),
+                               record=name in MA_RECORDED,
                                timed_steps=1 if name in MA_FLAG_RUNS else 2)
             shards = run.pop("shards")
             if shards:
@@ -4310,6 +4359,7 @@ def ma_rank(rank: int, world: int, port: int, out: str,
             if mesh.is_main():
                 torch.save(run["update"].float().cpu(), f"{out}.{name}.pt")
             run["update_norm"] = float(run.pop("update").norm())
+            run["seconds"] = time.perf_counter() - t_run
             result[name] = run
             gc.collect()
             torch.cuda.empty_cache()
@@ -4425,7 +4475,7 @@ def _ma_torchrun(root: str) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def _ma_world1(dev, batch):
+def _ma_world1(dev):
     """Phase 21's world-1 references: the kernel step and the float32
     plain step (phase 4's arbiter) of the base flags and of each of
     MA_FLAG_RUNS without its mesh flags: ``{name: (kernel, f32)}``."""
@@ -4433,10 +4483,13 @@ def _ma_world1(dev, batch):
     for name in ("spatial",) + MA_FLAG_RUNS:
         flags = {k: v for k, v in MA_RUNS[name].items()
                  if k not in ("mesh_shape", "shard_spatial")}
+        t_ref = time.perf_counter()
+        batch = _ma_batch(dev, name)
         kernel = _one_step_run(dev, _ma_config(**flags), batch,
                                timed_steps=1 if flags else 2)
         f32 = _one_step_run(dev, _ma_config(fused=False, **flags), batch,
                             timed_steps=1)
+        kernel["seconds"] = time.perf_counter() - t_ref
         want = MA_WANT_WORLD1.get(name, _per_step(10, 10, 1))
         log(f"[model] world 1, per-view {MA_B_VIEW}, {flags or 'base'}: "
             f"kernel step {kernel['ms']:.1f} ms, peak "
@@ -4482,17 +4535,19 @@ def phase_model_axis(dev, card: str):
     halo-extended shards) and --quant int8_store after its bootstrap (K6
     with its storage epilogue, K7), each against the world-1 step of its
     own flags by phase 4's rule (the int8 runs also by MA_INT8_COS) and
-    each kernel against its plain version on the shards it took; (d) a
-    torchrun epoch on (1, 2) --shard_spatial resumed at world 1. Returns
-    the ranks' main-path launches and the readings: per run ``[loss err,
-    acc err, cosine, world 1's cosine, ms on rank 0, world 1's ms, cosine
-    to world 1]`` and the per-step kernel sums of (g)/(h) on rank 0's
-    shards ``(ms, bound ms, launches)``."""
+    each kernel against its plain version on the shards it took; (i)-(l)
+    C3D and r3d-18 "B" on (1, 2) --shard_spatial, float and --quant int8
+    (K6 on the halo-extended shards, 16 and 40 a step), likewise; (m) K6
+    at world 1 at every C3D and r3d-18 conv shape; (d) a torchrun epoch
+    on (1, 2) --shard_spatial resumed at world 1. Returns the ranks'
+    main-path launches and the readings: per run ``[loss err, acc err,
+    cosine, world 1's cosine, ms on rank 0, world 1's ms, cosine to world
+    1]``, the per-step kernel sums of the int8 runs on rank 0's shards
+    ``(ms, bound ms, launches)`` and (m)'s per-step sums."""
     import tempfile
 
     t_phase = time.perf_counter()
-    batch = _ma_batch(dev)
-    refs = _ma_world1(dev, batch)
+    refs = _ma_world1(dev)
     world1, f32 = refs["spatial"]
     ranks, updates = _ma_two_ranks(world1, f32)
     counts = {k: 0 for k in _per_step(0, 0, 0)}
@@ -4544,14 +4599,14 @@ def phase_model_axis(dev, card: str):
                         f"bound {rec[p]['bound']:.3f} ms ({rec[p]['by']})"
                         for p in ("stats", "fwd"))
                     + f" | agree and K4a bitwise twice: {rec['ok']}")
-        for name in ("spatial", "s2d", "int8", "int8_store"):
+        for name in MA_RECORDED:
             ok &= rank[name]["shards_ok"]
             sums = _ma_log_int8_shards(r, name, rank[name]["int8_shards"])
             if r == 0:
                 int8_sums.update({f"{name} {k}": v for k, v in sums.items()})
         ok &= rank["zero_bitwise"]
     if set(int8_sums) != {"int8 k6", "int8_store k6", "int8_store store",
-                          "int8_store k7"}:
+                          "int8_store k7", "c3d_int8 k6", "r3d_int8 k6"}:
         ok = False
     log(f"[model] (b) --shard_opt_state on (2, 1): update, metrics and "
         f"gathered momentum bitwise those without it: "
@@ -4560,12 +4615,69 @@ def phase_model_axis(dev, card: str):
         raise SystemExit("[model] a 'model' axis run disagrees, launched "
                          "other kernels, or a kernel disagrees with its "
                          "plain version on a shard")
+    # the seconds of this phase's family runs, (i)-(m): their world-1
+    # references, their runs on rank 0 (whose rank 1 runs beside it) and (m)
+    new = {n: round(refs[n][0]["seconds"] + ranks[0][n]["seconds"], 1)
+           for n in MA_FAMILY_RUNS}
     del world1, f32, updates, refs
     torch.cuda.empty_cache()
+    t_m = time.perf_counter()
+    families_k6 = _ma_family_k6(dev)
+    new["m"] = round(time.perf_counter() - t_m, 1)
+    log(f"[model] (i)-(m) seconds, each run's world-1 references and its "
+        f"ranks' run: {new}, {sum(new.values()):.1f} s in all")
     with tempfile.TemporaryDirectory(prefix="cstp_ma_cli_") as root:
         _ma_torchrun(root)
     log(f"[model] phase {time.perf_counter() - t_phase:.1f} s")
-    return counts, dict(cases=cases, shards=int8_sums)
+    return counts, dict(cases=cases, shards=int8_sums,
+                        families_k6=families_k6, new_s=new)
+
+
+def _ma_family_k6(dev):
+    """Phase 21 (m): K6 at world 1 at every distinct conv shape of C3D and
+    r3d-18 (16 x 112^2; a Cin-3 stem of kernel 3 or 7, full 3x3x3 taps up
+    to 512 channels, strided 3x3x3 and 1x1x1 convs), bitwise to its plain
+    version at batch Q_CHECK_BS, timed with its bound at the towers'
+    2 x MA_B_VIEW clips. Returns per family the per-step sums over its
+    FAMILY_K6 launches ``(ms, bound ms, plain ms, launches)``."""
+    from cstp_tpu_torch.train.finetune import create_classify_model
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out, ok = {}, True
+    for fam, kw in FAMILIES.items():
+        cfg = _ft_config(task="test", quant="int8_static", **kw)
+        model = create_classify_model(cfg, N_FT_CLASSES, device=dev)
+        sites = _int8_sites(dev, model)
+        del model
+        sums = [0.0, 0.0, 0.0, 0]
+        for key, names in sites.items():
+            r = _k6_site(dev, gen, key, batch=2 * MA_B_VIEW)
+            n = len(names)
+            ok &= r["bitwise"]
+            for i, f in enumerate(("ms", "bound", "plain_ms")):
+                sums[i] += 2 * n * r[f]    # both towers
+            sums[3] += 2 * n
+            (t, h, w, cin), cout, k, stride, lo, hi = key
+            log(f"[model] (m) {fam} K6 {names[0]}"
+                f"{f' (+{n - 1})' if n > 1 else ''}: x ({t}, {h}, {w}, "
+                f"{cin}) -> {cout}, kernel {k}, stride {stride}, pads "
+                f"{lo}/{hi}: vs plain at batch {Q_CHECK_BS} "
+                f"{'bitwise' if r['bitwise'] else 'DIFFER'}; at batch "
+                f"{2 * MA_B_VIEW}: {r['ms']:.3f} ms, bound "
+                f"{r['bound']:.3f} ms ({r['by']}), plain (float64) "
+                f"{r['plain_ms']:.1f} ms, cuDNN bf16 {r['cudnn_ms']:.3f} ms")
+        log(f"[model] (m) {fam} K6 per --quant int8 step at world 1 "
+            f"({sums[3]} launches, {len(sites)} shapes, per-view "
+            f"{MA_B_VIEW}): {sums[0]:.2f} ms, bound {sums[1]:.3f} ms, plain "
+            f"{sums[2]:.1f} ms")
+        ok &= sums[3] == FAMILY_K6[fam]
+        out[fam] = [round(sums[0], 3), round(sums[1], 4),
+                    round(sums[2], 1), sums[3]]
+    if not ok:
+        raise SystemExit("[model] (m) K6 differs from its plain version at "
+                         "a C3D or r3d-18 site, or a family has another "
+                         "count of int8 sites")
+    return out
 
 
 # ------------------------------------------------------------ rewrites, ranks
@@ -4593,12 +4705,18 @@ REWRITE_RUNS = {
                                 _per_step(0, 0, 1, 48)),
 }
 EVAL_TEST_VIDEOS = 5    # an uneven split over two data rows
-EVAL_K6 = 24            # K6 launches per video of the int8_static forward
-# phase 22 (c)'s world-2 run on (1, 2) H shards: both ranks run every video
-# (K6 on the halo-extended shards); held to world 1's int8_static report,
-# whose config record (the report's head) differs in the mesh flags alone
-EVAL_SPATIAL = ("test int8_static (1, 2)", "test int8_static")
+# K6 launches per video of the int8_static forward: R(2+1)D depth 1's 24
+# convs, r3d-18's 20
+EVAL_K6 = 24
+EVAL_K6_R3D = FAMILY_K6["r3d"] // 2
+# phase 22 (c)'s world-2 runs on (1, 2) H shards, R(2+1)D's and r3d-18's:
+# both ranks run every video (K6 on the halo-extended shards); each held
+# to the world-1 int8_static report of its model, whose config record
+# (the report's head) differs in the mesh flags alone
+EVAL_SPATIAL = {"test int8_static (1, 2)": "test int8_static",
+                "test int8_static r3d-18 (1, 2)": "test int8_static r3d-18"}
 MESH_FLAGS = {"mesh_shape", "shard_spatial"}
+EVAL_R3D = dict(model_name="r3d", model_depth=18, resnet_shortcut="B")
 
 
 def _same_report(got: str, want: str, mesh_flags: bool) -> bool:
@@ -4744,7 +4862,8 @@ def _s3d_s2d_step(dev, card: str, counts):
         counts[key] += v
 
 
-def _eval_runs(root: str, train: str, float_ckpt: str, calib: str):
+def _eval_runs(root: str, train: str, float_ckpt: str, calib: str,
+               calib_r3d: str):
     """Phase 22 (c)'s flags common to its CLIs, and its CLI runs: name ->
     (CLI module name, argv, K6 launches over the run at world size 1)."""
     import os
@@ -4768,11 +4887,14 @@ def _eval_runs(root: str, train: str, float_ckpt: str, calib: str):
             "main_retrieval", common + ["--task", "retrieval",
                                         "--test_md_path", ckpt] + q,
             k6 * videos)
-    spatial, _ = EVAL_SPATIAL
-    runs[spatial] = ("main_test", common + [
-        "--task", "test", "--test_md_path", calib, "--quant", "int8_static",
-        "--mesh_shape", "1", "2", "--shard_spatial", "1"],
-        EVAL_K6 * EVAL_TEST_VIDEOS)
+    r3d = ["--task", "test", "--test_md_path", calib_r3d, "--quant",
+           "int8_static"] + _argv(EVAL_R3D)
+    runs["test int8_static r3d-18"] = ("main_test", common + r3d,
+                                       EVAL_K6_R3D * EVAL_TEST_VIDEOS)
+    mesh = ["--mesh_shape", "1", "2", "--shard_spatial", "1"]
+    for spatial, name in EVAL_SPATIAL.items():
+        cli, argv, k6 = runs[name]
+        runs[spatial] = (cli, argv + mesh, k6)
     return common, runs
 
 
@@ -4832,9 +4954,11 @@ def _eval_ranks(dev, card: str, counts):
     must be the world-1 report byte for byte, rank 1 must write no file,
     and each rank must launch K6 for its own videos (video i on rank i %
     2). The ``int8_static`` ``main_test`` runs at world 2 on (1, 2)
-    ``--shard_spatial`` too (EVAL_SPATIAL): both ranks run every video,
-    and its report is world 1's but for the mesh flags in its config
-    line. Adds the world-2 ranks' K6 launches to ``counts``."""
+    ``--shard_spatial`` too (EVAL_SPATIAL), for R(2+1)D and for r3d-18
+    (its own checkpoint and calibration): both ranks run every video, and
+    each report is world 1's but for the mesh flags in its config line.
+    Adds the world-2 ranks' K6 launches to ``counts``; returns the seconds
+    of the r3d-18 runs."""
     import os
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -4853,15 +4977,23 @@ def _eval_ranks(dev, card: str, counts):
                          pool)
         float_ckpt = os.path.join(root, "save_2_max")
         calib = os.path.join(root, "save_2_int8")
+        float_r3d = os.path.join(root, "r3d_save_2_max")
+        calib_r3d = os.path.join(root, "r3d_save_2_int8")
         _float_ft_checkpoint(dev, float_ckpt)
-        common, runs = _eval_runs(root, train, float_ckpt, calib)
-        _cli_run(serve_quantize.main, common + [
-            "--task", "test", "--out_path", calib, "--test_md_path",
-            float_ckpt, "--calib_batches", "2", "--calib_batch_size", "8"],
-            {}, 1)
+        common, runs = _eval_runs(root, train, float_ckpt, calib, calib_r3d)
+        t_r3d = time.perf_counter()
+        _float_ft_checkpoint(dev, float_r3d, **EVAL_R3D)
+        for extra, out_path, ckpt in ((_argv(EVAL_R3D), calib_r3d, float_r3d),
+                                      ([], calib, float_ckpt)):
+            _cli_run(serve_quantize.main, common + extra + [
+                "--task", "test", "--out_path", out_path, "--test_md_path",
+                ckpt, "--calib_batches", "2", "--calib_batch_size", "8"],
+                {}, 1)
+            if extra:
+                r3d_s = time.perf_counter() - t_r3d
         one = {}
         for name, (cli, argv, k6) in runs.items():
-            if name == EVAL_SPATIAL[0]:     # world 2 only
+            if name in EVAL_SPATIAL:     # world 2 only
                 continue
             t0 = time.perf_counter()
             out, _ = _cli_run(clis[cli], argv, {"int8_conv": k6}, 1)
@@ -4891,19 +5023,20 @@ def _eval_ranks(dev, card: str, counts):
                 ranks.append(json.load(f))
     ok = not ranks[1]["writes"]
     for name, (cli, argv, k6) in runs.items():
-        videos = k6 // EVAL_K6
         test = cli == "main_test"
+        per_video = k6 // (EVAL_TEST_VIDEOS + (0 if test else
+                                               Q_CALIB_VIDEOS))
         # video i on rank i % 2, over the test split (and the gallery); on
         # H shards every video on both ranks
         share = [len(range(r, EVAL_TEST_VIDEOS, 2)) + (0 if test else len(
             range(r, Q_CALIB_VIDEOS, 2))) for r in range(2)]
-        if name == EVAL_SPATIAL[0]:
+        if name in EVAL_SPATIAL:
             share = [EVAL_TEST_VIDEOS] * 2
-        want = [EVAL_K6 * s if videos else 0 for s in share]
+        want = [per_video * s for s in share]
         got = [rank[name]["k6"] for rank in ranks]
-        ref = one[dict([EVAL_SPATIAL]).get(name, name)]
+        ref = one[EVAL_SPATIAL.get(name, name)]
         same = _same_report(ranks[0][name]["report"], ref["report"],
-                            name == EVAL_SPATIAL[0])
+                            name in EVAL_SPATIAL)
         ok &= same and got == want
         counts["int8_conv"] += sum(got)
         lines = ref["report"].splitlines()
@@ -4916,10 +5049,17 @@ def _eval_ranks(dev, card: str, counts):
         f"{seconds:.1f} s "
         f"with the processes' start; files rank 1 opened for writing: "
         f"{ranks[1]['writes']}")
+    # r3d-18's runs: its checkpoint and calibration, its world-1 test and
+    # its two world-2 tests on rank 0
+    r3d = [n for n in runs if "r3d-18" in n]
+    r3d_s += sum(one[n]["seconds"] for n in r3d if n in one) + sum(
+        ranks[0][n]["seconds"] for n in r3d)
+    log(f"[rewrite] (c) r3d-18's runs {r3d}: {r3d_s:.1f} s")
     if not ok:
         raise SystemExit("[rewrite] a world-2 test or retrieval report "
                          "differs from world 1's, rank 1 wrote a file, or "
                          "a rank launched K6 for other videos")
+    return r3d_s
 
 
 def phase_rewrites(dev, card: str, slice_ms: float):
@@ -4927,15 +5067,16 @@ def phase_rewrites(dev, card: str, slice_ms: float):
     K2/K3 at the --mid_round 128 site shapes; (b) one step each of
     REWRITE_RUNS against its plain step; (c) main_test and main_retrieval
     at world 2 against world 1; (d) the s3d --s2d_stem pretrain step with
-    K5. Returns the main-path launches."""
+    K5. Returns the main-path launches and the seconds of (c)'s r3d-18
+    runs."""
     t_phase = time.perf_counter()
     counts = {k: 0 for k in _per_step(0, 0, 0)}
     _mid_round_sites(dev)
     _rewrite_steps(dev, card, slice_ms, counts)
-    _eval_ranks(dev, card, counts)
+    r3d_s = _eval_ranks(dev, card, counts)
     _s3d_s2d_step(dev, card, counts)
     log(f"[rewrite] phase {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, round(r3d_s, 1)
 
 
 def kernels_line(conv, aug_err, aug_t, counts, k6, store):
@@ -4991,10 +5132,28 @@ def kernels_line(conv, aug_err, aug_t, counts, k6, store):
         for name, src, rep, r in rows]}
 
 
+# the phases ``--phases`` runs alone: n -> fn(dev, card); a time of an
+# earlier phase that they print beside theirs is nan
+_NAN = float("nan")
+ALONE = {
+    12: lambda dev, card: phase_cli(dev, card, _NAN, _NAN),
+    14: lambda dev, card: phase_families(dev, card, _NAN),
+    19: lambda dev, card: phase_quant_serve(dev, card, _NAN),
+    21: phase_model_axis,
+    22: lambda dev, card: phase_rewrites(dev, card, _NAN),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
+    ap.add_argument("--phases", type=int, nargs="+", metavar="N",
+                    choices=sorted(ALONE),
+                    help="build the kernels, then run only these phases "
+                    "(those that need no earlier phase's result, another "
+                    "phase's times printed as nan) and print their seconds; "
+                    "no kernels line and no last line")
     ap.add_argument("--dp-rank", nargs=4, metavar=("RANK", "WORLD", "PORT",
                                                     "OUT"),
                     help=argparse.SUPPRESS)
@@ -5067,6 +5226,13 @@ def main(argv=None) -> int:
         return out
 
     reader_build = timed(1, phase_build)
+    if args.phases:
+        for n in args.phases:
+            timed(n, ALONE[n], dev, card)
+        summary["seconds"]["all"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps({"summary": summary}, separators=(",", ":")),
+              flush=True)
+        return 0
     conv = timed(2, phase_conv21d, dev)
     aug_err, aug_t = timed("2 augment", phase_augment, dev)
     hashes = timed("2 hashes", phase_hashes, dev)
@@ -5124,8 +5290,11 @@ def main(argv=None) -> int:
         summary["shards_ms_bound"] = {
             k: [round(ms, 3), round(b, 4), n]
             for k, (ms, b, n) in ma["shards"].items()}
-        for k, v in timed(22, phase_rewrites, dev, card,
-                          sl["step_ms"]).items():
+        summary["families_k6"] = ma["families_k6"]
+        summary["families_s"] = ma["new_s"]
+        rw_counts, summary["families_s"]["test r3d-18"] = timed(
+            22, phase_rewrites, dev, card, sl["step_ms"])
+        for k, v in rw_counts.items():
             counts[k] += v
     line = kernels_line(conv, aug_err, aug_t, counts, k6, store)
     print(json.dumps(line), flush=True)

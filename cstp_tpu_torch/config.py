@@ -228,13 +228,13 @@ class Config:
 
     def check_ported(self) -> None:
         """Refuse flag values whose code paths the port does not have."""
-        if self.shard_spatial and base_model_name(self.model_name) != "r21d":
+        if self.shard_spatial and base_model_name(self.model_name) not in \
+                SHARDED_FAMILIES:
             raise NotImplementedError(
                 f"--shard_spatial on {self.model_name!r}: the port splits H "
-                "over 'model' in the R(2+1)D tower only; C3D and 3D-ResNet "
-                "(pools on H shards), S3D-G and I3D (TF-SAME pads, "
-                "self-gating) and SlowFast (laterals) are ROADMAP item "
-                "17c-ii parts c, d and e")
+                "over 'model' in the R(2+1)D, C3D and 3D-ResNet towers only; "
+                "S3D-G and I3D (TF-SAME pads, self-gating) and SlowFast "
+                "(laterals) are ROADMAP item 17c-ii parts d and e")
         if base_model_name(self.model_name) not in PORTED_FAMILIES:
             raise ValueError(f"unknown backbone {self.model_name!r}; have "
                              f"{sorted(PORTED_FAMILIES)}")
@@ -252,6 +252,11 @@ class Config:
 # JAX package registers
 PORTED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d", "slowfast",
                    "slowfast_fb")
+
+
+# the families whose towers split H over 'model' under --shard_spatial
+# (models/sharded.py ShardedTower)
+SHARDED_FAMILIES = ("r21d", "c3d", "r3d")
 
 
 def base_model_name(arch: str) -> str:

@@ -90,10 +90,11 @@ class BatchNorm(nn.Module):
     statistics (what flax computes over a 'data'-sharded batch); without a
     group it changes nothing.
 
-    ``spatial`` (``--shard_spatial``, set by ``R2Plus1DNet.shard_spatially``
-    on the tower's BatchNorms): each rank holds some rows of the frames, so
-    the moments are sums over the 'model' ranks (and over 'data' too under
-    ``cross_rank``), each rank's weighted by its positions.
+    ``spatial`` (``--shard_spatial``, set by ``models/sharded.py
+    ShardedTower.shard_spatially`` on the tower's BatchNorms): each rank
+    holds some rows of the frames, so the moments are sums over the
+    'model' ranks (and over 'data' too under ``cross_rank``), each rank's
+    weighted by its positions.
     """
 
     cross_rank = False
@@ -223,12 +224,20 @@ class Conv3d(nn.Module):
     A dynamic or observed activation scale is the absmax of the whole
     input, a maximum over the ranks that hold parts of it
     (``parallel.scale_axis``): 'data' in a step, and 'model' too where
-    ``spatial`` (``--shard_spatial``, set by ``R2Plus1DNet.shard_spatially``
-    on the tower's convs) marks an H shard. It is taken over ``held``,
-    the rows this rank holds, where the halo-extended input (whose rows a
-    strided 1 x 1 conv's halo leaves some out of) is given."""
+    ``spatial`` (``--shard_spatial``, set by ``models/sharded.py
+    ShardedTower.shard_spatially`` on the tower's convs) marks an H shard.
+    It is taken over ``held``, the rows this rank holds, where the
+    halo-extended input (whose rows a strided 1 x 1 conv's halo leaves
+    some out of) is given.
+
+    ``shard`` (``--shard_spatial``; set at each forward on an H site of
+    C3D and the 3D-ResNets by their tower): ``(SpatialShard, stride)``, the
+    H split and the total stride of the input rows. The conv then fetches
+    the rows its H window reads (``parallel.halo_rows``) and runs on them
+    with ``h_halo`` and ``held`` as above."""
 
     spatial = False
+    shard: Optional[Tuple[SpatialShard, int]] = None
 
     def __init__(self, in_ch: int, features: int, kernel, stride=(1, 1, 1),
                  padding=(0, 0, 0), dtype=torch.bfloat16,
@@ -251,6 +260,11 @@ class Conv3d(nn.Module):
         if quant in ("int8_static", "int8_calib"):
             self.register_buffer("act_scale", torch.zeros(()))
 
+    @property
+    def h_window(self) -> Tuple[int, int, int]:
+        """Kernel, stride and (symmetric) padding in H."""
+        return self.kernel[1], self.stride[1], self.pad_pairs[1][0]
+
     def call_pads(self, h_halo: bool) -> Tuple[Tuple[int, int], ...]:
         """This call's ``(lo, hi)`` pads for T, H and W: ``padding`` or the
         TF-SAME pairs, H's none on a halo-extended input."""
@@ -269,6 +283,9 @@ class Conv3d(nn.Module):
         give (``parallel.halo_rows``), so H is not padded again; ``held``:
         the rows this rank holds of the input before that halo."""
         x = x.to(self.dtype)
+        if self.shard is not None and not h_halo:
+            held, h_halo = x, True
+            x = halo_rows(x, *self.shard, *self.h_window)
         folded = x.dim() == 4
         if folded and (self.kernel[0], self.stride[0],
                        self.pad_pairs[0]) != (1, 1, (0, 0)):
@@ -324,6 +341,58 @@ def max_pool_3d(x: torch.Tensor, kernel, stride,
     y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), _triple(kernel),
                      _triple(stride), _triple(padding))
     return y.permute(0, 2, 3, 4, 1)
+
+
+class MaxPool3d(nn.Module):
+    """:func:`max_pool_3d` as an H site of ``--shard_spatial``: with
+    ``shard`` set (as ``Conv3d.shard``) it fetches the rows its H window
+    reads, ``-inf`` outside the frame as the pool pads, and pools them
+    with no H padding: exactly this rank's rows of the whole frame's
+    pool, a VALID pool's too (its last odd row read by no window)."""
+
+    shard: Optional[Tuple[SpatialShard, int]] = None
+
+    def __init__(self, kernel, stride, padding=0):
+        super().__init__()
+        self.kernel, self.stride = _triple(kernel), _triple(stride)
+        self.padding = _triple(padding)
+
+    @property
+    def h_window(self) -> Tuple[int, int, int]:
+        return self.kernel[1], self.stride[1], self.padding[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is None:
+            return max_pool_3d(x, self.kernel, self.stride, self.padding)
+        x = halo_rows(x, *self.shard, *self.h_window, fill=float("-inf"))
+        pt, _, pw = self.padding
+        return max_pool_3d(x, self.kernel, self.stride, (pt, 0, pw))
+
+
+class Subsample(nn.Module):
+    """``x[:, ::s, ::s, ::s]`` (``F.avg_pool3d`` of kernel 1, stride
+    ``s``), an H site of window ``(1, s, 0)``: with ``shard`` set (as
+    ``Conv3d.shard``) H starts at the local row ``(-a) mod s``, ``a`` the
+    rank's first global row, so the rank keeps the global rows that are
+    multiples of ``s``, the rows the rule of ``parallel.SpatialShard``
+    gives it."""
+
+    shard: Optional[Tuple[SpatialShard, int]] = None
+
+    def __init__(self, stride: int):
+        super().__init__()
+        self.s = stride
+
+    @property
+    def h_window(self) -> Tuple[int, int, int]:
+        return 1, self.s, 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s, first = self.s, 0
+        if self.shard is not None:
+            shard, stride = self.shard
+            first = -shard.rows(stride)[0] % s
+        return x[:, ::s, first::s, ::s]
 
 
 def same_pads(kernel, stride) -> Tuple[Tuple[int, int], ...]:
@@ -427,12 +496,12 @@ class SpatioTemporalConv(nn.Module):
 
     The running statistics move as a BatchNorm's, 0.9 / 0.1, in train.
 
-    ``shard`` (``--shard_spatial``; set by ``R2Plus1DNet`` at each forward):
-    ``(SpatialShard, stride)``, the H split and the total stride of this
-    block's input rows. The spatial conv then runs on the rows
-    ``parallel.halo_rows`` gives it, and a fused site on the padded shard
-    (the halo rows in H, zeros at the frame's top and bottom and in W),
-    with the taps9 kernels (K4a/K4b) on CUDA.
+    ``shard`` (``--shard_spatial``; set by ``R2Plus1DNet`` at each
+    forward, ``models/sharded.py``): ``(SpatialShard, stride)``, the H
+    split and the total stride of this block's input rows. The spatial
+    conv then runs on the rows ``parallel.halo_rows`` gives it, and a fused
+    site on the padded shard (the halo rows in H, zeros at the frame's top
+    and bottom and in W), with the taps9 kernels (K4a/K4b) on CUDA.
 
     The JAX package's three rewrites, in its order after the storage chain
     and the fused path: ``mid_round`` (``--mid_round``) rounds the mid width
@@ -480,6 +549,10 @@ class SpatioTemporalConv(nn.Module):
         if quant in STORE_MODES:
             for k in ("in", "mid", "act"):
                 self.register_buffer(f"act_scale_{k}", torch.zeros(()))
+
+    @property
+    def h_window(self) -> Tuple[int, int, int]:
+        return self.kernel[1], self.stride[1], self.padding[1]
 
     def fused_eligible(self, train: bool) -> bool:
         kt, kh, kw = self.kernel

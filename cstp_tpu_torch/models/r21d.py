@@ -19,17 +19,18 @@ name its output: under "bnrelu" it recomputes like the rest, launching its
 kernels again.
 
 ``shard_spatially`` (``--shard_spatial``, the JAX package's
-``spatial_constraint_fn``) splits H over the 'model' ranks: each rank keeps
-its rows of the input (``parallel.SpatialShard``), each conv that spans H
-fetches its neighbours' rows, the BatchNorms sum their moments over the
-shards, and the pool is a sum over 'model' divided by the global count, so
-the feature (and all after it) is the same on every 'model' rank.
+``spatial_constraint_fn``; ``models/sharded.py``) splits H over the 'model'
+ranks: each rank keeps its rows of the input (``parallel.SpatialShard``),
+each (2+1)D site fetches its neighbours' rows, the BatchNorms sum their
+moments over the shards, and the pool is a sum over 'model' divided by
+the global count, so the feature (and all after it) is the same on every
+'model' rank.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,16 +41,11 @@ from torch.utils.checkpoint import (
 
 from cstp_tpu_torch.models.layers import (
     BatchNorm,
-    Conv3d,
     MLPHead,
     SpatioTemporalConv,
     running_stats_kept,
 )
-from cstp_tpu_torch.parallel.mesh import (
-    SpatialShard,
-    mesh_axis,
-    reduce_to_replicated,
-)
+from cstp_tpu_torch.models.sharded import ShardedTower
 
 LAYER_SIZES = {1: (1, 1, 1, 1), 10: (1, 1, 1, 1), 18: (2, 2, 2, 2),
                34: (3, 4, 6, 3)}
@@ -189,11 +185,9 @@ def checkpointed(layer: nn.Module, x: torch.Tensor, train: bool,
                       context_fn=contexts)
 
 
-class R2Plus1DNet(nn.Module):
+class R2Plus1DNet(ShardedTower, nn.Module):
     """Returns the 512-d pooled feature; with ``proj_flag`` also the 512-d
     BYOL projection (reference ``r21d_byol.py:184-229``)."""
-
-    spatial = False
 
     def __init__(self, layer_sizes: Tuple[int, int, int, int] = (1, 1, 1, 1),
                  proj_flag: bool = False, dtype=torch.bfloat16,
@@ -222,11 +216,8 @@ class R2Plus1DNet(nn.Module):
         if proj_flag:
             self.project = MLPHead(512, 4096, 512, dtype, bn_groups, gen)
 
-    def shard_spatially(self) -> None:
-        """``--shard_spatial``: split H over 'model' from the next forward
-        on. Records each (2+1)D site's input stride and marks the tower's
-        BatchNorms and convs (the projector's BatchNorm stays whole: it
-        runs on the pooled feature, the same on every rank)."""
+    def h_sites(self) -> List[Tuple[nn.Module, int]]:
+        """Every (2+1)D site and its input stride (``--shard_spatial``)."""
         sites, stride = [(self.conv1, 1)], self.conv1.stride[1]
         for layer in (self.conv2, self.conv3, self.conv4, self.conv5):
             for i in range(layer.layer_size):
@@ -237,29 +228,11 @@ class R2Plus1DNet(nn.Module):
                 if block.downsample:
                     sites.append((block.downsampleconv, stride))
                 stride = out
-        self._sites, self._out_stride = sites, stride
-        for name, m in self.named_modules():
-            if isinstance(m, (BatchNorm, Conv3d)) \
-                    and not name.startswith("project"):
-                m.spatial = True
-        self.spatial = True
-
-    def _own_rows(self, x: torch.Tensor) -> Tuple[torch.Tensor,
-                                                  SpatialShard]:
-        """This 'model' rank's rows of the input and the split, handed to
-        every site for this forward."""
-        ax = mesh_axis("model")
-        shard = SpatialShard(x.shape[2], ax.index, ax.size)
-        shard.check(sorted({s for _, s in self._sites} | {self._out_stride}))
-        for site, stride in self._sites:
-            site.shard = (shard, stride)
-        lo, hi = shard.rows()
-        return x[:, :, lo:hi], shard
+        return sites
 
     def forward(self, x: torch.Tensor, train: bool = True):
-        shard = None
         if self.spatial:
-            x, shard = self._own_rows(x)
+            x = self.own_rows(x)
         x = self.conv1(x.to(self.dtype), train)
         x = torch.relu(self.bn1(x, train)).to(self.dtype)
         # a forward without autograd (the target tower, eval) keeps nothing
@@ -269,39 +242,7 @@ class R2Plus1DNet(nn.Module):
                 x = checkpointed(layer, x, train, remat)
             else:
                 x = layer(x, train)
-        if shard is None:
-            feat = x.float().mean(dim=(1, 2, 3))
-        else:
-            count = x.shape[1] * shard.height_at(self._out_stride) * x.shape[3]
-            feat = reduce_to_replicated(x.float().sum(dim=(1, 2, 3)),
-                                        "model") / count
+        feat = self.pooled(x)
         if self.proj_flag:
             return feat, self.project(feat, train)
         return feat
-
-
-def shard_spatially(module: nn.Module) -> nn.Module:
-    """Every R(2+1)D tower of ``module`` split over H from its next forward
-    on (``--shard_spatial``); a module without one raises
-    ``NotImplementedError`` (ROADMAP item 17c-ii)."""
-    towers = [m for m in module.modules() if isinstance(m, R2Plus1DNet)]
-    if not towers:
-        raise NotImplementedError(
-            f"--shard_spatial on {type(module).__name__} without an R(2+1)D "
-            "tower is ROADMAP item 17c-ii")
-    for tower in towers:
-        tower.shard_spatially()
-    return module
-
-
-def spatially_partial_names(module: nn.Module):
-    """The names of ``module``'s parameters whose gradient each H shard
-    holds a part of (every split tower's, its projector's excepted): the
-    step sums them over 'model'."""
-    names = set()
-    for prefix, m in module.named_modules():
-        if isinstance(m, R2Plus1DNet) and m.spatial:
-            names.update(f"{prefix}.{n}" if prefix else n
-                         for n, _ in m.named_parameters()
-                         if not n.startswith("project."))
-    return names

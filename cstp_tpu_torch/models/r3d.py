@@ -8,18 +8,27 @@ stride 2), global average pool in float32 to ``512 * expansion``. The
 shortcut of a block that changes shape is "A" (strided subsample, then the
 channels zero-padded; no parameters) or "B" (1x1x1 conv with the stride,
 then BN). No projector. ``bn_groups`` reaches every block and ``quant``
-(``--quant``) every conv.
+(``--quant``) every conv. Under ``--shard_spatial``
+(``models/sharded.py``) its H sites are the stem, the pool, each block's
+3x3x3 convs and its shortcut (the 1x1x1 conv of "B", the subsample of
+"A"); the 1x1x1 stride-1 convs of the bottleneck need no other rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cstp_tpu_torch.models.layers import BatchNorm, Conv3d, max_pool_3d
+from cstp_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv3d,
+    MaxPool3d,
+    Subsample,
+)
+from cstp_tpu_torch.models.sharded import ShardedTower
 
 R3D_LAYERS = {
     10: ("basic", (1, 1, 1, 1), 1),
@@ -41,18 +50,27 @@ class _Block(nn.Module):
         self.stride = stride
         self.in_ch, self.out_ch = in_ch, out_ch
         self.shortcut = shortcut
-        if shortcut == "B" and (stride != 1 or in_ch != out_ch):
+        self.identity = stride == 1 and in_ch == out_ch
+        if self.identity:
+            return
+        if shortcut == "B":
             self.downsample_conv = Conv3d(in_ch, out_ch, 1, stride, 0,
                                           self.dtype, gen, quant=self.quant)
             self.downsample_bn = BatchNorm(out_ch, bn_groups, gen)
+        else:
+            self.subsample = Subsample(stride)
+
+    def _shortcut_sites(self, stride: int):
+        if self.identity:
+            return []
+        return [(self.subsample if self.shortcut == "A"
+                 else self.downsample_conv, stride)]
 
     def _shortcut(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        s = self.stride
-        if s == 1 and self.in_ch == self.out_ch:
+        if self.identity:
             return x
         if self.shortcut == "A":
-            # F.avg_pool3d(kernel 1, stride s) is a strided subsample
-            return F.pad(x[:, ::s, ::s, ::s, :], (0, self.out_ch - self.in_ch))
+            return F.pad(self.subsample(x), (0, self.out_ch - self.in_ch))
         return self.downsample_bn(self.downsample_conv(x), train)
 
     def _residual(self, out, x, train: bool) -> torch.Tensor:
@@ -74,6 +92,11 @@ class _BasicBlock(_Block):
         self.conv2 = Conv3d(planes, planes, 3, 1, 1, dtype, gen, quant=quant)
         self.bn2 = BatchNorm(planes, bn_groups, gen)
         self._init_shortcut(in_ch, planes, stride, shortcut, bn_groups, gen)
+
+    def h_sites(self, stride: int):
+        """Its H sites on input rows of total stride ``stride``."""
+        return ([(self.conv1, stride), (self.conv2, stride * self.stride)]
+                + self._shortcut_sites(stride))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x), train)).to(self.dtype)
@@ -100,6 +123,12 @@ class _Bottleneck(_Block):
         self._init_shortcut(in_ch, planes * 4, stride, shortcut, bn_groups,
                             gen)
 
+    def h_sites(self, stride: int):
+        """Its H sites on input rows of total stride ``stride``."""
+        return ([(self.conv1, stride), (self.conv2, stride),
+                 (self.conv3, stride * self.stride)]
+                + self._shortcut_sites(stride))
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x), train)).to(self.dtype)
         out = torch.relu(self.bn2(self.conv2(out), train)).to(self.dtype)
@@ -107,7 +136,7 @@ class _Bottleneck(_Block):
         return self._residual(out, x, train)
 
 
-class ResNet3D(nn.Module):
+class ResNet3D(ShardedTower, nn.Module):
     """Returns the ``512 * expansion``-d pooled feature (reference
     ``r3d_byol.py:139-207``); blocks are named ``layer{i}_block{j}`` as in
     the JAX package."""
@@ -125,6 +154,7 @@ class ResNet3D(nn.Module):
         block_cls = _BasicBlock if block == "basic" else _Bottleneck
         self.conv1 = Conv3d(3, 64, 7, (1, 2, 2), 3, dtype, gen, quant=quant)
         self.bn1 = BatchNorm(64, bn_groups, gen)
+        self.pool = MaxPool3d(3, 2, 1)
         self.names = []
         in_ch = 64
         for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
@@ -137,10 +167,20 @@ class ResNet3D(nn.Module):
                 self.names.append(name)
                 in_ch = planes * block_cls.expansion
 
+    def h_sites(self) -> List[Tuple[nn.Module, int]]:
+        sites, stride = [(self.conv1, 1), (self.pool, 2)], 4
+        for name in self.names:
+            block = getattr(self, name)
+            sites += block.h_sites(stride)
+            stride *= block.stride
+        return sites
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if self.spatial:
+            x = self.own_rows(x)
         x = self.conv1(x.to(self.dtype))
         x = torch.relu(self.bn1(x, train)).to(self.dtype)
-        x = max_pool_3d(x, 3, 2, 1)
+        x = self.pool(x)
         for name in self.names:
             x = getattr(self, name)(x, train)
-        return x.float().mean(dim=(1, 2, 3))
+        return self.pooled(x)

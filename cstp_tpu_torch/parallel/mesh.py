@@ -35,11 +35,12 @@ With a 'model' axis above 1 (JAX's ``_model_spec``): every 4096-wide MLP
 is tensor-parallel, each rank holding ``4096 / M`` hidden units
 (``models/layers.py MLPHead``), between Megatron's pair of collectives
 (:func:`copy_to_parallel`, :func:`reduce_to_replicated`); and under
-``--shard_spatial`` (JAX's ``spatial_constraint_fn``) the R(2+1)D tower
-splits H over 'model' (:class:`SpatialShard`): each conv that spans H
-fetches its neighbours' rows (:func:`halo_rows`), the BatchNorm moments are
-sums over the ranks weighted by their positions, and the pool is a sum
-over 'model'. ``--shard_opt_state`` (ZeRO-1) lives in ``train/optim.py``.
+``--shard_spatial`` (JAX's ``spatial_constraint_fn``) the R(2+1)D, C3D
+and 3D-ResNet towers split H over 'model' (:class:`SpatialShard`,
+``models/sharded.py``): each conv and max pool that spans H fetches its
+neighbours' rows (:func:`halo_rows`), the BatchNorm moments are sums over
+the ranks weighted by their positions, and the global pool is a sum over
+'model'. ``--shard_opt_state`` (ZeRO-1) lives in ``train/optim.py``.
 
 The collectives are ``all_reduce``, ``all_gather`` and ``broadcast`` only
 (and their pickled-object forms), which gloo also carries for CUDA
@@ -679,19 +680,24 @@ class SpatialShard:
     """The H split of ``--shard_spatial`` for input frames of ``height``
     rows: 'model' rank ``i`` holds rows ``[a_i, b_i)``, contiguous chunks
     of ``ceil(height / size)`` (the last one short where H does not split
-    evenly, as GSPMD splits it). Every conv keeps one rule for every
-    stride: output row ``i`` belongs to the rank that holds its centre
-    row, input row ``i * s``; so at a total stride ``S`` rank ``i`` holds
-    rows ``[ceil(a_i / S), ceil(b_i / S))`` of ``ceil(height / S)``."""
+    evenly, as GSPMD splits it). Every conv and pool keeps one rule for
+    every stride: output row ``j`` belongs to the rank that holds input
+    row ``j * s``; so at a total stride ``S`` rank ``i`` holds rows
+    ``[ceil(a_i / S), ceil(b_i / S))``, clipped to that stage's global
+    rows. ``heights`` gives the stages' global rows as ``(stride, rows)``
+    pairs (``models/sharded.py`` derives them from a tower's sites: a
+    VALID pool's ``floor(h / 2)``, C3D's 7 rows pool to 3); a stage it
+    does not list has ``ceil(height / S)``."""
     height: int
     index: int
     size: int
+    heights: Tuple[Tuple[int, int], ...] = ()
 
     def bounds(self, stride: int = 1):
         """Every rank's ``(lo, hi)`` rows at total stride ``stride``."""
-        c = -(-self.height // self.size)
-        return [(-(-min(i * c, self.height) // stride),
-                 -(-min((i + 1) * c, self.height) // stride))
+        c, h = -(-self.height // self.size), self.height_at(stride)
+        return [(min(-(-min(i * c, self.height) // stride), h),
+                 min(-(-min((i + 1) * c, self.height) // stride), h))
                 for i in range(self.size)]
 
     def rows(self, stride: int = 1) -> Tuple[int, int]:
@@ -699,7 +705,7 @@ class SpatialShard:
 
     def height_at(self, stride: int = 1) -> int:
         """The global rows at total stride ``stride``."""
-        return -(-self.height // stride)
+        return dict(self.heights).get(stride, -(-self.height // stride))
 
     def check(self, strides: Iterable[int]) -> None:
         """Every rank holds a row at each of ``strides``; else ValueError
@@ -711,15 +717,15 @@ class SpatialShard:
                 raise ValueError(
                     f"--shard_spatial: {self.height} rows over {self.size} "
                     f"'model' ranks leave ranks {empty} no row at stride "
-                    f"{s}; use a larger --sample_size or a smaller 'model' "
-                    "axis")
+                    f"{s} ({self.height_at(s)} rows); use a larger "
+                    "--sample_size or a smaller 'model' axis")
 
 
 def halo_plan(shard: SpatialShard, stride: int, k: int, s: int, p: int):
     """The rows an H conv of kernel ``k``, stride ``s`` and padding ``p``
     reads, on input rows held at total stride ``stride``: ``(lo, hi,
     border)``, this rank's input rows ``[lo, hi)`` for its output rows
-    (rows outside the frame are the conv's zero padding), and ``border``,
+    (rows outside the frame are the conv's padding), and ``border``,
     the most rows any rank fetches from one side."""
     i0, i1 = shard.rows(stride * s)
     if i1 <= i0:
@@ -736,7 +742,7 @@ class _Halo(torch.autograd.Function):
     owners' rows."""
 
     @staticmethod
-    def forward(ctx, x, shard, stride, k, s, p):
+    def forward(ctx, x, shard, stride, k, s, p, fill):
         bounds = shard.bounds(stride)
         a, b = bounds[shard.index]
         if x.shape[2] != b - a:
@@ -753,13 +759,13 @@ class _Halo(torch.autograd.Function):
             borders = [t.to(x.dtype) for t in _gather_model(mine.float())]
         pieces = []
 
-        def zeros(count):
+        def outside(count):
             if count > 0:
                 shape = list(x.shape)
                 shape[2] = count
-                pieces.append(x.new_zeros(shape))
+                pieces.append(x.new_full(shape, fill))
 
-        zeros(min(0, hi) - lo)
+        outside(min(0, hi) - lo)
         for r in range(shard.index):            # rows above, their bottom
             ra, rb = bounds[r]
             j0, j1 = max(lo, ra, 0), min(a, rb)
@@ -774,7 +780,7 @@ class _Halo(torch.autograd.Function):
             j0, j1 = max(b, ra), min(hi, rb, height)
             if j1 > j0:
                 pieces.append(borders[r][:, :, j0 - ra:j1 - ra])
-        zeros(hi - max(height, lo))
+        outside(hi - max(height, lo))
         return torch.cat(pieces, 2) if len(pieces) > 1 else pieces[0]
 
     @staticmethod
@@ -786,7 +792,7 @@ class _Halo(torch.autograd.Function):
         if j1 > j0:
             dx[:, :, j0 - a:j1 - a] += g[:, :, j0 - lo:j1 - lo]
         if not n or shard.size == 1:
-            return dx, None, None, None, None, None
+            return dx, None, None, None, None, None, None
         # this rank's message: the gradients of rows [a - n, a) and
         # [b, b + n) it fetched, zero where it fetched none
         msg_shape = list(shape)
@@ -805,7 +811,7 @@ class _Halo(torch.autograd.Function):
                 dx[:, :, j - a] += got[:, :, j - (ra - n)]
             for j in range(max(a, rb), min(b, rb + n)):  # r's rows below
                 dx[:, :, j - a] += got[:, :, n + j - rb]
-        return dx, None, None, None, None, None
+        return dx, None, None, None, None, None, None
 
 
 def _gather_model(t: torch.Tensor):
@@ -816,11 +822,12 @@ def _gather_model(t: torch.Tensor):
 
 
 def halo_rows(x: torch.Tensor, shard: SpatialShard, stride: int, k: int,
-              s: int = 1, p: int = 0) -> torch.Tensor:
-    """The input rows that an H conv of kernel ``k``, stride ``s`` and
-    padding ``p`` reads for this rank's output rows, from ``x`` (N, T, h,
-    W, C), this rank's rows at total stride ``stride``: rows ``[lo, hi)``
-    of :func:`halo_plan`, its own and (over 'model', an all-gather each
-    way) its neighbours', zeros outside the frame. The conv then runs on
-    them with no H padding and gives exactly this rank's output rows."""
-    return _Halo.apply(x, shard, stride, k, s, p)
+              s: int = 1, p: int = 0, fill: float = 0.0) -> torch.Tensor:
+    """The input rows that an H conv or pool of kernel ``k``, stride ``s``
+    and padding ``p`` reads for this rank's output rows, from ``x`` (N, T,
+    h, W, C), this rank's rows at total stride ``stride``: rows ``[lo,
+    hi)`` of :func:`halo_plan`, its own and (over 'model', an all-gather
+    each way) its neighbours', ``fill`` outside the frame (a conv's zero
+    padding; ``-inf`` for a max pool's). The op then runs on them with no
+    H padding and gives exactly this rank's output rows."""
+    return _Halo.apply(x, shard, stride, k, s, p, fill)

@@ -7,7 +7,7 @@ its default shape.
         [--depth 1] [--quant ''|int8_static|int8_store|int8_store_fz]
         [--fused-conv 0|1|2] [--pallas-augment auto|on|off]
         [--grad-accum 1] [--remat] [--remat-policy ''|bnrelu]
-        [--concat-views 1|0] [--device cuda|cpu]
+        [--concat-views 1|0] [--artifact PATH] [--device cuda|cpu]
 
 Defaults are ``bench.py``'s: per-chip batch 64 (per view in ``pretrain``),
 ``--model`` r21d (the backbone family: r21d, c3d, r3d, s3d, i3d or
@@ -31,7 +31,10 @@ in the JAX package). The modes:
 * ``serve``: the same model exported (``serve/export.py``: eval augment +
   eval-mode forward + weights in one ``torch.export`` program), loaded in
   process and called on the staged windows (``ServingModel.call``), as
-  ``bench.py``'s serve mode times its artifact.
+  ``bench.py``'s serve mode times its artifact; ``--artifact PATH`` loads
+  an artifact that ``serve/export.py`` wrote (its model, depth, ``--quant``
+  and clip and frame shapes those of the flags, its classes its own)
+  instead of exporting one.
 
 ``--quant int8_static`` (``eval`` and ``serve``) builds the model with
 static int8 convs (K6) and fills every ``act_scale`` with 0.05, as
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -136,7 +140,32 @@ def _serving_fn(model, cfg, dev, extra):
     return served.call
 
 
-def _step_fn(mode, cfg, dev, extra):
+def _written_artifact(path, cfg, dev, extra):
+    """The artifact file ``path``, once its meta shows the benchmark's
+    model and shapes, loaded in process: ``(fn(frames) -> logits, its
+    classes)``; its size and load seconds go into ``extra``."""
+    import zipfile
+
+    from cstp_tpu_torch.models import base_model_name
+    from cstp_tpu_torch.serve.export import _META_NAME, ServingModel
+
+    with zipfile.ZipFile(path) as z:
+        meta = json.loads(z.read(_META_NAME))
+    want = dict(model_name=base_model_name(cfg.model_name),
+                model_depth=cfg.model_depth, quant=cfg.quant,
+                sample_size=S, sample_duration=T, input_hw=[H0, W0])
+    got = dict({k: meta[k] for k in want},
+               model_name=base_model_name(meta["model_name"]))
+    if got != want:
+        raise ValueError(f"{path}: artifact {got}, the benchmark {want}")
+    t0 = time.perf_counter()
+    served = ServingModel.load(path, device=dev)
+    extra.update(artifact_mb=os.path.getsize(path) / 1e6, export_s=None,
+                 load_s=time.perf_counter() - t0)
+    return served.call, meta["num_classes"]
+
+
+def _step_fn(mode, cfg, dev, extra, artifact=None):
     """``run(i) -> loss tensor`` for step ``i``, state kept inside."""
     gen = torch.Generator(device=dev).manual_seed(1)
     if mode == "pretrain":
@@ -148,6 +177,9 @@ def _step_fn(mode, cfg, dev, extra):
         model, state, tx = create_pretrain_state(cfg, seed=0, device=dev)
         step = make_pretrain_step(model, tx, cfg)
         n_classes = 0
+    elif artifact:
+        serve, n_classes = _written_artifact(artifact, cfg, dev, extra)
+        state = None
     else:
         from cstp_tpu_torch.train import finetune as ft
 
@@ -206,9 +238,14 @@ def main(argv=None) -> dict:
                     help="eval and serve: int8_static, static int8 convs "
                     "(K6), every act_scale filled with 0.05; pretrain: "
                     "int8_store / int8_store_fz, the s8 storage chain")
+    ap.add_argument("--artifact", default=None,
+                    help="serve: time this serve/export.py artifact instead "
+                    "of exporting the model")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.artifact and args.mode != "serve":
+        ap.error("--artifact takes --mode serve")
     if args.quant == "int8_static" and args.mode not in ("eval", "serve"):
         ap.error("--quant int8_static takes --mode eval or serve")
     if args.quant.startswith("int8_store") and args.mode != "pretrain":
@@ -218,7 +255,7 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     extra = {}
-    run = _step_fn(args.mode, cfg, dev, extra)
+    run = _step_fn(args.mode, cfg, dev, extra, args.artifact)
     for i in range(args.warmup):
         run(i)
     _sync(dev)

@@ -32,10 +32,11 @@ metrics too; ``--sync_bn 1`` BatchNorms take global-batch statistics, and
 under ``--sync_bn 0`` the BN running statistics are averaged after the
 step. EMA, clip and update then see the same tensors on every rank of a
 model column. With a 'model' axis above 1 the 4096-wide MLPs are
-tensor-parallel; ``--shard_spatial`` splits the R(2+1)D towers' H over
-'model' (their parameter gradients, partial on each shard, are summed over
-'model' first); ``--shard_opt_state`` keeps each 'data' rank's slice of
-the optimizer state (``train/optim.py MeshUpdate``).
+tensor-parallel; ``--shard_spatial`` splits the R(2+1)D, C3D and
+3D-ResNet towers' H over 'model' (their parameter gradients, partial on
+each shard, are summed over 'model' first); ``--shard_opt_state`` keeps
+each 'data' rank's slice of the optimizer state (``train/optim.py
+MeshUpdate``).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from cstp_tpu_torch.augment.pipeline import (
 )
 from cstp_tpu_torch.config import Config
 from cstp_tpu_torch.models.layers import store_calibration
-from cstp_tpu_torch.models.r21d import (
+from cstp_tpu_torch.models.sharded import (
     shard_spatially,
     spatially_partial_names,
 )
@@ -85,9 +86,10 @@ def data_shard_count(config: Config) -> int:
 
 def place_on_mesh(model, config: Config):
     """Install ``--mesh_shape`` (``parallel.use_mesh``), then lay ``model``
-    out on it: global-batch BatchNorms under ``--sync_bn 1``, the R(2+1)D
-    towers split over H under ``--shard_spatial``, the 4096-wide MLPs
-    tensor-parallel under a 'model' axis above 1. Returns ``model``."""
+    out on it: global-batch BatchNorms under ``--sync_bn 1``, the towers
+    split over H under ``--shard_spatial`` (``models/sharded.py``), the
+    4096-wide MLPs tensor-parallel under a 'model' axis above 1. Returns
+    ``model``."""
     mesh.use_mesh(config.mesh_shape, config.mesh_axes)
     mesh.set_cross_rank_bn(model, bool(config.sync_bn))
     if config.shard_spatial:

@@ -721,6 +721,65 @@ def test_k6_matches_its_plain_version_bitwise(dev, case):
         assert torch.equal(got, want), out_dtype
 
 
+# K6 on the halo-extended H shards of --shard_spatial in C3D and the
+# 3D-ResNets: (Cin, Cout, kernel, stride, padding, bias, frame rows); the
+# stem's 30 rows give rank 1 the odd first row 15
+K6_SHARD_SITES = {"c3d-3x3x3-bias": (64, 128, 3, 1, 1, True, 16),
+                  "r3d-stem-7x7x7-s122": (3, 64, 7, (1, 2, 2), 3, False, 30)}
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("site", sorted(K6_SHARD_SITES))
+def test_k6_on_a_halo_extended_shard_is_bitwise(dev, site, rank):
+    """A ``--quant int8`` conv site of C3D (3x3x3 with its bias added
+    after the int8 conv) and r3d's Cin-3 7x7x7 stride-(1, 2, 2) stem on
+    rank ``rank``'s halo-extended rows of a frame split over two 'model'
+    ranks (zeros outside the frame; the scale the whole frame's, as the
+    maximum over the ranks gives it): one K6 launch, bitwise its plain
+    version on the same s8 input, and bitwise the rows of the conv on the
+    whole frame."""
+    from cstp_tpu_torch.models.layers import Conv3d
+    from cstp_tpu_torch.ops import quant as Q
+    from cstp_tpu_torch.parallel.mesh import SpatialShard, halo_plan
+
+    cin, cout, k, stride, p, bias, h = K6_SHARD_SITES[site]
+    conv = Conv3d(cin, cout, k, stride, p, torch.bfloat16,
+                  gen=torch.Generator().manual_seed(0), use_bias=bias,
+                  quant="int8").to(dev)
+    if bias:
+        with torch.no_grad():
+            conv.bias.uniform_(-1, 1)
+    rng = np.random.default_rng(rank)
+    x = _t(rng.normal(size=(2, 8, h, 20, cin)), dev, torch.bfloat16)
+    with torch.no_grad():
+        whole = conv(x)
+        shard = SpatialShard(h, rank, 2)
+        lo, hi, _ = halo_plan(shard, 1, conv.h_window[0], conv.h_window[1],
+                              p)
+        ext = torch.zeros((2, 8, hi - lo, 20, cin), dtype=x.dtype,
+                          device=dev)
+        a, b = max(lo, 0), min(hi, h)
+        ext[:, :, a - lo:b - lo] = x[:, :, a:b]
+        calls, real = [], Q.int8_conv3d_cuda
+
+        def recording(*args):
+            calls.append(args)
+            return real(*args)
+
+        Q.int8_conv3d_cuda = recording
+        try:
+            got = conv(ext, h_halo=True, held=x)
+        finally:
+            Q.int8_conv3d_cuda = real
+        torch.cuda.synchronize()
+    assert len(calls) == 1
+    (xq, *rest), = calls
+    assert xq.shape[2] == hi - lo and (rank == 0) == (lo < 0)
+    assert torch.equal(real(xq, *rest), Q.int8_conv3d_plain(xq, *rest))
+    o0, o1 = shard.rows(conv.h_window[1])
+    assert torch.equal(got, whole[:, :, o0:o1])
+
+
 def test_k6_refuses_what_it_does_not_take(dev):
     from cstp_tpu_torch.ops import quant as Q
 

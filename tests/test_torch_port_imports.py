@@ -166,7 +166,7 @@ def test_config_refuses_unported_flags(flag):
     Config(**flag).finalize()
     Config(mid_round=128, shard_spatial=1, mesh_shape=(1, 2)).finalize()
     if flag.get("model_name") == "s3d":
-        with pytest.raises(NotImplementedError, match="17c-ii parts c, d"):
+        with pytest.raises(NotImplementedError, match="17c-ii parts d and e"):
             Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
         return
     cfg = Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
@@ -188,17 +188,53 @@ def test_config_takes_the_model_axis_flags(flag):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(model_name="c3d"), dict(model_name="s3d_byol"),
-    dict(model_name="slowfast"), dict(model_name="r3d"),
+    dict(model_name="i3d"), dict(model_name="s3d_byol"),
+    dict(model_name="slowfast"), dict(model_name="slowfast_fb"),
 ])
 def test_config_refuses_shard_spatial_outside_r21d_float(flag):
-    """``--shard_spatial`` on another family than R(2+1)D waits for
-    ROADMAP item 17c-ii parts c-e (R(2+1)D takes every ``--quant`` mode on
-    its H shards: the test below)."""
+    """``--shard_spatial`` on S3D-G, I3D, SlowFast and SlowFast-FB waits
+    for ROADMAP item 17c-ii parts d and e (R(2+1)D takes every ``--quant``
+    mode on its H shards, C3D and the 3D-ResNets every flag they take at
+    world 1: the tests below); the model code refuses such a module too."""
+    from cstp_tpu_torch.config import Config
+    from cstp_tpu_torch.models import make_backbone
+    from cstp_tpu_torch.models.sharded import shard_spatially
+
+    with pytest.raises(NotImplementedError, match="17c-ii parts d and e"):
+        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+    with torch.device("meta"):
+        backbone = make_backbone(flag["model_name"], 18, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="17c-ii parts d and e"):
+        shard_spatially(backbone)
+
+
+@pytest.mark.parametrize("flag", [
+    dict(model_name="c3d"), dict(model_name="c3d_byol"),
+    dict(model_name="c3d", quant="int8"),
+    dict(model_name="c3d", quant="int8_static", task="test"),
+    dict(model_name="r3d", model_depth=10, resnet_shortcut="A"),
+    dict(model_name="r3d_byol", model_depth=18),
+    dict(model_name="r3d", model_depth=50, quant="int8_fixed"),
+    dict(model_name="r3d", model_depth=18, quant="int8_calib",
+         task="test"),
+    dict(model_name="c3d", sync_bn=0, grad_accum=2, concat_views=0,
+         shard_opt_state=1, ntxent_weight=0.5),
+])
+def test_config_takes_shard_spatial_on_c3d_and_r3d(flag):
+    """C3D and the 3D-ResNets (every depth, shortcuts "A" and "B") on H
+    shards (ROADMAP item 17c-ii part c) with the flags they take at world
+    1, on a (1, 2) and a (2, 2) mesh; ``--quant int8_store`` stays an
+    R(2+1)D flag, as in the JAX package."""
     from cstp_tpu_torch.config import Config
 
-    with pytest.raises(NotImplementedError, match="17c-ii parts c, d"):
-        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+    for shape in ((1, 2), (2, 2)):
+        cfg = Config(shard_spatial=1, mesh_shape=shape, batch_size=4,
+                     **flag).finalize()
+        for k, v in flag.items():
+            assert getattr(cfg, k) == v
+    with pytest.raises(ValueError, match="r21d"):
+        Config(model_name=flag["model_name"], quant="int8_store",
+               shard_spatial=1, mesh_shape=(1, 2)).finalize()
 
 
 @pytest.mark.parametrize("flag", [

@@ -302,6 +302,32 @@ def _loaded(sd, cfg):
     return m
 
 
+def test_bench_step_serves_a_written_artifact(capsys, monkeypatch, tmp_path,
+                                              artifact):
+    """``bench_step --mode serve --artifact PATH`` times an artifact that
+    ``serve/export.py`` wrote, with its own class count (no model built,
+    no export: ``export_s`` None), and refuses one of another model, depth,
+    ``--quant`` or shape than the benchmark's flags."""
+    for name, value in (("T", T), ("S", S), ("H0", HW[0]), ("W0", HW[1])):
+        monkeypatch.setattr(bench_step, name, value)
+    path = tmp_path / "tiny.cstps"
+    path.write_bytes(artifact)
+    argv = ["--device", "cpu", "--per-chip-bs", "2", "--steps", "1",
+            "--warmup", "1", "--mode", "serve", "--artifact", str(path)]
+    res = bench_step.main(argv)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
+    assert res["export_s"] is None and res["load_s"] > 0
+    assert res["artifact_mb"] == path.stat().st_size / 1e6
+    assert res["clips_per_s"] > 0 and np.isfinite(res["loss"])
+    for other in (["--quant", "int8_static"], ["--model", "c3d"],
+                  ["--depth", "18"]):
+        with pytest.raises(ValueError, match="the benchmark"):
+            bench_step.main(argv + other)
+    with pytest.raises(SystemExit):
+        bench_step.main(["--device", "cpu", "--mode", "eval", "--artifact",
+                         str(path)])
+
+
 @pytest.mark.parametrize("mode", ["serve", "eval"])
 def test_bench_step_int8_static_modes(capsys, monkeypatch, mode):
     """``bench_step --quant int8_static`` in eval and serve mode on the CPU:
