@@ -213,7 +213,13 @@ Phases:
      MLPs against world 1; (d) ``torchrun --nproc_per_node 2`` (gloo on
      the one card) ``main_byol`` for one epoch of 3 steps on (1, 2)
      ``--shard_spatial`` on CSTPack files it writes, then its checkpoint
-     resumed at world size 1.
+     resumed at world size 1; (e)-(h) (1, 2) ``--shard_spatial`` with
+     each R(2+1)D flag, (i)-(l) C3D and r3d-18 and (n)-(q) S3D-G and I3D
+     on (1, 2), float and ``--quant int8`` (K6 on the halo-extended
+     shards, every launch's input held bitwise), each against the world-1
+     step of its own flags; (m) K6 at world 1 at C3D's and r3d-18's conv
+     shapes; (r)/(s) S3D-G and I3D on (1, 2) in float32 with the plain
+     augment against the world-1 float32 step (MA_F32_LIMITS).
   22. rewrites (the rewrite flags and the evaluation loops over ranks;
      R(2+1)D depth 1, 16 x 112^2, bf16, per-view 16): (a) K2/K3 against
      their plain versions at the ``--mid_round 128`` site shapes (mids
@@ -229,7 +235,10 @@ Phases:
      --nproc_per_node 2`` (gloo on the one card) on CSTPack files it
      writes (5 test videos, 16 train videos): the reports byte for byte,
      no file written by rank 1, K6 launched on each rank for its own
-     videos; (d) the s3d_byol ``--s2d_stem`` pretrain step with K5 against
+     videos; ``main_test --quant int8_static`` of R(2+1)D, r3d-18 and I3D
+     on (1, 2) ``--shard_spatial`` too (world 1's report), and an I3D
+     ``--i3d_conv_head`` finetune step at 16 x 224^2 on (1, 2) against the
+     world-1 step by phase 4's rule; (d) the s3d_byol ``--s2d_stem`` pretrain step with K5 against
      its plain step by phase 4's rule.
 Then one JSON line describing the kernels (``launches`` null with
 ``--kernels-only``, which runs phase 19 (a) and 20 (a) too; the slice
@@ -4053,7 +4062,13 @@ MA_TORCHRUN_STEPS = 3   # steps of phase 21's torchrun epoch
 # fused_conv flag is R(2+1)D's, and --quant excludes it)
 FAMILIES = {"c3d": dict(model_name="c3d_byol", fused_conv=0),
             "r3d": dict(model_name="r3d_byol", model_depth=18,
-                        resnet_shortcut="B", fused_conv=0)}
+                        resnet_shortcut="B", fused_conv=0),
+            # (n)-(q): S3D-G and I3D
+            "s3d": dict(model_name="s3d_byol", fused_conv=0),
+            "i3d": dict(model_name="i3d_byol", fused_conv=0)}
+# (m)'s families: K6 at world 1 at every conv shape (S3D-G's and I3D's
+# launches are held on their shard inputs in (p) and (q))
+MA_K6_FAMILIES = ("c3d", "r3d")
 # phase 21's rank runs: name -> the mesh flags over its kernel config
 MA_RUNS = {
     "spatial": dict(mesh_shape=(1, 2), shard_spatial=1),
@@ -4079,17 +4094,47 @@ MA_RUNS = {
                      quant="int8"),
     "r3d_int8": dict(FAMILIES["r3d"], mesh_shape=(1, 2), shard_spatial=1,
                      quant="int8"),
+    # (n)-(q): S3D-G and I3D on the H shards (TF-SAME sites, S3D-G's gates
+    # over 'model'), float and --quant int8
+    "s3d": dict(FAMILIES["s3d"], mesh_shape=(1, 2), shard_spatial=1),
+    "i3d": dict(FAMILIES["i3d"], mesh_shape=(1, 2), shard_spatial=1),
+    "s3d_int8": dict(FAMILIES["s3d"], mesh_shape=(1, 2), shard_spatial=1,
+                     quant="int8"),
+    "i3d_int8": dict(FAMILIES["i3d"], mesh_shape=(1, 2), shard_spatial=1,
+                     quant="int8"),
+    # (r), (s): the same towers on the H shards in float32 (MA_F32_RUNS)
+    "s3d_f32": dict(FAMILIES["s3d"], mesh_shape=(1, 2), shard_spatial=1),
+    "i3d_f32": dict(FAMILIES["i3d"], mesh_shape=(1, 2), shard_spatial=1),
 }
 MA_PART = {"spatial": "a", "zero": "b", "no_zero": "b", "tp": "c",
            "s2d": "e", "t_fold": "f", "int8": "g", "int8_store": "h",
-           "c3d": "i", "r3d": "j", "c3d_int8": "k", "r3d_int8": "l"}
-MA_FAMILY_RUNS = ("c3d", "r3d", "c3d_int8", "r3d_int8")
+           "c3d": "i", "r3d": "j", "c3d_int8": "k", "r3d_int8": "l",
+           "s3d": "n", "i3d": "o", "s3d_int8": "p", "i3d_int8": "q",
+           "s3d_f32": "r", "i3d_f32": "s"}
+# the runs in phase 4's float32 plain configuration (no kernel: the plain
+# augment), each held against the world-1 float32 step of the run named
+# here. Phase 4's rule cannot hold a sharded S3D-G or I3D step closely:
+# their bf16 updates' cosines to the float32 update at world 1 are 0.11
+# and 0.56, so a backward partly wrong on the shards could pass it. In
+# float32 the shards reorder sums only, and the update must stay close
+MA_F32_RUNS = {"s3d_f32": "s3d", "i3d_f32": "i3d"}
+# ... within test_torch_port_model_axis's tolerances: the loss terms within
+# 1e-5 relative, each trained leaf's update within 5e-2 of the world-1
+# leaf's in norm, plus 1e-4 of the whole update's norm (``_ma_hold_f32``
+# reads the leaf's departure over ``|u_1| + 2e-3 |U_1|``: at most 5e-2).
+# The whole update's relative error is only logged: it is its largest
+# leaves'. On the CPU a sharded S3D-G step whose gates' mean has an
+# identity backward leaves the whole update within 4.5e-2 (the correct
+# step 1.7e-2), its worst leaf at 5.8e-2 (3.4e-2)
+MA_F32_LIMITS = (1e-5, 5e-2)
+MA_FAMILY_RUNS = ("c3d", "r3d", "c3d_int8", "r3d_int8", "s3d", "i3d",
+                  "s3d_int8", "i3d_int8")
 # the runs held against a world-1 step of their own flags (phase 4's rule)
 MA_FLAG_RUNS = ("s2d", "t_fold", "int8", "int8_store") + MA_FAMILY_RUNS
 # the runs whose kernels are held against their plain versions on every
 # shard input they took (``_ma_recorders``)
 MA_RECORDED = ("spatial", "s2d", "int8", "int8_store", "c3d_int8",
-               "r3d_int8")
+               "r3d_int8", "s3d_int8", "i3d_int8")
 # phase 4's accuracy rule for the int8 runs: four of 16 predictions. Every
 # conv of both towers quantizes, so a BatchNorm sum reassociated over the
 # shards flips round-half decisions at the next site's quantize, and the
@@ -4100,24 +4145,33 @@ MA_RECORDED = ("spatial", "s2d", "int8", "int8_store", "c3d_int8",
 MA_INT8_ACC = 0.25
 # ... held together with the int8 runs' update cosine to the world-1 step
 # of the same flags, 0.8 of what it measured on one H100 80GB HBM3 at
-# 700 W in the first call that ran it (0.84953 for (g), 0.64745 for (h);
-# 0.99505 for (k) and 0.93577 for (l), rounded down); the float runs
-# measure 0.948-0.997 there, and the R(2+1)D int8 updates' cosines to the
-# float32 update (what an update sharing nothing of the world-1 int8
-# step's would come near) 0.23-0.30, C3D's and r3d-18's 0.95 and 0.68
+# 700 W in the first call that reported it (0.84953 for (g), 0.64745 for
+# (h); 0.99505 for (k) and 0.93577 for (l); 0.32361 for (p) and 0.43221
+# for (q), rounded down); the float runs measure 0.948-0.997 there
+# (S3D-G's 0.463 and I3D's 0.853: their bf16 updates' cosines to the
+# float32 update at world 1 are 0.11 and 0.56), and the int8 updates'
+# cosines to the float32 update (what an update sharing nothing of the
+# world-1 int8 step's would come near) 0.23-0.30 for R(2+1)D, C3D's and
+# r3d-18's 0.95 and 0.68, S3D-G's and I3D's -0.02 and 0.04
 MA_INT8_COS = {"int8": 0.68, "int8_store": 0.52, "c3d_int8": 0.79,
-               "r3d_int8": 0.74}
+               "r3d_int8": 0.74, "s3d_int8": 0.25, "i3d_int8": 0.34}
 _TAPS9 = dict(_per_step(0, 0, 1), conv21d_taps9_stats=10,
               conv21d_taps9_fwd=10)
 # launches per rank and step (world 1: the same flags without the mesh)
 # K6 per --quant int8 step: C3D's 8 convs and r3d-18's stem, 16 block
-# convs and 3 shortcut convs, in both towers
-FAMILY_K6 = {"c3d": 16, "r3d": 40}
+# convs and 3 shortcut convs, S3D-G's 77 (the stem's 2, Conv_2b's and
+# Conv_2c's 3, 8 in each of 9 blocks) and I3D's 57 (3, then 6 in each
+# block), in both towers
+FAMILY_K6 = {"c3d": 16, "r3d": 40, "s3d": 154, "i3d": 114}
 MA_WANT = {"spatial": _TAPS9, "s2d": _TAPS9, "t_fold": _per_step(0, 0, 1),
            "int8": _per_step(0, 0, 1, 48), "int8_store": STORE_PER_STEP,
            "c3d": _per_step(0, 0, 1), "r3d": _per_step(0, 0, 1),
            "c3d_int8": _per_step(0, 0, 1, FAMILY_K6["c3d"]),
-           "r3d_int8": _per_step(0, 0, 1, FAMILY_K6["r3d"])}
+           "r3d_int8": _per_step(0, 0, 1, FAMILY_K6["r3d"]),
+           "s3d": _per_step(0, 0, 1), "i3d": _per_step(0, 0, 1),
+           "s3d_int8": _per_step(0, 0, 1, FAMILY_K6["s3d"]),
+           "i3d_int8": _per_step(0, 0, 1, FAMILY_K6["i3d"]),
+           "s3d_f32": _per_step(0, 0, 0), "i3d_f32": _per_step(0, 0, 0)}
 MA_WANT_WORLD1 = dict(MA_WANT, s2d=_per_step(10, 10, 1))
 del MA_WANT_WORLD1["spatial"]
 
@@ -4247,8 +4301,9 @@ def _ma_step_run(dev, cfg, batch, record: bool = False,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / timed_steps * 1e3
     return dict(metrics={k: float(v) for k, v in m.items()}, update=update,
-                trace=trace, counts=counts, peak_gib=peak_gib,
-                opt_bytes=opt_bytes, ms=ms, shards=shards)
+                leaves=[(n, p0[n].numel()) for n in names], trace=trace,
+                counts=counts, peak_gib=peak_gib, opt_bytes=opt_bytes,
+                ms=ms, shards=shards)
 
 
 def _ma_hold_shards(shards):
@@ -4347,9 +4402,11 @@ def ma_rank(rank: int, world: int, port: int, out: str,
             # the flag runs' steps timed once (the gloo steps swing by 40%
             # between calls, MA_FLAG_RUNS' world-1 steps likewise)
             t_run = time.perf_counter()
-            run = _ma_step_run(dev, _ma_config(**over), _ma_batch(dev, name),
-                               record=name in MA_RECORDED,
-                               timed_steps=1 if name in MA_FLAG_RUNS else 2)
+            run = _ma_step_run(
+                dev, _ma_config(fused=name not in MA_F32_RUNS, **over),
+                _ma_batch(dev, name), record=name in MA_RECORDED,
+                timed_steps=(1 if name in MA_FLAG_RUNS or name in MA_F32_RUNS
+                             else 2))
             shards = run.pop("shards")
             if shards:
                 run["shards"], run["shards_ok"] = _ma_hold_shards(shards)
@@ -4523,6 +4580,42 @@ def _ma_log_int8_shards(r, name, recs):
     return sums
 
 
+def _ma_hold_f32(name, run, got, ref, card):
+    """Run ``name`` of MA_F32_RUNS (rank 0's record ``run``, both ranks'
+    ``got``) against the world-1 float32 step ``ref`` (the same trained
+    leaves in the same order) within MA_F32_LIMITS; one line. Returns
+    whether it held and its readings ``[loss err, acc err, cosine, 1.0, ms
+    on rank 0, world 1's ms, the worst leaf's departure]``."""
+    mk, mp = run["metrics"], ref["metrics"]
+    loss_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-6)
+                   for k in mk if k.startswith("loss"))
+    acc_err = max(abs(mk[k] - mp[k]) for k in mk if k.startswith("acc"))
+    u, u1 = run["update"], ref["update"]
+    sizes = [n for _, n in run["leaves"]]
+    floor = 2e-3 * float(u1.norm())
+    leaf = [float((a - b).norm()) / (float(b.norm()) + floor)
+            for a, b in zip(u.split(sizes), u1.split(sizes))]
+    worst = max(range(len(leaf)), key=leaf.__getitem__)
+    upd_err = float((u - u1).norm() / u1.norm())
+    cos = _cos(run, ref)
+    limits = MA_F32_LIMITS
+    agree = (sum(sizes) == u1.numel() and loss_err <= limits[0]
+             and leaf[worst] <= limits[1])
+    log(f"[model] ({MA_PART[name]}) {name} float32 {MA_RUNS[name]}: "
+        f"against the world-1 float32 step, max rel loss-term err "
+        f"{loss_err:.3e} (tol {limits[0]}), max acc diff {acc_err:.4f}, "
+        f"worst leaf's update departure {leaf[worst]:.3e} "
+        f"({run['leaves'][worst][0]}; tol {limits[1]}), whole update rel "
+        f"err {upd_err:.3e}, cosine {cos:.6f}; launches per rank "
+        f"{[g['counts'] for g in got]}; step "
+        f"ms per rank {[round(g['ms'], 1) for g in got]} (world 1 "
+        f"{ref['ms']:.1f}); peak GiB per rank "
+        f"{[round(g['peak_gib'], 2) for g in got]} ({card})")
+    return agree, [float(f"{loss_err:.3e}"), acc_err, round(cos, 6), 1.0,
+                   round(got[0]["ms"], 1), round(ref["ms"], 1),
+                   float(f"{leaf[worst]:.3e}")]
+
+
 def phase_model_axis(dev, card: str):
     """Phase 21: the 'model' mesh axis with two gloo ranks on the one card,
     R(2+1)D depth 1, 16 x 112^2, bf16, per-view MA_B_VIEW, K5 on: (a) (1,
@@ -4537,13 +4630,16 @@ def phase_model_axis(dev, card: str):
     own flags by phase 4's rule (the int8 runs also by MA_INT8_COS) and
     each kernel against its plain version on the shards it took; (i)-(l)
     C3D and r3d-18 "B" on (1, 2) --shard_spatial, float and --quant int8
-    (K6 on the halo-extended shards, 16 and 40 a step), likewise; (m) K6
-    at world 1 at every C3D and r3d-18 conv shape; (d) a torchrun epoch
-    on (1, 2) --shard_spatial resumed at world 1. Returns the ranks'
-    main-path launches and the readings: per run ``[loss err, acc err,
-    cosine, world 1's cosine, ms on rank 0, world 1's ms, cosine to world
-    1]``, the per-step kernel sums of the int8 runs on rank 0's shards
-    ``(ms, bound ms, launches)`` and (m)'s per-step sums."""
+    (K6 on the halo-extended shards, 16 and 40 a step), likewise, and
+    (n)-(q) S3D-G and I3D (154 and 114 K6 a step); (r)/(s) S3D-G and
+    I3D on (1, 2) in float32 against the world-1 float32 step
+    (``_ma_hold_f32``); (m) K6 at world 1 at every C3D and r3d-18 conv
+    shape; (d) a torchrun epoch on (1, 2) --shard_spatial resumed at world
+    1. Returns the ranks' main-path launches and the readings: per run
+    ``[loss err, acc err, cosine, world 1's cosine, ms on rank 0, world
+    1's ms, cosine to world 1]`` (``_ma_hold_f32``'s for (r)/(s)), the
+    per-step kernel sums of the int8 runs on rank 0's shards ``(ms, bound
+    ms, launches)`` and (m)'s per-step sums."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4561,6 +4657,11 @@ def phase_model_axis(dev, card: str):
             for k, v in g["counts"].items():
                 counts[k] += v
         run = dict(got[0], update=updates[name])
+        if name in MA_F32_RUNS:
+            agree, cases[name] = _ma_hold_f32(
+                name, run, got, refs[MA_F32_RUNS[name]][1], card)
+            ok &= agree and len({g["update_norm"] for g in got}) == 1
+            continue
         ref, arbiter = refs.get(name, (world1, f32))
         acc_tol = MA_INT8_ACC if "quant" in MA_RUNS[name] else 0.125
         loss_err, acc_err, cos_run, cos_ref, agree = _agree(run, ref,
@@ -4606,7 +4707,8 @@ def phase_model_axis(dev, card: str):
                 int8_sums.update({f"{name} {k}": v for k, v in sums.items()})
         ok &= rank["zero_bitwise"]
     if set(int8_sums) != {"int8 k6", "int8_store k6", "int8_store store",
-                          "int8_store k7", "c3d_int8 k6", "r3d_int8 k6"}:
+                          "int8_store k7", "c3d_int8 k6", "r3d_int8 k6",
+                          "s3d_int8 k6", "i3d_int8 k6"}:
         ok = False
     log(f"[model] (b) --shard_opt_state on (2, 1): update, metrics and "
         f"gathered momentum bitwise those without it: "
@@ -4615,16 +4717,17 @@ def phase_model_axis(dev, card: str):
         raise SystemExit("[model] a 'model' axis run disagrees, launched "
                          "other kernels, or a kernel disagrees with its "
                          "plain version on a shard")
-    # the seconds of this phase's family runs, (i)-(m): their world-1
+    # the seconds of this phase's family runs, (i)-(q): their world-1
     # references, their runs on rank 0 (whose rank 1 runs beside it) and (m)
     new = {n: round(refs[n][0]["seconds"] + ranks[0][n]["seconds"], 1)
            for n in MA_FAMILY_RUNS}
+    new.update({n: round(ranks[0][n]["seconds"], 1) for n in MA_F32_RUNS})
     del world1, f32, updates, refs
     torch.cuda.empty_cache()
     t_m = time.perf_counter()
     families_k6 = _ma_family_k6(dev)
     new["m"] = round(time.perf_counter() - t_m, 1)
-    log(f"[model] (i)-(m) seconds, each run's world-1 references and its "
+    log(f"[model] (i)-(s) seconds, each run's world-1 references and its "
         f"ranks' run: {new}, {sum(new.values()):.1f} s in all")
     with tempfile.TemporaryDirectory(prefix="cstp_ma_cli_") as root:
         _ma_torchrun(root)
@@ -4644,7 +4747,8 @@ def _ma_family_k6(dev):
 
     gen = torch.Generator(device=dev).manual_seed(21)
     out, ok = {}, True
-    for fam, kw in FAMILIES.items():
+    for fam in MA_K6_FAMILIES:
+        kw = FAMILIES[fam]
         cfg = _ft_config(task="test", quant="int8_static", **kw)
         model = create_classify_model(cfg, N_FT_CLASSES, device=dev)
         sites = _int8_sites(dev, model)
@@ -4709,14 +4813,24 @@ EVAL_TEST_VIDEOS = 5    # an uneven split over two data rows
 # convs, r3d-18's 20
 EVAL_K6 = 24
 EVAL_K6_R3D = FAMILY_K6["r3d"] // 2
+EVAL_K6_I3D = FAMILY_K6["i3d"] // 2
 # phase 22 (c)'s world-2 runs on (1, 2) H shards, R(2+1)D's and r3d-18's:
 # both ranks run every video (K6 on the halo-extended shards); each held
 # to the world-1 int8_static report of its model, whose config record
 # (the report's head) differs in the mesh flags alone
 EVAL_SPATIAL = {"test int8_static (1, 2)": "test int8_static",
-                "test int8_static r3d-18 (1, 2)": "test int8_static r3d-18"}
+                "test int8_static r3d-18 (1, 2)": "test int8_static r3d-18",
+                "test int8_static i3d (1, 2)": "test int8_static i3d"}
 MESH_FLAGS = {"mesh_shape", "shard_spatial"}
 EVAL_R3D = dict(model_name="r3d", model_depth=18, resnet_shortcut="B")
+EVAL_I3D = dict(model_name="i3d")
+# phase 22 (c)'s I3D --i3d_conv_head finetune step (16 x 224^2 from
+# 256x340 frames, batch FT_HEAD_BATCH), at world 1 (bf16, and float32 as
+# phase 4's arbiter) and on (1, 2) H shards in the torchrun ranks
+FT_HEAD = dict(model_name="i3d_byol", i3d_conv_head=1, sample_size=S_LARGE)
+FT_HEAD_BATCH = 8
+FT_HEAD_RUN = "finetune i3d --i3d_conv_head (1, 2)"
+FT_HEAD_MESH = dict(mesh_shape=(1, 2), shard_spatial=1)
 
 
 def _same_report(got: str, want: str, mesh_flags: bool) -> bool:
@@ -4862,8 +4976,45 @@ def _s3d_s2d_step(dev, card: str, counts):
         counts[key] += v
 
 
+def _conv_head_step(dev, dtype: str = "bfloat16", **mesh_flags):
+    """One I3D ``--i3d_conv_head`` ft_all step (FT_HEAD, batch
+    FT_HEAD_BATCH of phase 15's 256x340 frames, seed-0 weights, a
+    generator seeded 12) on this rank's rows: its metrics, the whole
+    update of the trainable parameters (float64, flat) and the launches
+    (none: K5 is the pretrain augment's)."""
+    from cstp_tpu_torch.parallel import mesh
+    from cstp_tpu_torch.train import finetune as ft
+    from cstp_tpu_torch.train import optim
+
+    cfg = _ft_config(fused=0, dtype=dtype, batch_size=FT_HEAD_BATCH,
+                     **FT_HEAD, **mesh_flags)
+    model, state, tx = ft.create_finetune_state(cfg, N_FT_CLASSES, seed=0,
+                                                device=dev)
+    names = list(optim.trainable(model))
+    p0 = {n: t.clone() for n, t in mesh.full_state_dict(model).items()
+          if n in names}
+    step = ft.make_finetune_step(model, tx, cfg)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = {k: v[:FT_HEAD_BATCH]
+             for k, v in _ft_batch(dev, 13, NATIVE_HW).items()}
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, gen, mesh.shard_batch(batch), cfg.learning_rate)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    after = mesh.full_state_dict(model)
+    update = torch.cat([(after[n] - p0[n]).flatten().double()
+                        for n in names])
+    del model, state, tx, step, batch
+    torch.cuda.empty_cache()
+    return dict(metrics={k: float(v) for k, v in m.items()}, update=update,
+                counts=counts, ms=seconds * 1e3)
+
+
 def _eval_runs(root: str, train: str, float_ckpt: str, calib: str,
-               calib_r3d: str):
+               calib_r3d: str, calib_i3d: str):
     """Phase 22 (c)'s flags common to its CLIs, and its CLI runs: name ->
     (CLI module name, argv, K6 launches over the run at world size 1)."""
     import os
@@ -4887,10 +5038,11 @@ def _eval_runs(root: str, train: str, float_ckpt: str, calib: str,
             "main_retrieval", common + ["--task", "retrieval",
                                         "--test_md_path", ckpt] + q,
             k6 * videos)
-    r3d = ["--task", "test", "--test_md_path", calib_r3d, "--quant",
-           "int8_static"] + _argv(EVAL_R3D)
-    runs["test int8_static r3d-18"] = ("main_test", common + r3d,
-                                       EVAL_K6_R3D * EVAL_TEST_VIDEOS)
+    for name, ckpt, kw, k6 in (("r3d-18", calib_r3d, EVAL_R3D, EVAL_K6_R3D),
+                               ("i3d", calib_i3d, EVAL_I3D, EVAL_K6_I3D)):
+        runs[f"test int8_static {name}"] = ("main_test", common + [
+            "--task", "test", "--test_md_path", ckpt, "--quant",
+            "int8_static"] + _argv(kw), k6 * EVAL_TEST_VIDEOS)
     mesh = ["--mesh_shape", "1", "2", "--shard_spatial", "1"]
     for spatial, name in EVAL_SPATIAL.items():
         cli, argv, k6 = runs[name]
@@ -4903,7 +5055,9 @@ def eval_torchrun(spec: str) -> None:
     it; NCCL takes one card a rank), then each run of the JSON file
     ``spec`` through its CLI's ``main``; writes per run its K6 launches
     and (rank 0) its report, and the files opened for writing by
-    ``train.loops`` on a rank other than 0."""
+    ``train.loops`` on a rank other than 0. Last, the I3D conv head's
+    finetune step on (1, 2) H shards (``_conv_head_step``): its metrics
+    and launches, and (rank 0) its update to ``<spec>.ft.pt``."""
     import builtins
     import importlib
 
@@ -4937,6 +5091,11 @@ def eval_torchrun(spec: str) -> None:
                 seconds=time.perf_counter() - t0,
                 report=(open(res["report"]).read() if mesh.is_main()
                         else None))
+        run = _conv_head_step(torch.device("cuda", 0), **FT_HEAD_MESH)
+        if mesh.is_main():
+            torch.save(run["update"].float().cpu(), f"{spec}.ft.pt")
+        run["update_norm"] = float(run.pop("update").norm())
+        out[FT_HEAD_RUN] = run
         out["writes"] = writes
         with open(f"{spec}.{mesh.rank()}.json", "w") as f:
             json.dump(out, f)
@@ -4957,8 +5116,11 @@ def _eval_ranks(dev, card: str, counts):
     ``--shard_spatial`` too (EVAL_SPATIAL), for R(2+1)D and for r3d-18
     (its own checkpoint and calibration): both ranks run every video, and
     each report is world 1's but for the mesh flags in its config line.
+    The same ``main_test`` of I3D (its own checkpoint and calibration) on
+    (1, 2) too, and the I3D conv head's finetune step on (1, 2) in the
+    torchrun ranks against its world-1 steps (phase 4's rule).
     Adds the world-2 ranks' K6 launches to ``counts``; returns the seconds
-    of the r3d-18 runs."""
+    of the r3d-18 and i3d runs and of the conv head's steps."""
     import os
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -4979,18 +5141,28 @@ def _eval_ranks(dev, card: str, counts):
         calib = os.path.join(root, "save_2_int8")
         float_r3d = os.path.join(root, "r3d_save_2_max")
         calib_r3d = os.path.join(root, "r3d_save_2_int8")
+        float_i3d = os.path.join(root, "i3d_save_2_max")
+        calib_i3d = os.path.join(root, "i3d_save_2_int8")
         _float_ft_checkpoint(dev, float_ckpt)
-        common, runs = _eval_runs(root, train, float_ckpt, calib, calib_r3d)
-        t_r3d = time.perf_counter()
-        _float_ft_checkpoint(dev, float_r3d, **EVAL_R3D)
-        for extra, out_path, ckpt in ((_argv(EVAL_R3D), calib_r3d, float_r3d),
-                                      ([], calib, float_ckpt)):
-            _cli_run(serve_quantize.main, common + extra + [
-                "--task", "test", "--out_path", out_path, "--test_md_path",
-                ckpt, "--calib_batches", "2", "--calib_batch_size", "8"],
+        common, runs = _eval_runs(root, train, float_ckpt, calib, calib_r3d,
+                                  calib_i3d)
+        t_new = {}
+        for tag, kw, fl, cal in (("r3d-18", EVAL_R3D, float_r3d, calib_r3d),
+                                 ("i3d", EVAL_I3D, float_i3d, calib_i3d),
+                                 ("r21d", {}, float_ckpt, calib)):
+            t0 = time.perf_counter()
+            if kw:
+                _float_ft_checkpoint(dev, fl, **kw)
+            _cli_run(serve_quantize.main, common + _argv(kw) + [
+                "--task", "test", "--out_path", cal, "--test_md_path",
+                fl, "--calib_batches", "2", "--calib_batch_size", "8"],
                 {}, 1)
-            if extra:
-                r3d_s = time.perf_counter() - t_r3d
+            t_new[tag] = time.perf_counter() - t0
+        # the conv head's world-1 steps: bf16, and float32 as arbiter
+        t0 = time.perf_counter()
+        head = {dtype: _conv_head_step(dev, dtype)
+                for dtype in ("bfloat16", "float32")}
+        t_new["conv head"] = time.perf_counter() - t0
         one = {}
         for name, (cli, argv, k6) in runs.items():
             if name in EVAL_SPATIAL:     # world 2 only
@@ -5021,7 +5193,25 @@ def _eval_ranks(dev, card: str, counts):
         for r in range(2):
             with open(f"{spec}.{r}.json") as f:
                 ranks.append(json.load(f))
+        head_update = torch.load(f"{spec}.ft.pt").double().to(dev)
     ok = not ranks[1]["writes"]
+    # the conv head on (1, 2) against world 1 (phase 4's rule)
+    got = [rank[FT_HEAD_RUN] for rank in ranks]
+    run = dict(got[0], update=head_update)
+    loss_err, acc_err, cos_run, cos_ref, agree = _agree(
+        run, head["bfloat16"], head["float32"])
+    same = len({g["update_norm"] for g in got}) == 1
+    ok &= agree and same and not any(any(g["counts"].values()) for g in got)
+    log(f"[rewrite] (c) {FT_HEAD_RUN}, batch {FT_HEAD_BATCH}, {T}x"
+        f"{S_LARGE}^2 bf16 (torchrun, gloo on the one card) against world "
+        f"1: max rel loss-term err {loss_err:.3e} (tol 2e-2), max acc diff "
+        f"{acc_err:.4f} (tol 0.125), update cosine to the float32 update "
+        f"{cos_run:.5f} (world 1 {cos_ref:.5f}; tol >= world 1 - 0.05); to "
+        f"world 1 {_cos(run, head['bfloat16']):.5f}; the ranks' update norms "
+        f"equal: {same}; launches per rank {[g['counts'] for g in got]}; "
+        f"step ms per rank {[round(g['ms'], 1) for g in got]} (world 1 "
+        f"{head['bfloat16']['ms']:.1f}; {card})")
+    del head, head_update, run
     for name, (cli, argv, k6) in runs.items():
         test = cli == "main_test"
         per_video = k6 // (EVAL_TEST_VIDEOS + (0 if test else
@@ -5049,34 +5239,41 @@ def _eval_ranks(dev, card: str, counts):
         f"{seconds:.1f} s "
         f"with the processes' start; files rank 1 opened for writing: "
         f"{ranks[1]['writes']}")
-    # r3d-18's runs: its checkpoint and calibration, its world-1 test and
-    # its two world-2 tests on rank 0
-    r3d = [n for n in runs if "r3d-18" in n]
-    r3d_s += sum(one[n]["seconds"] for n in r3d if n in one) + sum(
-        ranks[0][n]["seconds"] for n in r3d)
-    log(f"[rewrite] (c) r3d-18's runs {r3d}: {r3d_s:.1f} s")
+    # the r3d-18 and i3d runs: each checkpoint and calibration, its world-1
+    # test and its world-2 tests on rank 0; the conv head's steps
+    seconds = {}
+    for tag in ("r3d-18", "i3d"):
+        names = [n for n in runs if f" {tag}" in n]
+        seconds[f"test {tag}"] = round(t_new[tag] + sum(
+            one[n]["seconds"] for n in names if n in one) + sum(
+            ranks[0][n]["seconds"] for n in names), 1)
+    seconds["conv head"] = round(t_new["conv head"] + ranks[0][
+        FT_HEAD_RUN]["ms"] / 1e3, 1)
+    log(f"[rewrite] (c) seconds of the r3d-18 and i3d runs and the conv "
+        f"head's steps (world 1 and rank 0's): {seconds}")
     if not ok:
         raise SystemExit("[rewrite] a world-2 test or retrieval report "
-                         "differs from world 1's, rank 1 wrote a file, or "
-                         "a rank launched K6 for other videos")
-    return r3d_s
+                         "differs from world 1's, rank 1 wrote a file, a "
+                         "rank launched K6 for other videos, or the conv "
+                         "head's step on (1, 2) disagrees with world 1's")
+    return seconds
 
 
 def phase_rewrites(dev, card: str, slice_ms: float):
     """Phase 22: the rewrite flags and the evaluation loops over ranks. (a)
     K2/K3 at the --mid_round 128 site shapes; (b) one step each of
     REWRITE_RUNS against its plain step; (c) main_test and main_retrieval
-    at world 2 against world 1; (d) the s3d --s2d_stem pretrain step with
-    K5. Returns the main-path launches and the seconds of (c)'s r3d-18
-    runs."""
+    at world 2 against world 1 (with I3D's conv head step on (1, 2)); (d)
+    the s3d --s2d_stem pretrain step with K5. Returns the main-path
+    launches and the seconds of (c)'s r3d-18 and i3d runs."""
     t_phase = time.perf_counter()
     counts = {k: 0 for k in _per_step(0, 0, 0)}
     _mid_round_sites(dev)
     _rewrite_steps(dev, card, slice_ms, counts)
-    r3d_s = _eval_ranks(dev, card, counts)
+    seconds = _eval_ranks(dev, card, counts)
     _s3d_s2d_step(dev, card, counts)
     log(f"[rewrite] phase {time.perf_counter() - t_phase:.1f} s")
-    return counts, round(r3d_s, 1)
+    return counts, seconds
 
 
 def kernels_line(conv, aug_err, aug_t, counts, k6, store):
@@ -5292,8 +5489,9 @@ def main(argv=None) -> int:
             for k, (ms, b, n) in ma["shards"].items()}
         summary["families_k6"] = ma["families_k6"]
         summary["families_s"] = ma["new_s"]
-        rw_counts, summary["families_s"]["test r3d-18"] = timed(
-            22, phase_rewrites, dev, card, sl["step_ms"])
+        rw_counts, rw_seconds = timed(22, phase_rewrites, dev, card,
+                                      sl["step_ms"])
+        summary["families_s"].update(rw_seconds)
         for k, v in rw_counts.items():
             counts[k] += v
     line = kernels_line(conv, aug_err, aug_t, counts, k6, store)

@@ -232,9 +232,9 @@ class Config:
                 SHARDED_FAMILIES:
             raise NotImplementedError(
                 f"--shard_spatial on {self.model_name!r}: the port splits H "
-                "over 'model' in the R(2+1)D, C3D and 3D-ResNet towers only; "
-                "S3D-G and I3D (TF-SAME pads, self-gating) and SlowFast "
-                "(laterals) are ROADMAP item 17c-ii parts d and e")
+                "over 'model' in the R(2+1)D, C3D, 3D-ResNet, S3D-G and I3D "
+                "towers only; SlowFast and SlowFast-FB (two pathways, "
+                "laterals) are ROADMAP item 17c-ii part e")
         if base_model_name(self.model_name) not in PORTED_FAMILIES:
             raise ValueError(f"unknown backbone {self.model_name!r}; have "
                              f"{sorted(PORTED_FAMILIES)}")
@@ -256,7 +256,7 @@ PORTED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d", "slowfast",
 
 # the families whose towers split H over 'model' under --shard_spatial
 # (models/sharded.py ShardedTower)
-SHARDED_FAMILIES = ("r21d", "c3d", "r3d")
+SHARDED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d")
 
 
 def base_model_name(arch: str) -> str:

@@ -38,6 +38,7 @@ from cstp_tpu_torch.ops.quant import (
 )
 from cstp_tpu_torch.parallel.mesh import (
     SpatialShard,
+    all_reduce_sum,
     copy_to_parallel,
     cut_slice,
     global_moments,
@@ -191,6 +192,13 @@ def _pad_pairs(padding) -> Tuple[Tuple[int, int], ...]:
                  for p in _triple(padding))
 
 
+def _h_window(kernel, stride, pads):
+    """Kernel, stride and padding in H (an ``h_window``): the padding an
+    int where it is symmetric, else its TF-SAME ``(lo, hi)`` pair."""
+    lo, hi = pads[1]
+    return kernel[1], stride[1], lo if lo == hi else (lo, hi)
+
+
 def _ndhwc_pad(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
     """``x`` (N, T, H, W, C) padded by ``pads`` ((lo, hi) for T, H, W)."""
     (tlo, thi), (hlo, hhi), (wlo, whi) = pads
@@ -231,10 +239,12 @@ class Conv3d(nn.Module):
     some out of) is given.
 
     ``shard`` (``--shard_spatial``; set at each forward on an H site of
-    C3D and the 3D-ResNets by their tower): ``(SpatialShard, stride)``, the
-    H split and the total stride of the input rows. The conv then fetches
-    the rows its H window reads (``parallel.halo_rows``) and runs on them
-    with ``h_halo`` and ``held`` as above."""
+    C3D, the 3D-ResNets, S3D-G and I3D by their tower): ``(SpatialShard,
+    stride)``, the H split and the total stride of the input rows. The
+    conv then fetches the rows its H window reads (``parallel.halo_rows``,
+    a TF-SAME ``(lo, hi)`` pad's too: ``lo`` rows above, the last rank's
+    ``hi`` zero rows below the frame) and runs on them with ``h_halo`` and
+    ``held`` as above."""
 
     spatial = False
     shard: Optional[Tuple[SpatialShard, int]] = None
@@ -248,9 +258,7 @@ class Conv3d(nn.Module):
             raise ValueError(f"Conv3d quant {quant!r} not in {QUANT_MODES}")
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
-        pads = self.pad_pairs = _pad_pairs(padding)
-        # the TF-SAME pairs, None where every axis pads symmetrically
-        self.pads = None if all(lo == hi for lo, hi in pads) else pads
+        self.pad_pairs = _pad_pairs(padding)
         self.dtype = dtype
         self.quant = quant
         self.weight = nn.Parameter(glorot_init(
@@ -261,19 +269,15 @@ class Conv3d(nn.Module):
             self.register_buffer("act_scale", torch.zeros(()))
 
     @property
-    def h_window(self) -> Tuple[int, int, int]:
-        """Kernel, stride and (symmetric) padding in H."""
-        return self.kernel[1], self.stride[1], self.pad_pairs[1][0]
+    def h_window(self):
+        return _h_window(self.kernel, self.stride, self.pad_pairs)
 
     def call_pads(self, h_halo: bool) -> Tuple[Tuple[int, int], ...]:
         """This call's ``(lo, hi)`` pads for T, H and W: ``padding`` or the
-        TF-SAME pairs, H's none on a halo-extended input."""
+        TF-SAME pairs, H's none on a halo-extended input (which holds the
+        rows H's pads give, either pair)."""
         pads = list(self.pad_pairs)
         if h_halo:
-            if self.pads is not None:
-                raise NotImplementedError(
-                    "an H halo with TF-SAME pads (S3D-G, I3D) is ROADMAP "
-                    "item 17c-ii part d")
             pads[1] = (0, 0)
         return tuple(pads)
 
@@ -343,30 +347,42 @@ def max_pool_3d(x: torch.Tensor, kernel, stride,
     return y.permute(0, 2, 3, 4, 1)
 
 
+def _max_pool_pairs(x: torch.Tensor, kernel, stride, pads) -> torch.Tensor:
+    """:func:`max_pool_3d` with ``(lo, hi)`` pads per axis: symmetric ones
+    go to the pool, others are written out first as ``-inf``
+    (``F.max_pool3d`` pads symmetrically only)."""
+    if all(lo == hi for lo, hi in pads):
+        return max_pool_3d(x, kernel, stride, tuple(lo for lo, _ in pads))
+    return max_pool_3d(_ndhwc_pad(x, pads, float("-inf")), kernel, stride)
+
+
 class MaxPool3d(nn.Module):
-    """:func:`max_pool_3d` as an H site of ``--shard_spatial``: with
+    """:func:`max_pool_3d` as an H site of ``--shard_spatial``; ``padding``
+    as ``Conv3d``'s: symmetric per axis, or TF SAME's ``(lo, hi)`` pairs
+    (:func:`same_pads`, I3D's pools), written out as ``-inf``. With
     ``shard`` set (as ``Conv3d.shard``) it fetches the rows its H window
     reads, ``-inf`` outside the frame as the pool pads, and pools them
     with no H padding: exactly this rank's rows of the whole frame's
-    pool, a VALID pool's too (its last odd row read by no window)."""
+    pool, a VALID pool's too (its last odd row read by no window), and a
+    SAME pool's whose ``max(k - s, 0)`` pad floors at an odd height."""
 
     shard: Optional[Tuple[SpatialShard, int]] = None
 
     def __init__(self, kernel, stride, padding=0):
         super().__init__()
         self.kernel, self.stride = _triple(kernel), _triple(stride)
-        self.padding = _triple(padding)
+        self.pad_pairs = _pad_pairs(padding)
 
     @property
-    def h_window(self) -> Tuple[int, int, int]:
-        return self.kernel[1], self.stride[1], self.padding[1]
+    def h_window(self):
+        return _h_window(self.kernel, self.stride, self.pad_pairs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.shard is None:
-            return max_pool_3d(x, self.kernel, self.stride, self.padding)
-        x = halo_rows(x, *self.shard, *self.h_window, fill=float("-inf"))
-        pt, _, pw = self.padding
-        return max_pool_3d(x, self.kernel, self.stride, (pt, 0, pw))
+        pads = list(self.pad_pairs)
+        if self.shard is not None:
+            x = halo_rows(x, *self.shard, *self.h_window, fill=float("-inf"))
+            pads[1] = (0, 0)
+        return _max_pool_pairs(x, self.kernel, self.stride, pads)
 
 
 class Subsample(nn.Module):
@@ -405,14 +421,16 @@ def same_pads(kernel, stride) -> Tuple[Tuple[int, int], ...]:
     return tuple(pads)
 
 
+def same_pool(kernel, stride) -> MaxPool3d:
+    """A TF-SAME max pool on NDHWC (I3D's ``MaxPool3dTFPadding``): pads of
+    :func:`same_pads`, ``-inf`` as in the JAX package."""
+    return MaxPool3d(kernel, stride, same_pads(kernel, stride))
+
+
 def max_pool_3d_same(x: torch.Tensor, kernel, stride) -> torch.Tensor:
-    """TF-SAME max pool on NDHWC (I3D's ``MaxPool3dTFPadding``): pads of
-    :func:`same_pads`, ``-inf`` as in the JAX package. ``F.max_pool3d``
-    pads symmetrically only, so an asymmetric pad is written out first."""
-    pads = same_pads(kernel, stride)
-    if all(lo == hi for lo, hi in pads):
-        return max_pool_3d(x, kernel, stride, tuple(lo for lo, _ in pads))
-    return max_pool_3d(_ndhwc_pad(x, pads, float("-inf")), kernel, stride)
+    """:func:`same_pool` applied to ``x``: the JAX package's
+    ``max_pool_3d_same`` as a function."""
+    return same_pool(kernel, stride)(x)
 
 
 def r21d_intermediate_channels(in_channels: int, out_channels: int,
@@ -763,7 +781,18 @@ INCEPTION_PLAN = (
 class SelfGating(nn.Module):
     """S3D-G feature gating: ``x * sigmoid(fc(mean of x over T, H, W))``,
     the mean, the float32 ``fc`` (glorot kernel, torch-default bias) and
-    the product in float32, the result in ``x``'s dtype."""
+    the product in float32, the result in ``x``'s dtype.
+
+    ``spatial`` (``--shard_spatial``, set by ``models/sharded.py
+    ShardedTower.shard_spatially``): ``x`` holds this rank's rows, so the
+    mean is the sum over them and over 'model' divided by the positions
+    summed over 'model' (T x the stage's global rows x W). The sum is
+    :func:`parallel.all_reduce_sum`, whose backward sums too: the gate
+    multiplies this rank's rows only, so each rank's cotangent of the
+    mean is a part of the whole (an identity backward would leave dx
+    wrong and the forward right)."""
+
+    spatial = False
 
     def __init__(self, channels: int, gen: Optional[torch.Generator] = None):
         super().__init__()
@@ -771,7 +800,14 @@ class SelfGating(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        w = torch.sigmoid(self.fc(xf.mean(dim=(1, 2, 3))))
+        if self.spatial:
+            n = xf.new_full((xf.shape[0], 1), float(math.prod(xf.shape[1:4])))
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=(1, 2, 3)), n], 1),
+                                  "model")
+            mean = sums[:, :-1] / sums[:, -1:]
+        else:
+            mean = xf.mean(dim=(1, 2, 3))
+        w = torch.sigmoid(self.fc(mean))
         return (xf * w[:, None, None, None, :]).to(x.dtype)
 
 

@@ -49,7 +49,7 @@ from cstp_tpu_torch.models.layers import (
     SelfGating,
     _triple,
     max_pool_3d,
-    max_pool_3d_same,
+    same_pool,
 )
 from cstp_tpu_torch.models.r21d import R2Plus1DNet
 from cstp_tpu_torch.models.s3dg import space_to_depth_stem
@@ -321,6 +321,10 @@ class LegacyS3DG(nn.Module):
         self.conv_2c = _LegacySTConv3d(64, 192, 3, padding=1, separable=True,
                                        **kw)
         self.gating = SelfGating(192, gen)
+        self.pool_2a = same_pool((1, 3, 3), (1, 2, 2))
+        self.pool_3a = same_pool((1, 3, 3), (1, 2, 2))
+        self.pools = nn.ModuleDict({name: same_pool(*pool) for name, pool
+                                    in _LEGACY_POOL_BEFORE.items()})
         self.names = []
         in_ch = 192
         for suffix, plan in INCEPTION_PLAN:
@@ -337,13 +341,13 @@ class LegacyS3DG(nn.Module):
             x = self.conv1(space_to_depth_stem(x), train)[:, 1:, 1:, 1:, :]
         else:
             x = self.conv1(x, train)
-        x = max_pool_3d_same(x, (1, 3, 3), (1, 2, 2))
+        x = self.pool_2a(x)
         x = self.conv_2c(self.conv_2b(x, train), train)
         x = self.gating(x)
-        x = max_pool_3d_same(x, (1, 3, 3), (1, 2, 2))
+        x = self.pool_3a(x)
         for name in self.names:
-            if name in _LEGACY_POOL_BEFORE:
-                x = max_pool_3d_same(x, *_LEGACY_POOL_BEFORE[name])
+            if name in self.pools:
+                x = self.pools[name](x)
             x = getattr(self, name)(x, train)
         return self.fc(x.float().mean(dim=(1, 2, 3)))
 

@@ -1,5 +1,5 @@
 """``--shard_spatial`` on a backbone tower: its H split over the 'model'
-ranks, shared by R(2+1)D, C3D and the 3D-ResNets.
+ranks, shared by R(2+1)D, C3D, the 3D-ResNets, S3D-G and I3D.
 
 The JAX package's ``--shard_spatial`` is one sharding constraint on the
 5-D views (``spatial_constraint_fn``) that XLA carries through every conv
@@ -7,17 +7,23 @@ and pool. The port splits the tower by hand: each rank keeps its rows of
 the input (``parallel.SpatialShard``), each H site (a conv or max pool
 whose window spans H or strides it) fetches its neighbours' rows
 (``parallel.halo_rows``), the BatchNorms and int8 scales take their
-moments and maxima over the shards, and the global pool is a sum over
+moments and maxima over the shards, S3D-G's gates their means over
+'model' (``layers.py SelfGating``), and the global pool is a sum over
 'model' divided by the global count, so the feature (and all after it) is
 the same on every 'model' rank.
 
 A tower lists its H sites (:meth:`ShardedTower.h_sites`): each a module
-with ``h_window``, its ``(kernel, stride, padding)`` in H, and a ``shard``
-attribute, and the total stride of its input rows, in forward order. The
-base derives every stage's global rows from them (a VALID pool's
-``floor(h / 2)`` as well as a SAME conv's ``ceil(h / 2)``), hands each site
-``(SpatialShard, stride)`` at every forward, and names the parameters
-whose gradient each shard holds a part of.
+with ``h_window``, its ``(kernel, stride, padding)`` in H (the padding an
+int, or a TF-SAME ``(lo, hi)`` pair), and a ``shard`` attribute, and the
+total stride of its input rows, in forward order. The base derives every
+stage's global rows from them, ``(h + lo + hi - k) // s + 1`` (a VALID
+pool's ``floor(h / 2)``, a SAME conv's ``ceil(h / 2)``, and a SAME pool's
+``max(k - s, 0)`` pad, which floors at an odd height: I3D's 7 rows pool to
+3), hands each site ``(SpatialShard, stride)`` at every forward, and names
+the parameters whose gradient each shard holds a part of. The submodules
+a tower names in ``whole`` (the projector, I3D's conv head) run on a
+tensor reduced over 'model', alike on every rank: they stay whole, and
+each rank's gradient of theirs is the whole one.
 """
 
 from __future__ import annotations
@@ -27,10 +33,11 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from cstp_tpu_torch.models.layers import BatchNorm, Conv3d
+from cstp_tpu_torch.models.layers import BatchNorm, Conv3d, SelfGating
 from cstp_tpu_torch.parallel.mesh import (
     SpatialShard,
     mesh_axis,
+    pad_pair,
     reduce_to_replicated,
 )
 
@@ -41,6 +48,13 @@ class ShardedTower:
     its rows by :meth:`own_rows` and pools by :meth:`pooled`."""
 
     spatial = False
+    # the top-level submodules that stay whole on every rank
+    whole: Tuple[str, ...] = ("project",)
+
+    def is_whole(self, name: str) -> bool:
+        """Whether the submodule or parameter ``name`` (relative to the
+        tower) lies in one of ``whole``."""
+        return name.split(".", 1)[0] in self.whole
 
     def h_sites(self) -> List[Tuple[nn.Module, int]]:
         """``(site, total stride of its input rows)`` of every conv and
@@ -50,14 +64,14 @@ class ShardedTower:
 
     def shard_spatially(self) -> None:
         """Split H over 'model' from the next forward on: records the H
-        sites and marks the tower's BatchNorms and convs (a projector's
-        BatchNorm stays whole: it runs on the pooled feature, the same on
-        every rank)."""
+        sites and marks the tower's BatchNorms, convs and gates (those of
+        ``whole`` stay whole: they run on the pooled feature or a map
+        summed over 'model', the same on every rank)."""
         self._sites = [(m, st) for m, st in self.h_sites()
                        if tuple(m.h_window) != (1, 1, 0)]
         for name, m in self.named_modules():
-            if isinstance(m, (BatchNorm, Conv3d)) \
-                    and not name.startswith("project"):
+            if isinstance(m, (BatchNorm, Conv3d, SelfGating)) \
+                    and not self.is_whole(name):
                 m.spatial = True
         self.spatial = True
 
@@ -67,7 +81,8 @@ class ShardedTower:
         heights = {1: height}
         for site, st in self._sites:
             k, s, p = site.h_window
-            h = (heights[st] + 2 * p - k) // s + 1
+            lo, hi = pad_pair(p)
+            h = (heights[st] + lo + hi - k) // s + 1
             if heights.setdefault(st * s, h) != h:
                 raise ValueError(f"{type(self).__name__}: two sites give "
                                  f"stride {st * s} {heights[st * s]} and "
@@ -100,15 +115,15 @@ class ShardedTower:
 
 def shard_spatially(module: nn.Module) -> nn.Module:
     """Every tower of ``module`` split over H from its next forward on
-    (``--shard_spatial``); a module without one (S3D-G, I3D, SlowFast)
-    raises ``NotImplementedError`` (ROADMAP item 17c-ii parts d and e)."""
+    (``--shard_spatial``); a module without one (SlowFast) raises
+    ``NotImplementedError`` (ROADMAP item 17c-ii part e)."""
     towers = [m for m in module.modules() if isinstance(m, ShardedTower)]
     if not towers:
         raise NotImplementedError(
             f"--shard_spatial on {type(module).__name__}: the port splits H "
-            "over 'model' in the R(2+1)D, C3D and 3D-ResNet towers; S3D-G "
-            "and I3D (TF-SAME pads, self-gating) and SlowFast (laterals) "
-            "are ROADMAP item 17c-ii parts d and e")
+            "over 'model' in the R(2+1)D, C3D, 3D-ResNet, S3D-G and I3D "
+            "towers; SlowFast and SlowFast-FB (two pathways, laterals) are "
+            "ROADMAP item 17c-ii part e")
     for tower in towers:
         tower.shard_spatially()
     return module
@@ -116,12 +131,12 @@ def shard_spatially(module: nn.Module) -> nn.Module:
 
 def spatially_partial_names(module: nn.Module):
     """The names of ``module``'s parameters whose gradient each H shard
-    holds a part of (every split tower's, its projector's excepted): the
-    step sums them over 'model'."""
+    holds a part of (every split tower's, those of its ``whole``
+    submodules excepted): the step sums them over 'model'."""
     names = set()
     for prefix, m in module.named_modules():
         if isinstance(m, ShardedTower) and m.spatial:
             names.update(f"{prefix}.{n}" if prefix else n
                          for n, _ in m.named_parameters()
-                         if not n.startswith("project."))
+                         if not m.is_whole(n))
     return names

@@ -35,12 +35,14 @@ With a 'model' axis above 1 (JAX's ``_model_spec``): every 4096-wide MLP
 is tensor-parallel, each rank holding ``4096 / M`` hidden units
 (``models/layers.py MLPHead``), between Megatron's pair of collectives
 (:func:`copy_to_parallel`, :func:`reduce_to_replicated`); and under
-``--shard_spatial`` (JAX's ``spatial_constraint_fn``) the R(2+1)D, C3D
-and 3D-ResNet towers split H over 'model' (:class:`SpatialShard`,
-``models/sharded.py``): each conv and max pool that spans H fetches its
-neighbours' rows (:func:`halo_rows`), the BatchNorm moments are sums over
-the ranks weighted by their positions, and the global pool is a sum over
-'model'. ``--shard_opt_state`` (ZeRO-1) lives in ``train/optim.py``.
+``--shard_spatial`` (JAX's ``spatial_constraint_fn``) the R(2+1)D, C3D,
+3D-ResNet, S3D-G and I3D towers split H over 'model'
+(:class:`SpatialShard`, ``models/sharded.py``): each conv and max pool
+that spans H fetches its neighbours' rows (:func:`halo_rows`; a TF-SAME
+``(lo, hi)`` pad too), the BatchNorm moments are sums over the ranks
+weighted by their positions, and the global pool and S3D-G's gates are
+sums over 'model'. ``--shard_opt_state`` (ZeRO-1) lives in
+``train/optim.py``.
 
 The collectives are ``all_reduce``, ``all_gather`` and ``broadcast`` only
 (and their pickled-object forms), which gloo also carries for CUDA
@@ -721,16 +723,25 @@ class SpatialShard:
                     "--sample_size or a smaller 'model' axis")
 
 
-def halo_plan(shard: SpatialShard, stride: int, k: int, s: int, p: int):
+def pad_pair(p) -> Tuple[int, int]:
+    """An H padding as its ``(lo, hi)`` pair: an int pads both sides
+    alike, a pair is TF SAME's (S3D-G's and I3D's bottom-heavy pads)."""
+    return (p, p) if isinstance(p, int) else (int(p[0]), int(p[1]))
+
+
+def halo_plan(shard: SpatialShard, stride: int, k: int, s: int, p):
     """The rows an H conv of kernel ``k``, stride ``s`` and padding ``p``
-    reads, on input rows held at total stride ``stride``: ``(lo, hi,
-    border)``, this rank's input rows ``[lo, hi)`` for its output rows
-    (rows outside the frame are the conv's padding), and ``border``,
-    the most rows any rank fetches from one side."""
+    (an int, or a ``(lo, hi)`` pair) reads, on input rows held at total
+    stride ``stride``: ``(lo, hi, border)``, this rank's input rows ``[lo,
+    hi)`` for its output rows (rows outside the frame are the conv's
+    padding: the last rank's ``hi`` pad rows below the frame), and
+    ``border``, the most rows any rank fetches from one side: ``lo``
+    above, ``k - 1 - lo`` below."""
     i0, i1 = shard.rows(stride * s)
     if i1 <= i0:
         raise ValueError(f"--shard_spatial: 'model' rank {shard.index} "
                          f"holds no output row at stride {stride * s}")
+    p = pad_pair(p)[0]
     return i0 * s - p, (i1 - 1) * s - p + k, max(p, k - 1 - p)
 
 
@@ -822,9 +833,10 @@ def _gather_model(t: torch.Tensor):
 
 
 def halo_rows(x: torch.Tensor, shard: SpatialShard, stride: int, k: int,
-              s: int = 1, p: int = 0, fill: float = 0.0) -> torch.Tensor:
+              s: int = 1, p=0, fill: float = 0.0) -> torch.Tensor:
     """The input rows that an H conv or pool of kernel ``k``, stride ``s``
-    and padding ``p`` reads for this rank's output rows, from ``x`` (N, T,
+    and padding ``p`` (an int or a TF-SAME ``(lo, hi)`` pair) reads for
+    this rank's output rows, from ``x`` (N, T,
     h, W, C), this rank's rows at total stride ``stride``: rows ``[lo,
     hi)`` of :func:`halo_plan`, its own and (over 'model', an all-gather
     each way) its neighbours', ``fill`` outside the frame (a conv's zero

@@ -32,9 +32,9 @@ metrics too; ``--sync_bn 1`` BatchNorms take global-batch statistics, and
 under ``--sync_bn 0`` the BN running statistics are averaged after the
 step. EMA, clip and update then see the same tensors on every rank of a
 model column. With a 'model' axis above 1 the 4096-wide MLPs are
-tensor-parallel; ``--shard_spatial`` splits the R(2+1)D, C3D and
-3D-ResNet towers' H over 'model' (their parameter gradients, partial on
-each shard, are summed over 'model' first); ``--shard_opt_state`` keeps
+tensor-parallel; ``--shard_spatial`` splits the R(2+1)D, C3D,
+3D-ResNet, S3D-G and I3D towers' H over 'model' (their parameter
+gradients, partial on each shard, are summed over 'model' first); ``--shard_opt_state`` keeps
 each 'data' rank's slice of the optimizer state (``train/optim.py
 MeshUpdate``).
 """

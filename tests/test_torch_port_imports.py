@@ -158,17 +158,13 @@ def test_loops_and_clis_refuse_missing_cuda(entry, tmp_path):
 ])
 def test_config_refuses_unported_flags(flag):
     """``--s2d_stem``, ``--t_fold`` and ``--mid_round`` are ported, on
-    R(2+1)D's H shards too (``--shard_spatial``); what the port still
-    refuses of them is S3D's s2d stem on H shards, whose family waits for
-    ROADMAP item 17c-ii part d."""
+    R(2+1)D's H shards too (``--shard_spatial``), and S3D's s2d stem on
+    S3D-G's H shards since ROADMAP item 17c-ii part d: the port refuses
+    none of them."""
     from cstp_tpu_torch.config import Config
 
     Config(**flag).finalize()
     Config(mid_round=128, shard_spatial=1, mesh_shape=(1, 2)).finalize()
-    if flag.get("model_name") == "s3d":
-        with pytest.raises(NotImplementedError, match="17c-ii parts d and e"):
-            Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
-        return
     cfg = Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
     for k, v in flag.items():
         assert getattr(cfg, k) == v
@@ -192,19 +188,27 @@ def test_config_takes_the_model_axis_flags(flag):
     dict(model_name="slowfast"), dict(model_name="slowfast_fb"),
 ])
 def test_config_refuses_shard_spatial_outside_r21d_float(flag):
-    """``--shard_spatial`` on S3D-G, I3D, SlowFast and SlowFast-FB waits
-    for ROADMAP item 17c-ii parts d and e (R(2+1)D takes every ``--quant``
-    mode on its H shards, C3D and the 3D-ResNets every flag they take at
-    world 1: the tests below); the model code refuses such a module too."""
+    """``--shard_spatial`` on SlowFast and SlowFast-FB waits for ROADMAP
+    item 17c-ii part e, and the model code refuses such a module too; I3D
+    and S3D-G take it since part d, in the config and the model code
+    (R(2+1)D takes every ``--quant`` mode on its H shards, C3D, the
+    3D-ResNets, S3D-G and I3D every flag they take at world 1: the tests
+    below)."""
     from cstp_tpu_torch.config import Config
     from cstp_tpu_torch.models import make_backbone
-    from cstp_tpu_torch.models.sharded import shard_spatially
+    from cstp_tpu_torch.models.sharded import ShardedTower, shard_spatially
 
-    with pytest.raises(NotImplementedError, match="17c-ii parts d and e"):
-        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
     with torch.device("meta"):
         backbone = make_backbone(flag["model_name"], 18, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="17c-ii parts d and e"):
+    if not flag["model_name"].startswith("slowfast"):
+        cfg = Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+        assert cfg.shard_spatial == 1
+        assert isinstance(backbone, ShardedTower)
+        assert shard_spatially(backbone).spatial
+        return
+    with pytest.raises(NotImplementedError, match="17c-ii part e"):
+        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+    with pytest.raises(NotImplementedError, match="17c-ii part e"):
         shard_spatially(backbone)
 
 
@@ -223,6 +227,34 @@ def test_config_refuses_shard_spatial_outside_r21d_float(flag):
 def test_config_takes_shard_spatial_on_c3d_and_r3d(flag):
     """C3D and the 3D-ResNets (every depth, shortcuts "A" and "B") on H
     shards (ROADMAP item 17c-ii part c) with the flags they take at world
+    1, on a (1, 2) and a (2, 2) mesh; ``--quant int8_store`` stays an
+    R(2+1)D flag, as in the JAX package."""
+    from cstp_tpu_torch.config import Config
+
+    for shape in ((1, 2), (2, 2)):
+        cfg = Config(shard_spatial=1, mesh_shape=shape, batch_size=4,
+                     **flag).finalize()
+        for k, v in flag.items():
+            assert getattr(cfg, k) == v
+    with pytest.raises(ValueError, match="r21d"):
+        Config(model_name=flag["model_name"], quant="int8_store",
+               shard_spatial=1, mesh_shape=(1, 2)).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(model_name="s3d"), dict(model_name="s3d_byol", s2d_stem=True),
+    dict(model_name="s3d_classify", quant="int8"),
+    dict(model_name="s3d", quant="int8_calib", task="test"),
+    dict(model_name="i3d_byol"), dict(model_name="i3d", quant="int8_fixed"),
+    dict(model_name="i3d", quant="int8_static", task="test"),
+    dict(model_name="i3d", i3d_conv_head=1, task="ft_all",
+         sample_size=224, sample_duration=16),
+    dict(model_name="s3d", sync_bn=0, grad_accum=2, concat_views=0,
+         shard_opt_state=1, ntxent_weight=0.5),
+])
+def test_config_takes_shard_spatial_on_s3d_and_i3d(flag):
+    """S3D-G (with its s2d stem too) and I3D (with its conv head too) on H
+    shards (ROADMAP item 17c-ii part d) with the flags they take at world
     1, on a (1, 2) and a (2, 2) mesh; ``--quant int8_store`` stays an
     R(2+1)D flag, as in the JAX package."""
     from cstp_tpu_torch.config import Config

@@ -1,8 +1,9 @@
 """``--shard_spatial`` on C3D and the 3D-ResNets (``models/sharded.py``,
 ``models/c3d.py``, ``models/r3d.py``) on the CPU, with gloo ranks, each a
-subprocess running this file as a script (the worker below), against the
-port's own one-process step on the global batch and against the JAX
-package's (1, 2) mesh program from the same bridged weights and views.
+subprocess running this file as a script (``_shard_harness.worker``),
+against the port's own one-process step on the global batch and against
+the JAX package's (1, 2) mesh program from the same bridged weights and
+views.
 
 Sizes: C3D at 8 x 32^2 and 8 x 56^2 (where conv4b's pool sees 7 rows and
 gives 3), per-view batch 2; r3d-10 with shortcuts "A" and "B" at 4 x 64^2,
@@ -42,22 +43,35 @@ JAX side compiles, every launch has its own timeout, and the temporary
 directory is removed at the end. The workers import no JAX.
 """
 
-import hashlib
-import os
 import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
+from _shard_harness import (
+    ROOT,
+    assert_ranks_agree,
+    assert_stats_close,
+    assert_step_close,
+    assert_updates_close,
+    cos,
+    digest,
+    is_stat,
+    jax_steps,
+    join,
+    launch,
+    randn,
+    rel,
+    split_state,
+    to_torch,
+    views,
+    worker,
+)
+
 LR = 3e-4
 N_CLASSES = 5
-TIMEOUT_S = 420         # each launch's limit, for a loaded host
-KEYS = ("view1", "view2", "spa", "tem", "pb", "rot1", "rot2")
 M12 = dict(mesh_shape=(1, 2), shard_spatial=1)
 M22 = dict(mesh_shape=(2, 2), shard_spatial=1)
 # model -> (its flags, frames, size, per-view batch)
@@ -145,33 +159,6 @@ def _ft_config(model, **over):
                    **over)
 
 
-def _digest(tensors) -> str:
-    """The bytes of ``tensors`` (a name -> tensor dict), hashed in name
-    order."""
-    h = hashlib.sha1()
-    for k in sorted(tensors):
-        h.update(k.encode())
-        h.update(tensors[k].detach().contiguous().numpy().tobytes())
-    return h.hexdigest()
-
-
-def _is_stat(name):
-    return name.endswith(("mean", "var"))
-
-
-def _split_state(sd):
-    """A whole state dict as the tests read it: the trained tensors
-    (everything but the target tower's parameters and the BN running
-    statistics), the statistics, and a hash of the target's parameters."""
-    target = {k: v for k, v in sd.items()
-              if k.startswith("target_net.") and not _is_stat(k)}
-    return dict(
-        params={k: v.detach().clone() for k, v in sd.items()
-                if k not in target and not _is_stat(k)},
-        stats={k: v.detach().clone() for k, v in sd.items() if _is_stat(k)},
-        target=_digest(target))
-
-
 def _pretrain_run(model, over, order=None):
     """One preaugmented pretrain step of ``_config(model, **over)`` on this
     rank's rows of the model's batch (its clips in ``order``), from the
@@ -190,9 +177,9 @@ def _pretrain_run(model, over, order=None):
         batch = {k: v[order] for k, v in batch.items()}
     state, m = step(state, mesh.shard_batch(batch), LR)
     sd = mesh.full_state_dict(net)
-    out = _split_state(sd)
+    out = split_state(sd)
     out.update(metrics={k: float(v) for k, v in m.items()},
-               whole=_digest(sd))
+               whole=digest(sd))
     return out
 
 
@@ -213,9 +200,9 @@ def _finetune_run(model):
     with torch.no_grad():
         logits = net(rows["clips"], train=False)
     sd = mesh.full_state_dict(net)
-    out = _split_state(sd)
+    out = split_state(sd)
     out.update(metrics={k: float(v) for k, v in m.items()},
-               whole=_digest(sd), logits=logits)
+               whole=digest(sd), logits=logits)
     return out
 
 
@@ -325,153 +312,7 @@ def _run(name):
                              else None)
 
 
-def _worker(store: str, tmp: str, job: str) -> None:
-    """One process of ``job`` (JOBS): one process without a group, or a
-    rank of its mesh; results to ``<job>_<rank>.pt``, rank 0 with the
-    tensors, the other ranks their hashes only."""
-    from cstp_tpu_torch.parallel import mesh
-
-    torch.set_num_threads(1)
-    _INPUTS.update(torch.load(Path(tmp) / "inputs.pt", weights_only=False))
-    world, cases = JOBS[job]
-    if world > 1:
-        mesh.maybe_initialize_distributed(init_method=f"file://{store}",
-                                          device="cpu")
-        mesh.use_mesh((1, 2) if world == 2 else (2, 2))
-    out = {name: _run(name) for name in cases}
-    rank = mesh.rank()
-    if rank:
-        for run in out.values():
-            if isinstance(run, dict) and "params" in run:
-                del run["params"], run["stats"]
-    mesh.shutdown()
-    torch.save(out, Path(tmp) / f"{job}_{rank}.pt")
-
-
-def _launch(tmp: Path, job: str):
-    world = JOBS[job][0]
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("CSTP_", "MASTER_"))}
-    env["PYTHONPATH"] = str(ROOT)
-    return [subprocess.Popen(
-        [sys.executable, __file__, str(tmp / f"store_{job}"), str(tmp), job],
-        env=dict(env, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-
-
-def _join(procs, tmp: Path, job: str):
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"{job} rank {r} exited " \
-                                  f"{p.returncode}:\n{log}"
-    return [torch.load(tmp / f"{job}_{r}.pt", weights_only=False, mmap=True)
-            for r in range(len(procs))]
-
-
 # ---------------------------------------------------------- test side
-
-def _view(rng, b, t, s):
-    noise = rng.uniform(-1, 1, (b, t, s, s, 3))
-    off = rng.uniform(-0.8, 0.8, (b, 1, 1, 1, 3))
-    contrast = rng.uniform(0.1, 1.0, (b, 1, 1, 1, 1))
-    return np.clip(off + contrast * noise, -1, 1).astype(np.float32)
-
-
-def _views(rng, model):
-    _, t, s, b = MODELS[model]
-    batch = {k: rng.integers(0, 5, (b,)).astype(np.int32)
-             for k in ("spa", "tem")}
-    # these families' pretext heads have 4 playback-rate classes
-    batch.update(pb=rng.integers(0, 4, (b,)).astype(np.int32),
-                 rot1=rng.integers(0, 4, (b,)).astype(np.int32),
-                 rot2=rng.integers(0, 4, (b,)).astype(np.int32),
-                 view1=_view(rng, b, t, s), view2=_view(rng, b, t, s))
-    return batch
-
-
-def _torch(batch):
-    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-
-
-def _randn(rng, *shape):
-    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-
-
-def _jax_mesh12_steps(nets, batch):
-    """JAX's train programs on a (1, 2) mesh of the first two of the
-    conftest's CPU devices with ``shard_spatial=1``, one per model of
-    ``nets`` (model -> the port's seed-0 pretrain model, JAX's ``init``
-    patched to return its weights), compiled and run in two threads: each
-    program's metrics and the state after it, read back into the port's
-    names through its model."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import jax
-    import jax.numpy as jnp
-
-    from cstp_tpu.config import Config as JaxConfig
-    from cstp_tpu.parallel import mesh as jax_mesh
-    from cstp_tpu.parallel import shard_batch, shard_state
-    from cstp_tpu.ssl.byol import CSTPPretrain as JaxPretrain
-    from cstp_tpu.train.pretrain import (
-        create_pretrain_model,
-        create_pretrain_state as jax_state,
-        split_pretrain_step,
-    )
-    from cstp_tpu_torch.models.bridge import (
-        export_jax_variables,
-        load_jax_variables,
-    )
-
-    devices = jax.devices()[:2]
-    made = jax_mesh.create_mesh
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_mesh, "create_mesh",
-                   lambda shape=(-1, 1), axes=("data", "model"),
-                   devices=devices: made(shape, axes, devices))
-        jmesh = jax_mesh.create_mesh((1, 2))
-        programs = {}
-        for model, net in nets.items():
-            flags, t, s, b = MODELS[model]
-            params0, stats0 = jax.tree_util.tree_map(
-                np.copy, export_jax_variables(net))
-            jcfg = JaxConfig(sample_duration=t, sample_size=s, batch_size=b,
-                             compute_dtype="float32", learning_rate=LR,
-                             **flags, **M12).finalize()
-            with pytest.MonkeyPatch.context() as init:
-                init.setattr(JaxPretrain, "init", lambda self, *a, **k: {
-                    "params": params0, "batch_stats": stats0})
-                _, state, jtx = jax_state(jcfg, jax.random.PRNGKey(0))
-            _, train = split_pretrain_step(create_pretrain_model(jcfg), jtx,
-                                           jcfg)
-            views = shard_batch(jmesh, tuple(jnp.asarray(batch[model][k])
-                                             for k in KEYS))
-            programs[model] = (train, shard_state(jmesh, state), views)
-
-        def run(model):
-            train, state, views = programs[model]
-            state, m = train(state, views, jnp.float32(LR))
-            return m, jax.tree_util.tree_map(np.asarray, jax.device_get(
-                (state.params, state.batch_stats)))
-
-        with ThreadPoolExecutor(2) as pool:
-            done = dict(zip(nets, pool.map(run, nets)))
-    out = {}
-    for model, (m, (params, stats)) in done.items():
-        load_jax_variables(nets[model], params, stats)
-        out[model] = _split_state(nets[model].state_dict())
-        out[model]["metrics"] = {k: float(v) for k, v in m.items()}
-    return out
-
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
@@ -484,7 +325,7 @@ def runs(tmp_path_factory):
     threads = torch.get_num_threads()
     try:
         rng = np.random.default_rng(0)
-        batch = {m: _views(rng, m) for m in MODELS}
+        batch = {m: views(rng, *MODELS[m][1:]) for m in MODELS}
         ft_batch = {}
         for m in FINETUNE:
             _, t, s, b = MODELS[m]
@@ -494,39 +335,40 @@ def runs(tmp_path_factory):
         sites = {}
         for name, spec, h in SITES:
             cin = spec[1] if spec[0] == "conv" else 4
-            x = _randn(rng, 2, 4, h, 6, cin)
+            x = randn(rng, 2, 4, h, 6, cin)
             weights = ()
             if spec[0] == "conv":
                 _, cin, cout, k, *_ = spec
-                weights = (_randn(rng, cout, cin, k, k, k),
-                           _randn(rng, cout))
+                weights = (randn(rng, cout, cin, k, k, k),
+                           randn(rng, cout))
             sites[name] = (x, weights)
         block = _Bottleneck(256, 128, 2, "B", torch.float32,
                             gen=torch.Generator().manual_seed(1))
         block_sd = {f"block.{k}": v for k, v in block.state_dict().items()}
-        torch.save(dict(batch={m: _torch(v) for m, v in batch.items()},
-                        ft_batch={m: _torch(v) for m, v in
+        torch.save(dict(batch={m: to_torch(v) for m, v in batch.items()},
+                        ft_batch={m: to_torch(v) for m, v in
                                   ft_batch.items()},
                         sites=sites,
-                        block=(_randn(rng, 2, 4, BLOCK_H, 6, 256),
+                        block=(randn(rng, 2, 4, BLOCK_H, 6, 256),
                                block_sd)),
                    tmp / "inputs.pt")
         torch.set_num_threads(1)    # the workers and JAX share the cores
-        procs = {job: _launch(tmp, job) for job in JOBS}
+        procs = {job: launch(__file__, tmp, job, JOBS[job][0])
+                 for job in JOBS}
         # the seed-0 weights (C3D's alike at both sizes) and the finetune
         # models' seed-3 weights
         nets, sd0 = {}, {}
         for m in ("c3d56", "r3dA", "r3dB"):
             nets[m], _, _ = create_pretrain_state(_config(m), device="cpu")
-            sd0[m] = _split_state(nets[m].state_dict())["params"]
+            sd0[m] = split_state(nets[m].state_dict())["params"]
         sd0["c3d32"] = sd0["c3d56"]
         for m in FINETUNE:
             net, _, _ = create_finetune_state(_ft_config(m), N_CLASSES,
                                               seed=3, device="cpu")
-            sd0[f"ft {m}"] = _split_state(net.state_dict())["params"]
-        jax_runs = _jax_mesh12_steps({m: nets[m] for m in ("c3d56", "r3dB")},
-                                     batch)
-        got = {job: _join(group, tmp, job) for job, group in procs.items()}
+            sd0[f"ft {m}"] = split_state(net.state_dict())["params"]
+        jax_runs = jax_steps({m: (m, (1, 2)) for m in ("c3d56", "r3dB")},
+                             nets, batch, MODELS, LR)
+        got = {job: join(group, tmp, job) for job, group in procs.items()}
     finally:
         torch.set_num_threads(threads)
         for p in (p for group in procs.values() for p in group):
@@ -538,51 +380,6 @@ def runs(tmp_path_factory):
     ranks = {case: got[job] for job in got for case in JOBS[job][1]}
     yield dict(sd0=sd0, one=one, jax=jax_runs, ranks=ranks, sites=sites)
     shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _rel(a, b):
-    return float((a - b).norm() / b.norm())
-
-
-def _assert_ranks_agree(ranks, case):
-    """Every rank holds bitwise the same whole state after ``case``."""
-    assert len({r[case]["whole"] for r in ranks}) == 1, case
-
-
-def _assert_updates_close(got, want, sd0, tol, what):
-    """Each trained tensor's update within ``tol`` of the wanted one in
-    norm, plus 1e-4 of the whole wanted update's norm."""
-    assert got.keys() == want.keys() == sd0.keys(), what
-    d_all = torch.cat([(want[k] - sd0[k]).flatten().double() for k in sd0])
-    floor = 1e-4 * float(d_all.norm())
-    assert floor > 0, what
-    for k in sd0:
-        d_got = (got[k] - sd0[k]).double()
-        d_want = (want[k] - sd0[k]).double()
-        err = float((d_got - d_want).norm())
-        assert err <= tol * float(d_want.norm()) + floor, (
-            f"{what} {k}: |got - want| {err:.3e}, |want| "
-            f"{float(d_want.norm()):.3e}")
-
-
-def _assert_stats_close(got, want, what, skip=()):
-    assert got.keys() == want.keys(), what
-    held = [k for k in want if not k.startswith(skip)]
-    for k in held:
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6,
-                                   err_msg=f"{what} {k}")
-    return len(want) - len(held)
-
-
-def _assert_step_close(got, want, sd0, what):
-    """The first loss within 1e-5 relative, the update within 5e-2 leaf by
-    leaf, BN running statistics within 1e-4, the target tower bitwise."""
-    np.testing.assert_allclose(got["metrics"]["loss"],
-                               want["metrics"]["loss"], rtol=1e-5,
-                               err_msg=what)
-    assert got["target"] == want["target"], what
-    _assert_stats_close(got["stats"], want["stats"], what)
-    _assert_updates_close(got["params"], want["params"], sd0, 5e-2, what)
 
 
 def _whole_site(name, spec, x, weights):
@@ -615,11 +412,11 @@ def test_h_site_on_shards_is_the_whole_op(runs, case):
     for g in got:
         (lo, hi), (o0, o1) = g["rows"], g["out_rows"]
         assert g["out"].shape[2] == o1 - o0
-        assert _rel(g["out"], out[:, :, o0:o1]) <= 1e-6, case
-        assert _rel(g["dx"], dx[:, :, lo:hi]) <= 1e-6, case
+        assert rel(g["out"], out[:, :, o0:o1]) <= 1e-6, case
+        assert rel(g["dx"], dx[:, :, lo:hi]) <= 1e-6, case
         assert len(g["dw"]) == len(dw)
         for a, b in zip(g["dw"], dw):
-            assert _rel(a, b) <= 1e-3, case
+            assert rel(a, b) <= 1e-3, case
 
 
 def test_bottleneck_block_on_shards(runs):
@@ -634,11 +431,11 @@ def test_bottleneck_block_on_shards(runs):
         got = rank["block"]
         shard = SpatialShard(BLOCK_H, r, 2)
         (lo, hi), (o0, o1) = shard.rows(), shard.rows(2)
-        assert _rel(got["out"], want["out"][:, :, o0:o1]) <= 1e-5
-        assert _rel(got["dx"][:, :, lo:hi], want["dx"][:, :, lo:hi]) <= 1e-5
+        assert rel(got["out"], want["out"][:, :, o0:o1]) <= 1e-5
+        assert rel(got["dx"][:, :, lo:hi], want["dx"][:, :, lo:hi]) <= 1e-5
         assert len(got["dw"]) == len(want["dw"]) == 12
         for a, b in zip(got["dw"], want["dw"]):
-            assert _rel(a, b) <= 1e-5
+            assert rel(a, b) <= 1e-5
 
 
 @pytest.mark.parametrize("case", [n for n, (_, _, over) in STEPS.items()
@@ -651,14 +448,10 @@ def test_pretrain_steps_on_shards_match_one_process(runs, case):
     --ntxent_weight 0.5, against one process on the global batch with the
     same flags."""
     ranks = runs["ranks"][case]
-    _assert_ranks_agree(ranks, case)
-    _assert_step_close(ranks[0][case],
-                       runs["one"][SAME_REFERENCE.get(case, case)],
-                       runs["sd0"][STEPS[case][0]], case)
-
-
-def _cos(a, b):
-    return float(a @ b / (a.norm() * b.norm()))
+    assert_ranks_agree(ranks, case)
+    assert_step_close(ranks[0][case],
+                      runs["one"][SAME_REFERENCE.get(case, case)],
+                      runs["sd0"][STEPS[case][0]], case)
 
 
 @pytest.mark.parametrize("case", ["c3d32_int8", "r3dB_int8"])
@@ -668,7 +461,7 @@ def test_int8_steps_on_shards_match_one_process(runs, case):
     holds) against one process, within ``INT8_LIMITS``: the loss terms, 1
     - the update's cosine, every BN running statistic over its leaf's
     largest value; the target tower bitwise, every rank the same state."""
-    _assert_ranks_agree(runs["ranks"][case], case)
+    assert_ranks_agree(runs["ranks"][case], case)
     got, want = runs["ranks"][case][0][case], runs["one"][case]
     sd0 = runs["sd0"][STEPS[case][0]]
     assert all(np.isfinite(v) for v in got["metrics"].values())
@@ -680,7 +473,7 @@ def test_int8_steps_on_shards_match_one_process(runs, case):
         return torch.cat([(p[k] - sd0[k]).flatten().double()
                           for k in sorted(sd0)])
 
-    dev = 1 - _cos(update(got["params"]), update(want["params"]))
+    dev = 1 - cos(update(got["params"]), update(want["params"]))
     stats = max(float((got["stats"][k] - v).abs().max() / v.abs().max())
                 for k, v in want["stats"].items())
     for value, limit, what in zip((loss, dev, stats), INT8_LIMITS,
@@ -695,9 +488,9 @@ def test_finetune_and_eval_on_shards(runs, model):
     the eval logits (the pool a sum over 'model') within 1e-5."""
     case = f"ft {model}"
     ranks = runs["ranks"][case]
-    _assert_ranks_agree(ranks, case)
+    assert_ranks_agree(ranks, case)
     want = runs["one"][case]
-    _assert_step_close(ranks[0][case], want, runs["sd0"][case], case)
+    assert_step_close(ranks[0][case], want, runs["sd0"][case], case)
     for r in ranks:
         torch.testing.assert_close(r[case]["logits"], want["logits"],
                                    rtol=1e-5, atol=1e-5)
@@ -721,13 +514,13 @@ def test_mesh12_steps_match_jax_mesh12(runs, model):
     got, want = runs["ranks"][case][0][case], runs["jax"][model]
     np.testing.assert_allclose(got["metrics"]["loss"],
                                want["metrics"]["loss"], rtol=1e-5)
-    _assert_updates_close(got["params"], want["params"], runs["sd0"][model],
-                          5e-2, f"JAX (1, 2) {model}")
-    skipped = _assert_stats_close(got["stats"], want["stats"],
-                                  f"JAX (1, 2) {model}", JAX_MESH12_DEPARTS)
+    assert_updates_close(got["params"], want["params"], runs["sd0"][model],
+                         5e-2, f"JAX (1, 2) {model}")
+    skipped = assert_stats_close(got["stats"], want["stats"],
+                                 f"JAX (1, 2) {model}", JAX_MESH12_DEPARTS)
     assert skipped == 0
 
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    _worker(sys.argv[1], sys.argv[2], sys.argv[3])
+    worker(sys.argv[1], sys.argv[2], sys.argv[3], JOBS, _run, _INPUTS)
