@@ -228,13 +228,6 @@ class Config:
 
     def check_ported(self) -> None:
         """Refuse flag values whose code paths the port does not have."""
-        if self.shard_spatial and base_model_name(self.model_name) not in \
-                SHARDED_FAMILIES:
-            raise NotImplementedError(
-                f"--shard_spatial on {self.model_name!r}: the port splits H "
-                "over 'model' in the R(2+1)D, C3D, 3D-ResNet, S3D-G and I3D "
-                "towers only; SlowFast and SlowFast-FB (two pathways, "
-                "laterals) are ROADMAP item 17c-ii part e")
         if base_model_name(self.model_name) not in PORTED_FAMILIES:
             raise ValueError(f"unknown backbone {self.model_name!r}; have "
                              f"{sorted(PORTED_FAMILIES)}")
@@ -249,14 +242,10 @@ class Config:
 
 
 # backbone families the port builds (models/__init__.py): every family the
-# JAX package registers
+# JAX package registers, each of whose towers splits H over 'model' under
+# --shard_spatial (models/sharded.py ShardedTower)
 PORTED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d", "slowfast",
                    "slowfast_fb")
-
-
-# the families whose towers split H over 'model' under --shard_spatial
-# (models/sharded.py ShardedTower)
-SHARDED_FAMILIES = ("r21d", "c3d", "r3d", "s3d", "i3d")
 
 
 def base_model_name(arch: str) -> str:

@@ -1,5 +1,6 @@
 """``--shard_spatial`` on a backbone tower: its H split over the 'model'
-ranks, shared by R(2+1)D, C3D, the 3D-ResNets, S3D-G and I3D.
+ranks, shared by every family: R(2+1)D, C3D, the 3D-ResNets, S3D-G, I3D
+and SlowFast (both pathways on one split).
 
 The JAX package's ``--shard_spatial`` is one sharding constraint on the
 5-D views (``spatial_constraint_fn``) that XLA carries through every conv
@@ -115,15 +116,13 @@ class ShardedTower:
 
 def shard_spatially(module: nn.Module) -> nn.Module:
     """Every tower of ``module`` split over H from its next forward on
-    (``--shard_spatial``); a module without one (SlowFast) raises
-    ``NotImplementedError`` (ROADMAP item 17c-ii part e)."""
+    (``--shard_spatial``); a module without one (the r3d and s3d_g of
+    ``models/legacy.py``'s zoo) raises ``NotImplementedError``."""
     towers = [m for m in module.modules() if isinstance(m, ShardedTower)]
     if not towers:
         raise NotImplementedError(
-            f"--shard_spatial on {type(module).__name__}: the port splits H "
-            "over 'model' in the R(2+1)D, C3D, 3D-ResNet, S3D-G and I3D "
-            "towers; SlowFast and SlowFast-FB (two pathways, laterals) are "
-            "ROADMAP item 17c-ii part e")
+            f"--shard_spatial on {type(module).__name__}: it holds no tower "
+            "that splits H over 'model' (models/sharded.py ShardedTower)")
     for tower in towers:
         tower.shard_spatially()
     return module

@@ -28,16 +28,27 @@ module names are the JAX package's (``slow_conv1``, ``fast_bn1``,
 ``lateral_pool1``, ``slow_layer{i}_block{j}``, ``lateral_res{i}``), so
 ``models/bridge.py`` maps weights by rename; ``_Lateral``'s norm is itself
 named ``bn``, its Flax leaves sit at ``lateral_pool1/bn/bn/*``.
+
+Under ``--shard_spatial`` (``models/sharded.py``) both pathways split H
+over 'model' on one ``SpatialShard``: their spatial strides agree at every
+point (both stems and both stem pools stride 2, each stage's first block
+2), so one list of stage heights serves both. The H sites are the two
+stems, the two stem pools (``MaxPool3d`` modules, no parameters: the
+state-dict names are unchanged) and each block's (k, 3, 3) convs and
+strided projection; the laterals are (5,1,1) convs, no H site, and join
+rows of the same shard. Their BatchNorms and int8 scales, like every
+other, are taken over the shards.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from cstp_tpu_torch.models.layers import BatchNorm, Conv3d, max_pool_3d
+from cstp_tpu_torch.models.layers import BatchNorm, Conv3d, MaxPool3d
+from cstp_tpu_torch.models.sharded import ShardedTower
 
 # depth -> (block, per-stage block counts, expansion); the 3D-ResNet table
 SLOWFAST_LAYERS = {
@@ -62,12 +73,16 @@ class _SFBlock(nn.Module):
 
     def _init_shortcut(self, in_ch: int, out_ch: int, stride: int,
                        bn_groups: int, gen):
+        self.stride = stride
         self.project = stride != 1 or in_ch != out_ch
         if self.project:
             self.downsample_conv = Conv3d(in_ch, out_ch, 1,
                                           (1, stride, stride), 0, self.dtype,
                                           gen, quant=self.quant)
             self.downsample_bn = BatchNorm(out_ch, bn_groups, gen)
+
+    def _shortcut_sites(self, stride: int):
+        return [(self.downsample_conv, stride)] if self.project else []
 
     def _residual(self, out, x, train: bool) -> torch.Tensor:
         res = (self.downsample_bn(self.downsample_conv(x), train)
@@ -93,6 +108,11 @@ class _SFBasic(_SFBlock):
                             gen, quant=quant)
         self.bn2 = BatchNorm(planes, bn_groups, gen)
         self._init_shortcut(in_ch, planes, stride, bn_groups, gen)
+
+    def h_sites(self, stride: int):
+        """Its H sites on input rows of total stride ``stride``."""
+        return ([(self.conv1, stride), (self.conv2, stride * self.stride)]
+                + self._shortcut_sites(stride))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x), train)).to(self.dtype)
@@ -122,6 +142,12 @@ class _SFBottleneck(_SFBlock):
         self.bn3 = BatchNorm(planes * 4, bn_groups, gen)
         self._init_shortcut(in_ch, planes * 4, stride, bn_groups, gen)
 
+    def h_sites(self, stride: int):
+        """Its H sites on input rows of total stride ``stride``."""
+        return ([(self.conv1, stride), (self.conv2, stride),
+                 (self.conv3, stride * self.stride)]
+                + self._shortcut_sites(stride))
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x), train)).to(self.dtype)
         out = torch.relu(self.bn2(self.conv2(out), train)).to(self.dtype)
@@ -146,7 +172,7 @@ class _Lateral(nn.Module):
         return torch.relu(self.bn(self.conv(fast), train)).to(self.dtype)
 
 
-class SlowFastNet(nn.Module):
+class SlowFastNet(ShardedTower, nn.Module):
     """Returns the concatenated pooled features of both pathways,
     ``slowfast_feat_dim(depth)`` of them. A depth without a layout builds
     depth 18. The shortcuts are projections only (the registry ignores
@@ -168,6 +194,8 @@ class SlowFastNet(nn.Module):
         self.fast_conv1 = Conv3d(3, cf, (5, 7, 7), (1, 2, 2), (2, 3, 3),
                                  dtype, gen, quant=quant)
         self.fast_bn1 = BatchNorm(cf, bn_groups, gen)
+        self.slow_pool = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
+        self.fast_pool = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
         self.lateral_pool1 = _Lateral(cf, alpha, **kw)
         slow_ch, fast_ch = 64 + 2 * cf, cf
         self.stages = []
@@ -192,18 +220,33 @@ class SlowFastNet(nn.Module):
                 slow_ch += 2 * fast_ch
             self.stages.append((names, lateral))
 
+    def h_sites(self) -> List[Tuple[nn.Module, int]]:
+        """Both pathways' sites, each stage's slow block before its fast
+        block; the strides agree, so the heights do."""
+        sites = [(self.slow_conv1, 1), (self.fast_conv1, 1),
+                 (self.slow_pool, 2), (self.fast_pool, 2)]
+        stride = 4
+        for names, _ in self.stages:
+            for s_name, f_name in names:
+                slow, fast = getattr(self, s_name), getattr(self, f_name)
+                sites += slow.h_sites(stride) + fast.h_sites(stride)
+                stride *= slow.stride
+        return sites
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         if x.shape[1] % self.alpha:
             raise ValueError(f"fast-path length {x.shape[1]} not divisible "
                              f"by alpha={self.alpha}")
+        if self.spatial:
+            x = self.own_rows(x)
         x = x.to(self.dtype)
         slow, fast = x[:, ::self.alpha], x
         slow = torch.relu(self.slow_bn1(self.slow_conv1(slow), train)
                           ).to(self.dtype)
-        slow = max_pool_3d(slow, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        slow = self.slow_pool(slow)
         fast = torch.relu(self.fast_bn1(self.fast_conv1(fast), train)
                           ).to(self.dtype)
-        fast = max_pool_3d(fast, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        fast = self.fast_pool(fast)
         slow = torch.cat([slow, self.lateral_pool1(fast, train)], dim=-1)
         for names, lateral in self.stages:
             for s_name, f_name in names:
@@ -212,5 +255,4 @@ class SlowFastNet(nn.Module):
             if lateral is not None:
                 slow = torch.cat([slow, getattr(self, lateral)(fast, train)],
                                  dim=-1)
-        return torch.cat([slow.float().mean(dim=(1, 2, 3)),
-                          fast.float().mean(dim=(1, 2, 3))], dim=-1)
+        return torch.cat([self.pooled(slow), self.pooled(fast)], dim=-1)

@@ -23,6 +23,8 @@ from cstp_tpu_torch.augment.pipeline import (
 from cstp_tpu_torch.augment.params import ClipAugParams
 from cstp_tpu_torch.ops import augment as A
 
+from _torch_threads import torch_threads  # noqa: F401
+
 N, T, H0, W0, S = 3, 4, 64, 80, 48
 
 def _inputs(seed, null=False, hue_sign=0.0):

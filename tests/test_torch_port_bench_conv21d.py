@@ -9,6 +9,8 @@ import torch
 
 from cstp_tpu_torch.perf import bench_conv21d as bench
 
+from _torch_threads import torch_threads  # noqa: F401
+
 _TINY = ["--b", "4", "--t", "4", "--hw", "8", "--cin", "32", "--mid", "16",
          "--cout", "16", "--iters", "1"]
 

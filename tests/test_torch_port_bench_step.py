@@ -10,6 +10,8 @@ import pytest
 
 from cstp_tpu_torch.perf import bench_step
 
+from _torch_threads import torch_threads  # noqa: F401
+
 _TINY = ["--device", "cpu", "--per-chip-bs", "4", "--steps", "1",
          "--warmup", "1"]
 

@@ -5,6 +5,8 @@ import shutil
 
 from cstp_tpu_torch.ops import build
 
+from _torch_threads import torch_threads  # noqa: F401
+
 
 def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
     """Editing a shared header (``csrc/*.cuh``) renames every library, so the

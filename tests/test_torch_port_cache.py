@@ -14,6 +14,8 @@ from cstp_tpu.utils import cache as jax_cache
 from cstp_tpu_torch.ops import build
 from cstp_tpu_torch.utils import cache
 
+from _torch_threads import torch_threads  # noqa: F401
+
 
 def test_cpu_fingerprint_is_the_jax_package_s():
     assert cache._cpu_fingerprint() == jax_cache._cpu_fingerprint()

@@ -31,6 +31,8 @@ from cstp_tpu_torch.train.finetune import create_finetune_state
 from cstp_tpu_torch.train.optim import ReduceLROnPlateau
 from cstp_tpu_torch.train.pretrain import create_pretrain_state
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S = 4, 4, 32
 N_CLASSES = 5
 

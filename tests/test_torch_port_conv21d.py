@@ -24,6 +24,8 @@ from cstp_tpu_torch.models.bridge import export_jax_variables, load_jax_variable
 from cstp_tpu_torch.models.layers import SpatioTemporalConv
 from cstp_tpu_torch.ops import conv21d as C
 
+from _torch_threads import torch_threads  # noqa: F401
+
 def _inputs(seed, b=4, t=4, h=8, w=8, cin=8, m=16, cout=8):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, t, h, w, cin)).astype(np.float32),

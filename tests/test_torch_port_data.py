@@ -43,6 +43,8 @@ from cstp_tpu_torch.train import optim as poptim
 from cstp_tpu_torch.utils import tb as ptb
 from cstp_tpu_torch.utils.preemption import PreemptionGuard
 
+from _torch_threads import torch_threads  # noqa: F401
+
 HW = (24, 32)          # ingest size of the file-backed cases
 N_VIDEOS, N_FRAMES = 3, 7
 # frame indices to read: in order, reversed, repeated

@@ -40,6 +40,8 @@ from cstp_tpu_torch.config import Config
 from cstp_tpu_torch.models.bridge import load_jax_variables
 from cstp_tpu_torch.train import finetune as pft
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S, H0, W0 = 6, 4, 32, 40, 56
 N_CLASSES = 5
 

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 T, S, N_CLASSES, N_VIDEOS = 4, 32, 5, 5
 # pb_rate 25: window span 76, so the synthetic videos (40-300 frames) give

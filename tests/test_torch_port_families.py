@@ -50,6 +50,8 @@ from cstp_tpu_torch.train.pretrain import (
     make_preaugmented_step,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S, H0, W0 = 4, 8, 32, 40, 48
 N_CLASSES = 7
 LR = 3e-4

@@ -46,6 +46,8 @@ from cstp_tpu_torch.train.finetune import (
     make_preaugmented_finetune_step,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S, H0, W0 = 8, 4, 32, 40, 48
 N_CLASSES = 7
 LR = 3e-4

@@ -41,6 +41,8 @@ from cstp_tpu_torch.train.pretrain import (
     make_preaugmented_step,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S = 8, 4, 32
 LR = 3e-4
 ACCUM = 2

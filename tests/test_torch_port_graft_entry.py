@@ -4,6 +4,8 @@ parallel steps in two gloo processes, the counterpart of the JAX package's
 
 from cstp_tpu_torch.graft_entry import dryrun_multichip
 
+from _torch_threads import torch_threads  # noqa: F401
+
 
 def test_dryrun_multichip_two_gloo_ranks():
     lines = dryrun_multichip(2, timeout=120).splitlines()

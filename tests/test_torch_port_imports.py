@@ -18,6 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _CHECK = """
@@ -187,29 +189,29 @@ def test_config_takes_the_model_axis_flags(flag):
     dict(model_name="i3d"), dict(model_name="s3d_byol"),
     dict(model_name="slowfast"), dict(model_name="slowfast_fb"),
 ])
-def test_config_refuses_shard_spatial_outside_r21d_float(flag):
-    """``--shard_spatial`` on SlowFast and SlowFast-FB waits for ROADMAP
-    item 17c-ii part e, and the model code refuses such a module too; I3D
-    and S3D-G take it since part d, in the config and the model code
-    (R(2+1)D takes every ``--quant`` mode on its H shards, C3D, the
-    3D-ResNets, S3D-G and I3D every flag they take at world 1: the tests
-    below)."""
+def test_config_and_model_take_shard_spatial_on_every_family(flag):
+    """``--shard_spatial`` builds a config on every family, SlowFast and
+    SlowFast-FB since ROADMAP item 17c-ii part e (I3D and S3D-G since
+    part d), and the model code splits each backbone (SlowFast's at depth
+    18 and 50) into a ``ShardedTower``; a module that holds none (the
+    legacy zoo's r3d) is refused."""
     from cstp_tpu_torch.config import Config
     from cstp_tpu_torch.models import make_backbone
+    from cstp_tpu_torch.models.legacy import make_legacy_model
     from cstp_tpu_torch.models.sharded import ShardedTower, shard_spatially
 
-    with torch.device("meta"):
-        backbone = make_backbone(flag["model_name"], 18, dtype=torch.float32)
-    if not flag["model_name"].startswith("slowfast"):
-        cfg = Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
-        assert cfg.shard_spatial == 1
+    cfg = Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
+    assert cfg.shard_spatial == 1
+    for depth in (18, 50):
+        with torch.device("meta"):
+            backbone = make_backbone(flag["model_name"], depth,
+                                     dtype=torch.float32)
         assert isinstance(backbone, ShardedTower)
         assert shard_spatially(backbone).spatial
-        return
-    with pytest.raises(NotImplementedError, match="17c-ii part e"):
-        Config(shard_spatial=1, mesh_shape=(1, 2), **flag).finalize()
-    with pytest.raises(NotImplementedError, match="17c-ii part e"):
-        shard_spatially(backbone)
+    with torch.device("meta"):
+        legacy = make_legacy_model("r3d", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ShardedTower"):
+        shard_spatially(legacy)
 
 
 @pytest.mark.parametrize("flag", [
@@ -257,6 +259,33 @@ def test_config_takes_shard_spatial_on_s3d_and_i3d(flag):
     shards (ROADMAP item 17c-ii part d) with the flags they take at world
     1, on a (1, 2) and a (2, 2) mesh; ``--quant int8_store`` stays an
     R(2+1)D flag, as in the JAX package."""
+    from cstp_tpu_torch.config import Config
+
+    for shape in ((1, 2), (2, 2)):
+        cfg = Config(shard_spatial=1, mesh_shape=shape, batch_size=4,
+                     **flag).finalize()
+        for k, v in flag.items():
+            assert getattr(cfg, k) == v
+    with pytest.raises(ValueError, match="r21d"):
+        Config(model_name=flag["model_name"], quant="int8_store",
+               shard_spatial=1, mesh_shape=(1, 2)).finalize()
+
+
+@pytest.mark.parametrize("flag", [
+    dict(model_name="slowfast"), dict(model_name="slowfast_fb"),
+    dict(model_name="slowfast", model_depth=50, quant="int8"),
+    dict(model_name="slowfast_fb", quant="int8_fixed"),
+    dict(model_name="slowfast_fb", quant="int8_static", task="test"),
+    dict(model_name="slowfast", quant="int8_calib", task="test"),
+    dict(model_name="slowfast_fb", task="scratch", ft_begin_index=3),
+    dict(model_name="slowfast", tau=8, alpha=4, sync_bn=0, grad_accum=2,
+         concat_views=0, shard_opt_state=1, ntxent_weight=0.5),
+])
+def test_config_takes_shard_spatial_on_slowfast(flag):
+    """SlowFast and SlowFast-FB (both pathways and the laterals on one H
+    split) on H shards (ROADMAP item 17c-ii part e) with the flags they
+    take at world 1, on a (1, 2) and a (2, 2) mesh; ``--quant
+    int8_store`` stays an R(2+1)D flag, as in the JAX package."""
     from cstp_tpu_torch.config import Config
 
     for shape in ((1, 2), (2, 2)):

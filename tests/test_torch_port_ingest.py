@@ -40,6 +40,8 @@ from cstp_tpu_torch.data import extract_frames as pextract
 from cstp_tpu_torch.data import pack as ppack
 from cstp_tpu_torch.models.bridge import export_jax_variables
 
+from _torch_threads import torch_threads  # noqa: F401
+
 NAMES = ["classA/v_00", "classA/v_01", "classB/v_02", "classB/v_03"]
 
 

@@ -63,6 +63,8 @@ from cstp_tpu_torch.models.layers import (
 )
 from cstp_tpu_torch.ops import quant as q
 
+from _torch_threads import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 B, T, S = 4, 4, 32
 LR = 3e-4   # the Config default

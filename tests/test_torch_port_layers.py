@@ -31,6 +31,8 @@ from cstp_tpu_torch.models.layers import (
 )
 from cstp_tpu_torch.models.r21d import R2Plus1DNet, SpatioTemporalResBlock
 
+from _torch_threads import torch_threads  # noqa: F401
+
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)

@@ -54,6 +54,8 @@ from cstp_tpu_torch.models.s3dg import space_to_depth_stem
 from cstp_tpu_torch.ssl.byol import CSTPClassify
 from cstp_tpu_torch.train import finetune as pft
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S, H0, W0 = 4, 8, 32, 40, 48
 N_CLASSES = 7
 LR = 3e-4

@@ -20,6 +20,8 @@ import pytest
 from cstp_tpu.data import lmdb_store as jstore
 from cstp_tpu_torch.data import lmdb_store as pstore
 
+from _torch_threads import torch_threads  # noqa: F401
+
 
 @pytest.fixture
 def tmp_path(tmp_path):

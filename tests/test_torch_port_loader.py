@@ -29,6 +29,8 @@ from cstp_tpu_torch.data.synthetic import (
     SyntheticVideoDataset as PSynthetic,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 T = 4
 
 

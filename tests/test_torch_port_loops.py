@@ -46,6 +46,8 @@ from cstp_tpu_torch.train.pretrain import (
     make_pretrain_step,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 T, S, N_CLASSES = 4, 32, 5
 # pb_rate 25: window span 76, so the synthetic videos (40-300 frames) give
 # 1-4 test windows each, one window bucket, one JAX program per step

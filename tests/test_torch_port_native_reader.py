@@ -29,6 +29,8 @@ from cstp_tpu_torch.data.packed import PackedDataset, PackedWriter
 from cstp_tpu_torch.ops import build
 from cstp_tpu_torch.train.loops import build_dataset
 
+from _torch_threads import torch_threads  # noqa: F401
+
 STORED = (48, 64)
 N_RAW, N_JPEG, N_FRAMES = 4, 2, 10
 

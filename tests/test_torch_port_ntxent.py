@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 B, D = 6, 16            # rows per view and projection width
 TEMPERATURE = 0.5

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 B, T, S = 4, 4, 32          # global per-view batch, frames, size
 B_ACCUM = 16                # the grad_accum=2 case's global batch

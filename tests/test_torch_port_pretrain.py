@@ -52,6 +52,8 @@ from cstp_tpu_torch.train.pretrain import (
     make_preaugmented_step,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S = 4, 4, 32
 LR = 3e-4   # the Config default
 KEYS = ("view1", "view2", "spa", "tem", "pb", "rot1", "rot2")

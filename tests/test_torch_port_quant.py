@@ -44,6 +44,8 @@ from cstp_tpu_torch.models.bridge import (
 from cstp_tpu_torch.models.layers import Conv3d
 from cstp_tpu_torch.ops import quant as q
 
+from _torch_threads import torch_threads  # noqa: F401
+
 T, S, B = 4, 32, 4
 
 

@@ -41,6 +41,8 @@ from cstp_tpu_torch.models import layers as pl
 from cstp_tpu_torch.models.bridge import export_jax_variables
 from cstp_tpu_torch.models.layers import SpatioTemporalConv
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S = 4, 4, 32
 LR = 3e-4
 KEYS = ("view1", "view2", "spa", "tem", "pb", "rot1", "rot2")

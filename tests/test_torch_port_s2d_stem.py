@@ -39,6 +39,8 @@ from cstp_tpu_torch.models.bridge import (
 )
 from cstp_tpu_torch.models.layers import SpatioTemporalConv
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T = 4, 4
 
 

@@ -18,6 +18,8 @@ from cstp_tpu.pretext.sampling import OVERLAP_SPA_RATE
 from cstp_tpu_torch.augment import params as P
 from cstp_tpu_torch.pretext import boxes as B
 
+from _torch_threads import torch_threads  # noqa: F401
+
 N, T = 20000, 4
 W0, H0 = 171.0, 128.0
 

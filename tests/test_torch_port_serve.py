@@ -47,6 +47,8 @@ from cstp_tpu_torch.train.finetune import (
 )
 from cstp_tpu_torch.train.pretrain import TrainState
 
+from _torch_threads import torch_threads  # noqa: F401
+
 T, S, HW = 4, 32, (40, 52)
 NUM_CLASSES = 7
 _KW = dict(model_name="r21d", model_depth=1, sample_duration=T,

@@ -69,6 +69,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_threads import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 B, T, S = 4, 4, 32          # global per-view batch, frames, size
 S_UNEVEN = 56               # conv4's 7 rows split 4 / 3 over 2 ranks

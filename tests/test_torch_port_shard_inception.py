@@ -82,6 +82,8 @@ from _shard_harness import (
     worker,
 )
 
+from _torch_threads import torch_threads  # noqa: F401
+
 LR = 3e-4
 N_CLASSES = 5
 M12 = dict(mesh_shape=(1, 2), shard_spatial=1)

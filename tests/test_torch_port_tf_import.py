@@ -27,6 +27,8 @@ from cstp_tpu_torch.models import make_backbone
 from cstp_tpu_torch.models import tf_checkpoint as tfc
 from cstp_tpu_torch.models.i3d_tf_import import load_tf_i3d, sonnet_name_map
 
+from _torch_threads import torch_threads  # noqa: F401
+
 N_CLASSES = 5
 
 

@@ -37,6 +37,8 @@ from cstp_tpu_torch.models.bridge import (
 from cstp_tpu_torch.ssl.byol import CSTPClassify, CSTPPretrain
 from cstp_tpu_torch.train import loops
 
+from _torch_threads import torch_threads  # noqa: F401
+
 B, T, S = 4, 8, 32
 N_CLASSES = 6
 # family -> (model_name, depth)
